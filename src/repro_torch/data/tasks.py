@@ -1,0 +1,221 @@
+"""Concrete federated tasks mirroring the paper's three experiments.
+
+Task 1: regression  (Boston-like,   m=5,   linear model, MSE)
+Task 2: CNN         (MNIST-like,    m=100, 2x conv5x5 + fc, softmax)
+Task 3: SVM         (KDD-like,      m=500, linear SVM, hinge loss)
+
+Each implements ``repro_torch.core.federation.Task``: ``local_train`` runs
+E epochs of mini-batch SGD (Algorithm 2's client_update) on every client
+at once, batched over the stacked clients dim with
+``torch.func.vmap(torch.func.grad(loss))``.
+
+Parameters keep the JAX package's layouts, so weights carry across
+unchanged (``repro_torch.convert``): conv weights are HWIO, fully
+connected weights [in, out], activations flatten in NHWC order.  Train
+and eval steps run in full float32: TF32 is switched off for cuDNN
+convolutions and for matmuls while they run, and restored after.
+"""
+from __future__ import annotations
+
+import contextlib
+import functools
+import hashlib
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch import optim
+from repro_torch.core.federation import Task
+from repro_torch.data import FederatedData
+from repro_torch.kernels.backend import resolve_device
+
+
+@contextlib.contextmanager
+def fp32_math():
+    """Full float32 convolutions and matmuls (TF32 off) for the enclosed
+    steps; the process-wide flags are restored on exit."""
+    matmul = torch.backends.cuda.matmul
+    prev = (matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+class SupervisedTask(Task):
+    def __init__(self, data: FederatedData, *, init_fn, loss_fn, acc_fn,
+                 lr: float, epochs: int, device='cuda'):
+        self.device = resolve_device(device)
+        self.data = data
+        self.init_fn = init_fn          # (torch.Generator) -> params on CPU
+        self.loss_fn = loss_fn          # (params, x, y) -> scalar
+        self.acc_fn = acc_fn            # (params, x, y) -> scalar
+        self.epochs = epochs
+        self.lr = lr
+        self.opt = optim.sgd(lr)
+        self._x = torch.as_tensor(data.x, device=self.device)  # [m, nb, B, ...]
+        self._y = torch.as_tensor(data.y, device=self.device)
+        self._test_x = torch.as_tensor(data.test_x, device=self.device)
+        self._test_y = torch.as_tensor(data.test_y, device=self.device)
+        self._grads = torch.func.vmap(torch.func.grad(loss_fn))
+
+    def init_global(self, seed: int) -> dict:
+        """The port's own seeded init (JAX's PRNG cannot be reproduced in
+        torch; parity runs pass the reference's init instead)."""
+        gen = torch.Generator().manual_seed(int(seed))
+        return {k: v.to(self.device) for k, v in self.init_fn(gen).items()}
+
+    # -- client_update (Algorithm 2), batched over clients --------------------
+    def local_train(self, stacked_params: dict, round_idx) -> dict:
+        del round_idx  # full-pass SGD; order fixed as in the paper
+        params = dict(stacked_params)
+        with fp32_math():
+            for _ in range(self.epochs):
+                for j in range(self._x.shape[1]):
+                    g = self._grads(params, self._x[:, j], self._y[:, j])
+                    params, _ = self.opt.update(g, (), params)
+        return params
+
+    def evaluate(self, global_params: dict) -> dict:
+        with fp32_math(), torch.no_grad():
+            loss = self.loss_fn(global_params, self._test_x, self._test_y)
+            acc = self.acc_fn(global_params, self._test_x, self._test_y)
+        return {'loss': float(loss), 'acc': float(acc)}
+
+    def fingerprint(self) -> str:
+        """Identity of the training problem (client data + hypers)."""
+        if '_fingerprint' not in self.__dict__:
+            h = hashlib.sha256()
+            for a in (self.data.x, self.data.y, self.data.test_x,
+                      self.data.test_y):
+                h.update(np.ascontiguousarray(a).tobytes())
+            h.update(repr((self.lr, self.epochs)).encode())
+            self._fingerprint = \
+                f'{type(self).__name__}:{h.hexdigest()[:16]}'
+        return self._fingerprint
+
+
+def _normal(gen, shape):
+    return torch.randn(shape, generator=gen)
+
+
+# ---------------------------------------------------------------------------
+# Task 1: regression
+# ---------------------------------------------------------------------------
+
+def _reg_init(gen, d=13):
+    return {'w': 0.01 * _normal(gen, (d,)), 'b': torch.zeros(())}
+
+
+def _reg_pred(p, x):
+    # elementwise multiply + reduce, the JAX package's form
+    return torch.sum(x * p['w'], dim=-1) + p['b']
+
+
+def _reg_loss(p, x, y):
+    return torch.mean(torch.square(_reg_pred(p, x) - y))
+
+
+def _reg_acc(p, x, y):
+    """Paper Table III: acc = 1 - mean(|y - yhat| / max(y, yhat))."""
+    yh = _reg_pred(p, x)
+    return 1.0 - torch.mean(
+        torch.abs(y - yh) / torch.maximum(y, yh).clamp_min(1e-6))
+
+
+def regression_task(data: FederatedData, lr=1e-4, epochs=3,
+                    device='cuda') -> SupervisedTask:
+    d = data.x.shape[-1]
+    return SupervisedTask(data, init_fn=functools.partial(_reg_init, d=d),
+                          loss_fn=_reg_loss, acc_fn=_reg_acc, lr=lr,
+                          epochs=epochs, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Task 2: CNN (2x conv 5x5 [20, 50 ch] + 2x2 maxpool + fc relu + softmax)
+# ---------------------------------------------------------------------------
+
+def _cnn_init(gen, side=28, classes=10, c1=20, c2=50, hidden=128):
+    s = side // 4
+
+    def conv_w(shape):
+        fan_in = shape[0] * shape[1] * shape[2]
+        return _normal(gen, shape) / math.sqrt(fan_in)
+    return {
+        'c1': conv_w((5, 5, 1, c1)), 'b1': torch.zeros((c1,)),
+        'c2': conv_w((5, 5, c1, c2)), 'b2': torch.zeros((c2,)),
+        'f1': _normal(gen, (s * s * c2, hidden)) / math.sqrt(s * s * c2),
+        'fb1': torch.zeros((hidden,)),
+        'f2': _normal(gen, (hidden, classes)) / math.sqrt(hidden),
+        'fb2': torch.zeros((classes,)),
+    }
+
+
+def _conv_same(h, w_hwio, b):
+    """5x5 'SAME' convolution of NCHW ``h`` by an HWIO weight, plus bias."""
+    out = F.conv2d(h, w_hwio.permute(3, 2, 0, 1), padding=w_hwio.shape[0] // 2)
+    return out + b[None, :, None, None]
+
+
+def _cnn_logits(p, x):
+    h = x.permute(0, 3, 1, 2)                          # NHWC -> NCHW
+    h = F.max_pool2d(F.relu(_conv_same(h, p['c1'], p['b1'])), 2)
+    h = F.max_pool2d(F.relu(_conv_same(h, p['c2'], p['b2'])), 2)
+    h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)  # flatten as NHWC
+    h = F.relu(h @ p['f1'] + p['fb1'])
+    return h @ p['f2'] + p['fb2']
+
+
+def _cnn_loss(p, x, y):
+    logits = _cnn_logits(p, x)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, y[:, None].long())[:, 0]
+    return torch.mean(logz - gold)
+
+
+def _cnn_acc(p, x, y):
+    return torch.mean((torch.argmax(_cnn_logits(p, x), -1) == y).float())
+
+
+def cnn_task(data: FederatedData, lr=1e-3, epochs=5,
+             device='cuda') -> SupervisedTask:
+    side = data.x.shape[-3]
+    classes = int(data.y.max()) + 1
+    return SupervisedTask(
+        data, init_fn=functools.partial(_cnn_init, side=side, classes=classes),
+        loss_fn=_cnn_loss, acc_fn=_cnn_acc, lr=lr, epochs=epochs,
+        device=device)
+
+
+# ---------------------------------------------------------------------------
+# Task 3: linear SVM, hinge loss, labels in {-1, +1}
+# ---------------------------------------------------------------------------
+
+def _svm_init(gen, d=35):
+    return {'w': 0.01 * _normal(gen, (d,)), 'b': torch.zeros(())}
+
+
+def _svm_margin(p, x):
+    return torch.sum(x * p['w'], dim=-1) + p['b']
+
+
+def _svm_loss(p, x, y, l2=1e-4):
+    hinge = torch.mean(torch.clamp_min(1.0 - y * _svm_margin(p, x), 0.0))
+    return hinge + l2 * torch.sum(torch.square(p['w']))
+
+
+def _svm_acc(p, x, y):
+    """Paper Table III: mean(max(0, sign(y * yhat)))."""
+    return torch.mean(torch.clamp_min(torch.sign(y * _svm_margin(p, x)), 0.0))
+
+
+def svm_task(data: FederatedData, lr=1e-2, epochs=5,
+             device='cuda') -> SupervisedTask:
+    d = data.x.shape[-1]
+    return SupervisedTask(data, init_fn=functools.partial(_svm_init, d=d),
+                          loss_fn=_svm_loss, acc_fn=_svm_acc, lr=lr,
+                          epochs=epochs, device=device)

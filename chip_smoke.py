@@ -12,7 +12,8 @@ Phases, each of which must pass:
              (m = 100 clients, N = 342,016: the Task 2 CNN's pack width),
              on seeded inputs, against its plain version on the card; times
              from CUDA events over warm launches, beside the least time the
-             card could take (bytes over the memory rate).
+             card could take: the bytes these inputs' masks need (Eq. 6-8
+             selects whole client rows) over the memory rate.
 3. main    — the paper's Task 2 CNN at full width (m = 100, 24 batches of
              40, 5 epochs) through ``Experiment(...).compile().run()``,
              with ``use_kernel='packed'`` and with ``wire='int8'``; each
@@ -68,13 +69,38 @@ def _time_ms(torch, fn, warm=WARM, timed=TIMED) -> float:
     return start.elapsed_time(stop) / timed
 
 
-def _record(name, source, replaces, err, ms, plain_ms, nbytes, flops):
+def _record(name, source, replaces, err, ms, plain_ms, nbytes, flops,
+            dense_bytes):
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
     return {'name': name, 'route': 'cuda', 'source': source,
             'replaces': replaces, 'launches': None, 'max_abs_err': err,
             'ms': ms, 'plain_ms': plain_ms, 'bound_ms': max(t_bytes, t_ops),
             'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
-            'library_ms': None, 'bytes': nbytes, 'flops': flops}
+            'library_ms': None, 'bytes': nbytes, 'flops': flops,
+            'dense_bytes': dense_bytes}
+
+
+def aggregate_bytes(n, picked, undrafted, deprecated, completed=None):
+    """Bytes one Eq. 6-8 launch over [m, n] rows must move for these masks
+    (numpy bool [m]), with the cache written in place: trained only where
+    picked or undrafted, cache read only where neither picked nor
+    deprecated, cache written only where Eq. 8 changes the row, global
+    read and new_global written once, masks and weights once.  With
+    ``completed`` (the int8 form) the trained rows are q and scales where
+    completed and base elsewhere, needed on every row because new_local
+    is written on every row."""
+    m = len(picked)
+    row = 4 * n
+    cache_rd = int((~picked & ~deprecated).sum())
+    cache_wr = int((picked | deprecated | undrafted).sum())
+    if completed is None:
+        trained = int((picked | undrafted).sum()) * row
+        per_client = 3 + 4
+    else:
+        done = int(completed.sum())
+        trained = done * (n + 4 * (n // 128)) + (m - done) * row + m * row
+        per_client = 4 + 4
+    return trained + (cache_rd + cache_wr) * row + 2 * row + per_client * m
 
 
 def kernel_phase(torch, n: int, fails: list) -> list:
@@ -87,9 +113,10 @@ def kernel_phase(torch, n: int, fails: list) -> list:
                                                     safa_aggregate_packed_q8)
     dev = torch.device('cuda')
     rng = np.random.default_rng(0)
-    masks = {k: torch.as_tensor(rng.random(M) < p, device=dev)
-             for k, p in (('picked', 0.3), ('undrafted', 0.2),
-                          ('deprecated', 0.2), ('completed', 0.7))}
+    host = {k: rng.random(M) < p
+            for k, p in (('picked', 0.3), ('undrafted', 0.2),
+                         ('deprecated', 0.2), ('completed', 0.7))}
+    masks = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
     w = torch.as_tensor(rng.dirichlet(np.ones(M)), dtype=torch.float32,
                         device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -132,7 +159,9 @@ def kernel_phase(torch, n: int, fails: list) -> list:
     recs.append(_record(
         'safa_aggregate_packed', 'src/repro_torch/csrc/safa_aggregate.cu',
         'src/repro/kernels/safa_aggregate.py:86', err, ms, plain,
-        12 * mn + 8 * n + 7 * M, 2 * mn))
+        aggregate_bytes(n, host['picked'], host['undrafted'],
+                        host['deprecated']),
+        2 * mn, 12 * mn + 8 * n + 7 * M))
 
     # the per-leaf route (use_kernel=True) launches the same kernel into a
     # fresh output; check it at the widest leaf's shape (f1: 2450 x 128)
@@ -158,7 +187,7 @@ def kernel_phase(torch, n: int, fails: list) -> list:
     recs.append(_record(
         'quantize_packed', 'src/repro_torch/csrc/comm_quant.cu',
         'src/repro/kernels/comm_quant.py:111', err, ms, plain,
-        5 * mn + 4 * (mn // 128), 3 * mn))
+        5 * mn + 4 * (mn // 128), 3 * mn, 5 * mn + 4 * (mn // 128)))
 
     # -- safa_aggregate_packed_q8 (dequant + Eq. 6-8, cache in place) --------
     ng_ref, nc_ref, nl_ref = ref.safa_aggregate_q8_ref(
@@ -180,12 +209,17 @@ def kernel_phase(torch, n: int, fails: list) -> list:
     recs.append(_record(
         'safa_aggregate_packed_q8', 'src/repro_torch/csrc/safa_aggregate.cu',
         'src/repro/kernels/safa_aggregate.py:255', err, ms, plain,
-        17 * mn + 4 * (mn // 128) + 8 * n + 8 * M, 3 * mn))
+        aggregate_bytes(n, host['picked'], host['undrafted'],
+                        host['deprecated'], host['completed']),
+        3 * mn, 17 * mn + 4 * (mn // 128) + 8 * n + 8 * M))
 
     for r in recs:
-        print(f"kernel {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}"
-              f" ms), bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
-              f"({r['bytes'] / 1e6:.1f} MB), max abs err {r['max_abs_err']:.3e}")
+        print(f"kernel {r['name']}: {r['ms']} ms (plain {r['plain_ms']} ms), "
+              f"bound {r['bound_ms']} ms by {r['bound_by']} "
+              f"({r['bytes'] / 1e6:.1f} MB for these masks; every row read "
+              f"and written: {r['dense_bytes'] / 1e6:.1f} MB, "
+              f"{r['dense_bytes'] / PEAK_BYTES * 1e3} ms), max abs err "
+              f"{r['max_abs_err']:.3e}")
     return recs
 
 
@@ -352,7 +386,7 @@ def main() -> int:
     launches = main_path_phase(torch, fails)
     for r in recs:
         r['launches'] = launches.get(r['name'], 0)
-        del r['bytes'], r['flops']
+        del r['bytes'], r['flops'], r['dense_bytes']
     if fails:
         for f in fails:
             print(f'FAIL {f}')

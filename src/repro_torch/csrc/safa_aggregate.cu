@@ -8,41 +8,57 @@
 //
 // Math, per client k and column j of the [m, N] pack buffers:
 //   c1 = picked ? trained : (deprecated ? global : cache)       (Eq. 6)
-//   new_global[j] = sum_k w_k * c1[k, j], f32, k = 0..m-1 in order (Eq. 7)
+//   new_global[j] = sum_k w_k * c1[k, j], f32, in a fixed order    (Eq. 7)
 //   new_cache[k, j] = undrafted ? trained : c1                  (Eq. 8)
 // The int8 form first dequantises trained = q * scales[k, j / 128] in
 // registers and takes base where the client did not complete the round;
 // it also writes that trained value as new_local.
 //
 // Bound: device-memory bytes.  Each column does 2 floating-point operations
-// per client against 12 bytes moved (16+ for the int8 form), far below the
-// card's ~20 FLOP/byte balance point.  At the main path's m = 100,
-// N = 342,016 the f32 kernel must move ~413 MB and the int8 kernel ~584 MB.
+// per client against up to 12 bytes moved (16+ for the int8 form), far below
+// the card's ~20 FLOP/byte balance point.  The bytes a round needs depend on
+// its masks, since Eq. 6-8 selects whole client rows:
+//   * trained is read only for picked or undrafted clients;
+//   * cache is read only for clients neither picked nor deprecated;
+//   * a cache written in place changes only where the client is picked,
+//     deprecated or undrafted (a fresh new_cache is written everywhere);
+//   * the int8 form reads q and scales only for completed clients and base
+//     only for the others, and writes new_local for every client.
+// The kernels move only those bytes: the masks are per client, so every
+// branch below is uniform across the block and costs no divergence.
 //
 // Design, simple and right first: the TPU kernel holds the whole m-client
-// column of a 2048-wide tile in VMEM; a Hopper block cannot, so each thread
-// owns 4 adjacent columns (16-byte loads, neighbouring threads on
-// neighbouring addresses) and streams the m clients through registers,
-// carrying the Eq. 7 sum in an f32 register.  The per-client masks and
-// weights are staged in shared memory in chunks, so any m works.  new_cache
-// may be the cache pointer itself (the packed path writes in place, as the
-// TPU's input_output_aliases does): every element is read before the same
-// thread overwrites it, so nothing here is marked __restrict__.
+// column of a 2048-wide tile in VMEM; a Hopper block cannot.  Here a block
+// owns 128 adjacent columns: each of its 32 lanes 4 of them (16-byte loads,
+// neighbouring lanes on neighbouring addresses), and each of its 8 warps
+// every 8th client, streamed through registers with the Eq. 7 partial sum
+// in an f32 register.  The warps' partial sums are added in warp order in
+// shared memory, so the result does not depend on scheduling.  Splitting
+// the clients across warps gives the grid one block per 128 columns.  In
+// the int8 form a thread issues every load of kGroup of its clients before
+// any math or store of theirs, since the compiler may not move a load above
+// a store that could alias it: its loads are chosen by the masks and would
+// otherwise wait on one another.  The f32 form, with fewer loads per
+// client, ran slower so grouped (more registers, fewer blocks per SM), and
+// keeps the plain loop.  The per-client masks
+// and weights are staged in shared memory in chunks, so any m works.  The
+// new cache may be the cache itself (the packed paths write in place, as
+// the TPU's input_output_aliases does): every element is read before the
+// same thread overwrites it, so nothing here is marked __restrict__.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kLanes = 32;       // threads across columns (4 floats each)
+constexpr int kSlices = 8;       // warps across clients
+constexpr int kThreads = kLanes * kSlices;
 constexpr int kChunk = 256;      // clients staged in shared memory at a time
 constexpr int kQBlock = 128;     // values per int8 scale (comm_quant.QBLOCK)
 constexpr int kVec = 4;          // floats per thread (one 16-byte load)
+constexpr int kGroup = 4;        // clients whose loads go together (int8)
 
 constexpr uint8_t kPicked = 1, kUndrafted = 2, kDeprecated = 4, kCompleted = 8;
-
-__device__ __forceinline__ float4 pick(bool c, float4 a, float4 b) {
-  return c ? a : b;
-}
 
 __device__ __forceinline__ void fma4(float4& acc, float4 v, float w) {
   acc.x = fmaf(v.x, w, acc.x);
@@ -58,7 +74,8 @@ __device__ __forceinline__ void stage(uint8_t* s_flags, float* s_w, int k0,
                                       const bool* deprecated,
                                       const bool* completed,
                                       const float* weights) {
-  for (int i = threadIdx.x; i < kn; i += blockDim.x) {
+  const int tid = threadIdx.y * kLanes + threadIdx.x;
+  for (int i = tid; i < kn; i += kThreads) {
     const int k = k0 + i;
     uint8_t f = 0;
     if (picked[k]) f |= kPicked;
@@ -70,15 +87,35 @@ __device__ __forceinline__ void stage(uint8_t* s_flags, float* s_w, int k0,
   }
 }
 
+// Add the warps' partial sums in warp order and write new_global.
+__device__ __forceinline__ void finish(float4 (*s_acc)[kLanes], float4 acc,
+                                       bool active, float* new_global,
+                                       long long col) {
+  s_acc[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y != 0 || !active) return;
+  float4 sum = s_acc[0][threadIdx.x];
+  for (int y = 1; y < kSlices; ++y) {
+    const float4 p = s_acc[y][threadIdx.x];
+    sum.x += p.x;
+    sum.y += p.y;
+    sum.z += p.z;
+    sum.w += p.w;
+  }
+  reinterpret_cast<float4*>(new_global)[col] = sum;
+}
+
 __global__ void __launch_bounds__(kThreads)
 safa_aggregate_kernel(const float* cache, const float* trained,
                       const float* global, const bool* picked,
                       const bool* undrafted, const bool* deprecated,
                       const float* weights, float* new_global,
-                      float* new_cache, int m, long long n4) {
+                      float* new_cache, bool in_place, int m,
+                      long long n4) {
   __shared__ uint8_t s_flags[kChunk];
   __shared__ float s_w[kChunk];
-  const long long col = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  __shared__ float4 s_acc[kSlices][kLanes];
+  const long long col = (long long)blockIdx.x * kLanes + threadIdx.x;
   const bool active = col < n4;
   const float4 g = active ? reinterpret_cast<const float4*>(global)[col]
                           : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -94,30 +131,34 @@ safa_aggregate_kernel(const float* cache, const float* trained,
     __syncthreads();
     if (!active) continue;
 #pragma unroll 4
-    for (int i = 0; i < kn; ++i) {
+    for (int i = threadIdx.y; i < kn; i += kSlices) {
       const long long off = (long long)(k0 + i) * n4 + col;
-      const float4 c = c4[off];
-      const float4 t = t4[off];
       const uint8_t f = s_flags[i];
-      const float4 c1 = pick(f & kPicked, t, pick(f & kDeprecated, g, c));
+      const float4 c1 = (f & kPicked) ? t4[off]
+                        : (f & kDeprecated) ? g : c4[off];
       fma4(acc, c1, s_w[i]);
-      nc4[off] = pick(f & kUndrafted, t, c1);
+      if (f & kUndrafted) {
+        nc4[off] = (f & kPicked) ? c1 : t4[off];
+      } else if (!in_place || (f & (kPicked | kDeprecated))) {
+        nc4[off] = c1;
+      }
     }
   }
-  if (active) reinterpret_cast<float4*>(new_global)[col] = acc;
+  finish(s_acc, acc, active, new_global, col);
 }
 
 __global__ void __launch_bounds__(kThreads)
 safa_aggregate_q8_kernel(const int8_t* q, const float* scales,
-                         const float* base, const float* cache,
+                         const float* base, float* cache,
                          const float* global, const bool* picked,
                          const bool* undrafted, const bool* deprecated,
                          const bool* completed, const float* weights,
-                         float* new_global, float* new_cache,
-                         float* new_local, int m, long long n4) {
+                         float* new_global, float* new_local, int m,
+                         long long n4) {
   __shared__ uint8_t s_flags[kChunk];
   __shared__ float s_w[kChunk];
-  const long long col = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  __shared__ float4 s_acc[kSlices][kLanes];
+  const long long col = (long long)blockIdx.x * kLanes + threadIdx.x;
   const bool active = col < n4;
   const long long n_scales = n4 / (kQBlock / kVec);   // scales per row
   const long long sblk = col / (kQBlock / kVec);      // this thread's block
@@ -125,8 +166,7 @@ safa_aggregate_q8_kernel(const int8_t* q, const float* scales,
                           : make_float4(0.f, 0.f, 0.f, 0.f);
   const char4* q4 = reinterpret_cast<const char4*>(q);
   const float4* b4 = reinterpret_cast<const float4*>(base);
-  const float4* c4 = reinterpret_cast<const float4*>(cache);
-  float4* nc4 = reinterpret_cast<float4*>(new_cache);
+  float4* c4 = reinterpret_cast<float4*>(cache);   // new cache, in place
   float4* nl4 = reinterpret_cast<float4*>(new_local);
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int k0 = 0; k0 < m; k0 += kChunk) {
@@ -136,29 +176,51 @@ safa_aggregate_q8_kernel(const int8_t* q, const float* scales,
           weights);
     __syncthreads();
     if (!active) continue;
-#pragma unroll 4
-    for (int i = 0; i < kn; ++i) {
-      const int k = k0 + i;
-      const long long off = (long long)k * n4 + col;
-      const char4 qv = q4[off];
-      const float s = scales[(long long)k * n_scales + sblk];
-      const float4 deq = make_float4((float)qv.x * s, (float)qv.y * s,
-                                     (float)qv.z * s, (float)qv.w * s);
-      const float4 b = b4[off];
-      const float4 c = c4[off];
-      const uint8_t f = s_flags[i];
-      const float4 t = pick(f & kCompleted, deq, b);
-      const float4 c1 = pick(f & kPicked, t, pick(f & kDeprecated, g, c));
-      fma4(acc, c1, s_w[i]);
-      nc4[off] = pick(f & kUndrafted, t, c1);
-      nl4[off] = t;
+    for (int i0 = threadIdx.y; i0 < kn; i0 += kSlices * kGroup) {
+      // every load of the group first, none waiting on another
+      char4 qv[kGroup];
+      float sc[kGroup];
+      float4 b[kGroup], c[kGroup];
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const int i = i0 + u * kSlices;
+        if (i >= kn) continue;
+        const int k = k0 + i;
+        const long long off = (long long)k * n4 + col;
+        const uint8_t f = s_flags[i];
+        const bool done = f & kCompleted;
+        qv[u] = done ? q4[off] : make_char4(0, 0, 0, 0);
+        sc[u] = done ? scales[(long long)k * n_scales + sblk] : 0.f;
+        b[u] = done ? g : b4[off];
+        c[u] = (f & (kPicked | kDeprecated)) ? g : c4[off];
+      }
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const int i = i0 + u * kSlices;
+        if (i >= kn) continue;
+        const long long off = (long long)(k0 + i) * n4 + col;
+        const uint8_t f = s_flags[i];
+        const float s = sc[u];
+        const float4 t = (f & kCompleted)
+            ? make_float4((float)qv[u].x * s, (float)qv[u].y * s,
+                          (float)qv[u].z * s, (float)qv[u].w * s)
+            : b[u];
+        const float4 c1 = (f & kPicked) ? t : (f & kDeprecated) ? g : c[u];
+        nl4[off] = t;
+        fma4(acc, c1, s_w[i]);
+        if (f & kUndrafted) {
+          c4[off] = t;
+        } else if (f & (kPicked | kDeprecated)) {
+          c4[off] = c1;
+        }
+      }
     }
   }
-  if (active) reinterpret_cast<float4*>(new_global)[col] = acc;
+  finish(s_acc, acc, active, new_global, col);
 }
 
 inline unsigned int blocks_for(long long n4) {
-  return (unsigned int)((n4 + kThreads - 1) / kThreads);
+  return (unsigned int)((n4 + kLanes - 1) / kLanes);
 }
 
 }  // namespace
@@ -167,7 +229,8 @@ extern "C" {
 
 // cache/trained/new_cache: [m, n] f32 (new_cache may equal cache);
 // global/new_global: [n] f32; masks: [m] bool; weights: [m] f32.
-// n must be a multiple of 4.  Returns the launch's cudaError_t.
+// n must be a multiple of 4.  In place, rows Eq. 8 leaves unchanged are
+// not written.  Returns the launch's cudaError_t.
 int safa_aggregate_f32(const float* cache, const float* trained,
                        const float* global, const bool* picked,
                        const bool* undrafted, const bool* deprecated,
@@ -176,28 +239,27 @@ int safa_aggregate_f32(const float* cache, const float* trained,
                        cudaStream_t stream) {
   const long long n4 = n / kVec;
   if (n4 == 0) return (int)cudaSuccess;
-  safa_aggregate_kernel<<<blocks_for(n4), kThreads, 0, stream>>>(
+  safa_aggregate_kernel<<<blocks_for(n4), dim3(kLanes, kSlices), 0, stream>>>(
       cache, trained, global, picked, undrafted, deprecated, weights,
-      new_global, new_cache, m, n4);
+      new_global, new_cache, new_cache == cache, m, n4);
   return (int)cudaGetLastError();
 }
 
-// q: [m, n] int8; scales: [m, n / 128] f32; base/cache/new_cache/new_local:
-// [m, n] f32 (new_cache may equal cache); global/new_global: [n] f32;
+// q: [m, n] int8; scales: [m, n / 128] f32; base/cache/new_local: [m, n]
+// f32, the new cache written over cache; global/new_global: [n] f32;
 // masks: [m] bool; weights: [m] f32.  n must be a multiple of 128.
 int safa_aggregate_q8_f32(const int8_t* q, const float* scales,
-                          const float* base, const float* cache,
+                          const float* base, float* cache,
                           const float* global, const bool* picked,
                           const bool* undrafted, const bool* deprecated,
                           const bool* completed, const float* weights,
-                          float* new_global, float* new_cache,
-                          float* new_local, int m, long long n,
-                          cudaStream_t stream) {
+                          float* new_global, float* new_local, int m,
+                          long long n, cudaStream_t stream) {
   const long long n4 = n / kVec;
   if (n4 == 0) return (int)cudaSuccess;
-  safa_aggregate_q8_kernel<<<blocks_for(n4), kThreads, 0, stream>>>(
+  safa_aggregate_q8_kernel<<<blocks_for(n4), dim3(kLanes, kSlices), 0, stream>>>(
       q, scales, base, cache, global, picked, undrafted, deprecated,
-      completed, weights, new_global, new_cache, new_local, m, n4);
+      completed, weights, new_global, new_local, m, n4);
   return (int)cudaGetLastError();
 }
 

@@ -4,8 +4,11 @@ Every kernel source under ``repro_torch/csrc`` is compiled for Hopper
 (``sm_90a``) by ``nvcc`` into one shared library with a plain C
 interface, loaded with ``ctypes``.  The build runs at first use (or when
 ``load_library()`` is called), one ``nvcc`` per source, all started
-together, into ``build/repro_torch/`` at the repository root; it is
-redone when any source is newer than the library.
+together.  It goes into ``$REPRO_TORCH_BUILD_DIR`` when that is set, else
+into ``build/repro_torch/`` of the checkout the package runs from (an
+installed package must name the directory).  The library's file name
+carries a hash of the sources, the nvcc flags and ``nvcc --version``, so
+a change to any of them builds a new library.
 
 Nothing here runs at import: the CPU tests import every module of the
 port on a machine without ``nvcc`` or a card.
@@ -13,6 +16,7 @@ port on a machine without ``nvcc`` or a card.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import pathlib
 import shutil
@@ -23,8 +27,7 @@ import time
 import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / 'csrc'
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / 'build' / 'repro_torch'
-LIB_NAME = 'librepro_torch_kernels.so'
+BUILD_DIR_ENV = 'REPRO_TORCH_BUILD_DIR'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC')
 
@@ -42,7 +45,7 @@ _SIGNATURES = {
     'safa_aggregate_f32': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _P),
     'quantize_packed_f32': (_P, _P, _P, _I, _L, _P),
     'safa_aggregate_q8_f32': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                              _P, _I, _L, _P),
+                              _I, _L, _P),
 }
 
 _lib = None
@@ -79,11 +82,30 @@ def _nvcc() -> str:
     return found
 
 
-def _stale(lib: pathlib.Path, sources) -> bool:
-    if not lib.exists():
-        return True
-    built = lib.stat().st_mtime
-    return any(s.stat().st_mtime > built for s in sources)
+def build_dir() -> pathlib.Path:
+    """Where the library is built: ``$REPRO_TORCH_BUILD_DIR``, else
+    ``build/repro_torch/`` beside the ``src/`` the package is imported
+    from.  An installed package (not under a checkout's ``src/``) raises
+    rather than write into the environment's site-packages."""
+    if os.environ.get(BUILD_DIR_ENV):
+        return pathlib.Path(os.environ[BUILD_DIR_ENV]).resolve()
+    src = CSRC.parents[1]
+    if src.name == 'src' and (src.parent / 'pyproject.toml').exists():
+        return src.parent / 'build' / 'repro_torch'
+    raise RuntimeError(
+        f'repro_torch is not imported from a checkout\'s src/ ({src}); set '
+        f'{BUILD_DIR_ENV} to the directory its CUDA library is built in')
+
+
+def library_name(sources, flags, nvcc_version: str) -> str:
+    """File name of the library built from ``sources`` with ``flags`` by
+    the nvcc that reports ``nvcc_version``: any change to them names
+    another file, so a stale library is never loaded."""
+    h = hashlib.sha256()
+    for s in sources:
+        h.update(s.name.encode() + b'\0' + s.read_bytes() + b'\0')
+    h.update('\0'.join(flags).encode() + b'\0' + nvcc_version.encode())
+    return f'librepro_torch_kernels-{h.hexdigest()[:16]}.so'
 
 
 def build_library(verbose: bool = False) -> pathlib.Path:
@@ -92,12 +114,15 @@ def build_library(verbose: bool = False) -> pathlib.Path:
     written under a temporary name and renamed, so a concurrent loader
     never sees half a file."""
     sources = sorted(CSRC.glob('*.cu'))
-    lib = BUILD_DIR / LIB_NAME
-    if not _stale(lib, sources):
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    version = subprocess.run([nvcc, '--version'], capture_output=True,
+                             text=True, check=True).stdout
+    out_dir = build_dir()
+    lib = out_dir / library_name(sources, NVCC_FLAGS, version)
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         objs = [pathlib.Path(tmp) / (s.stem + '.o') for s in sources]
         procs = [subprocess.Popen(
             [nvcc, *NVCC_FLAGS, '-Xptxas', '-v', '-c', str(s), '-o', str(o)],
@@ -109,7 +134,7 @@ def build_library(verbose: bool = False) -> pathlib.Path:
                 raise RuntimeError(f'nvcc failed on {s.name}:\n{log}')
             if verbose:
                 print(f'[nvcc {s.name}]\n{log.strip()}')
-        out = pathlib.Path(tmp) / LIB_NAME
+        out = pathlib.Path(tmp) / lib.name
         link = subprocess.run([nvcc, *NVCC_FLAGS, '-shared', *map(str, objs),
                                '-o', str(out)],
                               capture_output=True, text=True)

@@ -14,23 +14,24 @@ import torch
 from repro_torch.kernels import backend, ref
 
 QBLOCK = ref.QBLOCK
-DEFAULT_TILE = 2048  # pack-buffer width multiple; must be a multiple of QBLOCK
+#: width multiple of every pack buffer (``ops.pack_spec``'s default
+#: ``pad_to``); the JAX package pads to the same width, so both packages
+#: lay a model out at the same offsets
+PACK_TILE = 2048
 
 
-def _check_packed(n: int, tile: int):
-    if tile % QBLOCK:
-        raise ValueError(f'tile={tile} not a multiple of QBLOCK={QBLOCK}')
-    if n % tile:
+def _check_packed(n: int):
+    if n % PACK_TILE:
         raise ValueError(
-            f'packed buffer width {n} not a multiple of tile={tile}; pack '
-            f'with pad_to=tile (see ops.pack_spec)')
+            f'packed buffer width {n} not a multiple of '
+            f'PACK_TILE={PACK_TILE}; pack with ops.pack_spec')
 
 
-def quantize_packed(x: torch.Tensor, *, tile: int = DEFAULT_TILE):
-    """x: [m, N] f32 pack buffer (N % tile == 0) -> (q [m, N] int8,
+def quantize_packed(x: torch.Tensor):
+    """x: [m, N] f32 pack buffer (N % PACK_TILE == 0) -> (q [m, N] int8,
     scales [m, N / QBLOCK] f32), one kernel launch for the whole buffer."""
     m, n = x.shape
-    _check_packed(n, tile)
+    _check_packed(n)
     if not backend.is_cuda(x):
         return ref.quantize_packed_ref(x)
     backend.check_operand(x, 'x', torch.float32, (m, n), x.device)

@@ -23,8 +23,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.comm_quant import QBLOCK, quantize_packed
-from repro_torch.kernels.safa_aggregate import (DEFAULT_TILE, safa_aggregate,
+from repro_torch.kernels.comm_quant import PACK_TILE, QBLOCK, quantize_packed
+from repro_torch.kernels.safa_aggregate import (safa_aggregate,
                                                 safa_aggregate_packed,
                                                 safa_aggregate_packed_q8)
 
@@ -65,7 +65,7 @@ class PackSpec(NamedTuple):
     ``offsets[i]:offsets[i] + sizes[i]`` holds leaf ``keys[i]`` (global
     shapes, without the clients dim); each leaf's slot is zero-padded up to
     the next leaf's offset (slots exceed sizes only under ``align > 1``);
-    ``n_padded`` is the laid-out total rounded up to a tile multiple."""
+    ``n_padded`` is the laid-out total rounded up to a ``pad_to`` multiple."""
     keys: tuple
     shapes: tuple
     dtypes: tuple
@@ -81,7 +81,7 @@ class PackSpec(NamedTuple):
         return nxt - self.offsets[i]
 
 
-def pack_spec(global_tree: dict, *, pad_to: int = DEFAULT_TILE,
+def pack_spec(global_tree: dict, *, pad_to: int = PACK_TILE,
               align: int = 1) -> PackSpec:
     """Build the layout from a global (unstacked) model dict.  ``align > 1``
     rounds every leaf's slot up to an ``align`` multiple; ``pad_to`` must
@@ -108,7 +108,7 @@ def pack_spec(global_tree: dict, *, pad_to: int = DEFAULT_TILE,
                     n_padded=off + ((-off) % pad_to))
 
 
-def wire_spec(global_tree: dict, *, pad_to: int = DEFAULT_TILE) -> PackSpec:
+def wire_spec(global_tree: dict, *, pad_to: int = PACK_TILE) -> PackSpec:
     """The int8 wire's layout: QBLOCK-aligned leaf slots, so every
     quantisation block lies inside one leaf of one client row."""
     return pack_spec(global_tree, pad_to=pad_to, align=QBLOCK)

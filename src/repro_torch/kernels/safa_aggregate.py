@@ -2,13 +2,14 @@
 
 The server step is memory-bound: the three-step composition reads the m
 cache entries three times and writes two intermediate copies, while the
-fused kernel reads cache and trained once and writes the new cache and
-the new global once.  Parameters are flattened to [m, N] (m = clients).
+fused kernel reads each row of cache and trained at most once, and only
+where the masks need it, and writes the new global once and the new cache
+only where it changes.  Parameters are flattened to [m, N] (m = clients).
 
 Three entry points, each a CUDA kernel (``csrc/safa_aggregate.cu``) on
 CUDA tensors and its plain version (``kernels.ref``) on CPU tensors:
 
-* ``safa_aggregate`` — one [m, N] matrix, padded to the tile and written
+* ``safa_aggregate`` — one [m, N] matrix, padded to ``PACK_TILE`` and written
   into a fresh new-cache output (the per-leaf ``use_kernel=True`` path);
 * ``safa_aggregate_packed`` — a pre-padded pack buffer holding the whole
   model, one launch per round, the new cache written over the cache
@@ -24,9 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import backend, ref
-from repro_torch.kernels.comm_quant import QBLOCK
-
-DEFAULT_TILE = 2048
+from repro_torch.kernels.comm_quant import PACK_TILE, QBLOCK, _check_packed
 
 
 def _check_column_operands(m: int, n: int, device, global_prev, weights,
@@ -57,7 +56,7 @@ def _launch(cache, trained, global_prev, picked, undrafted, deprecated,
 
 
 def safa_aggregate(cache, trained, global_prev, picked, undrafted, deprecated,
-                   weights, *, tile: int = DEFAULT_TILE):
+                   weights):
     """cache/trained: [m, N]; global_prev: [N]; masks: [m] bool;
     weights: [m] f32.  Returns (new_global [N], new_cache [m, N]) with the
     new cache in a fresh tensor."""
@@ -65,7 +64,7 @@ def safa_aggregate(cache, trained, global_prev, picked, undrafted, deprecated,
         return ref.safa_aggregate_ref(cache, trained, global_prev, picked,
                                       undrafted, deprecated, weights)
     m, n = cache.shape
-    pad = (-n) % tile
+    pad = (-n) % PACK_TILE
     cache_p = F.pad(cache, (0, pad)).contiguous()
     trained_p = F.pad(trained, (0, pad)).contiguous()
     global_p = F.pad(global_prev, (0, pad)).contiguous()
@@ -77,15 +76,13 @@ def safa_aggregate(cache, trained, global_prev, picked, undrafted, deprecated,
 
 
 def safa_aggregate_packed(cache, trained, global_prev, picked, undrafted,
-                          deprecated, weights, *, tile: int = DEFAULT_TILE):
+                          deprecated, weights):
     """Whole-model variant on pre-padded pack buffers (cache/trained:
-    [m, N], global_prev: [N], N % tile == 0).  One launch for any model
-    depth; the new cache is written over ``cache`` in place and ``cache``
-    itself is returned.  Returns (new_global [N], new_cache [m, N])."""
-    if cache.shape[1] % tile:
-        raise ValueError(
-            f'packed buffer width {cache.shape[1]} not a multiple of '
-            f'tile={tile}; pack with pad_to=tile')
+    [m, N], global_prev: [N], N % PACK_TILE == 0).  One launch for any
+    model depth; the new cache is written over ``cache`` in place and
+    ``cache`` itself is returned.  Returns (new_global [N], new_cache
+    [m, N])."""
+    _check_packed(cache.shape[1])
     if not backend.is_cuda(cache, trained, global_prev):
         ng, nc = ref.safa_aggregate_ref(cache, trained, global_prev, picked,
                                         undrafted, deprecated, weights)
@@ -98,20 +95,16 @@ def safa_aggregate_packed(cache, trained, global_prev, picked, undrafted,
 
 
 def safa_aggregate_packed_q8(q, scales, base, cache, global_prev, picked,
-                             undrafted, deprecated, completed, weights, *,
-                             tile: int = DEFAULT_TILE):
+                             undrafted, deprecated, completed, weights):
     """Fused int8-wire Eq. 6-8: dequantise + aggregate in one launch.
 
     q: [m, N] int8; scales: [m, N / QBLOCK] f32 (``quantize_packed`` of a
-    QBLOCK-aligned pack); base/cache: [m, N] f32 (N % tile == 0);
+    QBLOCK-aligned pack); base/cache: [m, N] f32 (N % PACK_TILE == 0);
     global_prev: [N]; picked/undrafted/deprecated/completed: [m] bool;
     weights: [m] f32.  The new cache is written over ``cache`` in place.
     Returns (new_global [N], new_cache [m, N], new_local [m, N])."""
     m, n = cache.shape
-    if n % tile:
-        raise ValueError(
-            f'packed buffer width {n} not a multiple of tile={tile}; '
-            f'pack with pad_to=tile')
+    _check_packed(n)
     if not backend.is_cuda(q, scales, base, cache, global_prev):
         ng, nc, nl = ref.safa_aggregate_q8_ref(
             q, scales, base, cache, global_prev, picked, undrafted,
@@ -134,7 +127,6 @@ def safa_aggregate_packed_q8(q, scales, base, cache, global_prev, picked,
                  global_prev.data_ptr(), picked.data_ptr(),
                  undrafted.data_ptr(), deprecated.data_ptr(),
                  completed.data_ptr(), weights.data_ptr(),
-                 new_global.data_ptr(), cache.data_ptr(),
-                 new_local.data_ptr(), m, n)
+                 new_global.data_ptr(), new_local.data_ptr(), m, n)
     backend.LAUNCHES['safa_aggregate_packed_q8'] += 1
     return new_global, cache, new_local

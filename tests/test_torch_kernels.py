@@ -140,18 +140,22 @@ def test_dequantize_inverts_quantize_within_half_a_step():
     assert torch.all((back - x).abs() <= 0.5 * step * (1 + 1e-6))
 
 
-@pytest.mark.parametrize('bad', ['width', 'tile'])
+@pytest.mark.parametrize('bad', ['width', 'quantize_width', 'q8_width'])
 def test_packed_width_is_checked(bad):
     a = _t(_inputs(2, 2048))
-    if bad == 'width':
-        with pytest.raises(ValueError, match='not a multiple of tile'):
-            safa_aggregate_packed(a['cache'][:, :1024], a['trained'][:, :1024],
-                                  a['global_prev'][:1024], a['picked'],
-                                  a['undrafted'], a['deprecated'],
-                                  a['weights'])
-    else:
-        with pytest.raises(ValueError, match='not a multiple of QBLOCK'):
-            quantize_packed(a['cache'], tile=100)
+    narrow = {k: v[..., :1024] if v.shape[-1] == 2048 else v
+              for k, v in a.items()}
+    with pytest.raises(ValueError, match='not a multiple of PACK_TILE'):
+        if bad == 'width':
+            safa_aggregate_packed(*(narrow[k] for k in AGG_ARGS))
+        elif bad == 'quantize_width':
+            quantize_packed(narrow['trained'])
+        else:
+            q, s = ref.quantize_packed_ref(narrow['trained'])
+            safa_aggregate_packed_q8(
+                q, s, *(narrow[k] for k in (
+                    'base', 'cache', 'global_prev', 'picked', 'undrafted',
+                    'deprecated', 'completed', 'weights')))
 
 
 def test_mixed_devices_raise():
@@ -167,3 +171,27 @@ def test_cuda_device_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match='cuda'):
         backend.resolve_device('cuda')
     assert backend.resolve_device('cpu') == torch.device('cpu')
+
+
+def test_build_dir_from_env_or_checkout(monkeypatch, tmp_path):
+    monkeypatch.setenv(backend.BUILD_DIR_ENV, str(tmp_path))
+    assert backend.build_dir() == tmp_path.resolve()
+    monkeypatch.delenv(backend.BUILD_DIR_ENV)
+    root = backend.CSRC.parents[2]
+    assert backend.build_dir() == root / 'build' / 'repro_torch'
+    monkeypatch.setattr(backend, 'CSRC',
+                        tmp_path / 'site-packages' / 'repro_torch' / 'csrc')
+    with pytest.raises(RuntimeError, match=backend.BUILD_DIR_ENV):
+        backend.build_dir()
+
+
+def test_library_name_keys_on_sources_flags_and_nvcc(tmp_path):
+    src = tmp_path / 'k.cu'
+    src.write_text('// v1\n')
+    flags = ('-O3',)
+    name = backend.library_name([src], flags, 'nvcc 12.4')
+    assert name == backend.library_name([src], flags, 'nvcc 12.4')
+    assert name != backend.library_name([src], ('-O2',), 'nvcc 12.4')
+    assert name != backend.library_name([src], flags, 'nvcc 12.6')
+    src.write_text('// v2\n')
+    assert name != backend.library_name([src], flags, 'nvcc 12.4')

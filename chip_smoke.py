@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SAFA main path on one NVIDIA GPU and hold each
-of its CUDA kernels against its plain PyTorch version.
+"""Drive the PyTorch port's SAFA paths on one NVIDIA GPU and hold each of
+its CUDA kernels against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -8,11 +8,13 @@ Phases, each of which must pass:
 
 1. build   — nvcc compiles src/repro_torch/csrc/*.cu (one process per
              source, in parallel) into build/repro_torch/.
-2. kernels — every kernel of the main path at the main path's shapes
-             (m = 100 clients, N = 342,016: the Task 2 CNN's pack width),
-             on seeded inputs, against its plain version on the card; times
-             from CUDA events over warm launches, beside the least time the
-             card could take: the bytes these inputs' masks need (Eq. 6-8
+2. kernels — every kernel of both paths at their shapes (m = 100 clients,
+             N = 342,016: the Task 2 CNN's pack width; the fleet kernels at
+             S = 4 members), on seeded inputs, against its plain version on
+             the card, and each fleet kernel bit for bit against the
+             single-run kernel on every member's slices; times from CUDA
+             events over warm launches, beside the least time the card
+             could take: the bytes these inputs' masks need (Eq. 6-8
              selects whole client rows) over the memory rate.
 3. main    — the paper's Task 2 CNN at full width (m = 100, 24 batches of
              40, 5 epochs) through ``Experiment(...).compile().run()``,
@@ -21,6 +23,12 @@ Phases, each of which must pass:
              must be finite and below the initial model's.  A third run
              with the plain aggregation (``use_kernel=False``) is the
              reference the packed run's model is held to.
+4. fleet   — a 4-member sweep of the same task at full width through
+             ``Experiment(...).compile().run_sweep(members)`` (crash rates
+             0.1 / 0.3 / 0.5 / 0.7, seeds 0-3), in the same three runs:
+             each must launch its fleet kernels once per round for the
+             whole fleet and no single-run kernel, and lower every
+             member's eval loss; packed and plain agree per member.
 
 The line before the last is a JSON object of kernel records; the last
 line is ``{"ok": true, "device": {...}}``.  Without a visible card, or
@@ -35,7 +43,11 @@ import time
 
 ROUNDS = 3              # rounds per main-path run (never cut m, widths, batch
                         # or epochs; cut this if the time limit forces it)
+FLEET_ROUNDS = 2        # rounds per fleet run: a fleet round trains 4x the
+                        # clients of a single-run round
 M = 100                 # clients on the main path (PAPER_TASKS['task2_cnn'])
+S = 4                   # fleet members
+FLEET_CRASH = (0.1, 0.3, 0.5, 0.7)   # member s's crash probability
 WARM, TIMED = 5, 30     # kernel launches before and inside the timed window
 #: the H100 SXM's published device-memory rate (bytes/s) and float32
 #: CUDA-core rate (FLOP/s), at its 700 W limit; the card's name and power
@@ -213,6 +225,11 @@ def kernel_phase(torch, n: int, fails: list) -> list:
                         host['deprecated'], host['completed']),
         3 * mn, 17 * mn + 4 * (mn // 128) + 8 * n + 8 * M))
 
+    _print_records(recs)
+    return recs
+
+
+def _print_records(recs):
     for r in recs:
         print(f"kernel {r['name']}: {r['ms']} ms (plain {r['plain_ms']} ms), "
               f"bound {r['bound_ms']} ms by {r['bound_by']} "
@@ -220,21 +237,149 @@ def kernel_phase(torch, n: int, fails: list) -> list:
               f"and written: {r['dense_bytes'] / 1e6:.1f} MB, "
               f"{r['dense_bytes'] / PEAK_BYTES * 1e3} ms), max abs err "
               f"{r['max_abs_err']:.3e}")
+
+
+def fleet_kernel_phase(torch, n: int, fails: list) -> list:
+    """Kernels 7-9 (the fleet forms) at S = 4, m = 100, N = n, each member
+    with its own seeded masks and weights: against the plain version on
+    the stacked operands, and bit for bit against the single-run kernel on
+    every member's slices."""
+    import numpy as np
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.comm_quant import (quantize_packed,
+                                                quantize_packed_fleet)
+    from repro_torch.kernels.safa_aggregate import (
+        safa_aggregate_packed, safa_aggregate_packed_fleet,
+        safa_aggregate_packed_q8, safa_aggregate_packed_q8_fleet)
+    dev = torch.device('cuda')
+    rng = np.random.default_rng(1)
+    host = {k: rng.random((S, M)) < p
+            for k, p in (('picked', 0.3), ('undrafted', 0.2),
+                         ('deprecated', 0.2), ('completed', 0.7))}
+    pk, ud, dp, cp = (torch.as_tensor(host[k], device=dev)
+                      for k in ('picked', 'undrafted', 'deprecated',
+                                'completed'))
+    w = torch.as_tensor(rng.dirichlet(np.ones(M), size=S),
+                        dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    cache0, trained, base, glob = (normal(S, M, n), normal(S, M, n),
+                                   normal(S, M, n), normal(S, n))
+    mn = S * M * n
+    recs = []
+
+    def check(cond, what):
+        if not cond:
+            fails.append(what)
+            print(f'FAIL fleet kernels: {what}')
+
+    def global_err(got, want, what):
+        err = (got - want).abs().max().item()
+        check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
+              f'{what} new_global beyond rtol 1e-5 / atol 1e-6 '
+              f'(max abs err {err:.3e})')
+        return err
+
+    def summed_bytes(**masks):
+        return sum(aggregate_bytes(n, *(masks[k][s] for k in masks))
+                   for s in range(S))
+
+    def per_member(name, got, single):
+        """Fleet outputs against the single-run kernel, member by member."""
+        same = all(torch.equal(g[s], o) for s in range(S)
+                   for g, o in zip(got, single(s)))
+        check(same, f'{name} differs from the single-run kernel on a member')
+
+    # -- safa_aggregate_packed_fleet -----------------------------------------
+    ng_ref, nc_ref = ref.safa_aggregate_ref(cache0, trained, glob, pk, ud,
+                                            dp, w)
+    cache = cache0.clone()
+    ptr = cache.data_ptr()
+    ng, nc = safa_aggregate_packed_fleet(cache, trained, glob, pk, ud, dp, w)
+    torch.cuda.synchronize()
+    check(nc.data_ptr() == ptr, 'safa_aggregate_packed_fleet not in place')
+    check(torch.equal(nc, nc_ref), 'safa_aggregate_packed_fleet new_cache '
+                                   'differs from the plain version')
+    err = global_err(ng, ng_ref, 'safa_aggregate_packed_fleet')
+    per_member('safa_aggregate_packed_fleet', (ng, nc),
+               lambda s: safa_aggregate_packed(
+                   cache0[s].clone(), trained[s], glob[s], pk[s], ud[s],
+                   dp[s], w[s]))
+    ms = _time_ms(torch, lambda: safa_aggregate_packed_fleet(
+        cache, trained, glob, pk, ud, dp, w))
+    plain = _time_ms(torch, lambda: ref.safa_aggregate_ref(
+        cache, trained, glob, pk, ud, dp, w), warm=2, timed=10)
+    recs.append(_record(
+        'safa_aggregate_packed_fleet', 'src/repro_torch/csrc/safa_aggregate.cu',
+        'src/repro/kernels/safa_aggregate.py:98', err, ms, plain,
+        summed_bytes(picked=host['picked'], undrafted=host['undrafted'],
+                     deprecated=host['deprecated']),
+        2 * mn, S * (12 * M * n + 8 * n + 7 * M)))
+
+    # -- quantize_packed_fleet ---------------------------------------------
+    q_ref, s_ref = ref.quantize_packed_ref(trained)
+    q, sc = quantize_packed_fleet(trained)
+    torch.cuda.synchronize()
+    check(torch.equal(q, q_ref), 'quantize_packed_fleet q differs')
+    check(torch.equal(sc, s_ref), 'quantize_packed_fleet scales differ')
+    per_member('quantize_packed_fleet', (q, sc),
+               lambda s: quantize_packed(trained[s]))
+    err = max((q.int() - q_ref.int()).abs().max().item(),
+              (sc - s_ref).abs().max().item())
+    ms = _time_ms(torch, lambda: quantize_packed_fleet(trained))
+    plain = _time_ms(torch, lambda: ref.quantize_packed_ref(trained),
+                     warm=2, timed=10)
+    wire = 5 * mn + 4 * (mn // 128)
+    recs.append(_record(
+        'quantize_packed_fleet', 'src/repro_torch/csrc/comm_quant.cu',
+        'src/repro/kernels/comm_quant.py:128', err, ms, plain, wire, 3 * mn,
+        wire))
+
+    # -- safa_aggregate_packed_q8_fleet ------------------------------------
+    ng_ref, nc_ref, nl_ref = ref.safa_aggregate_q8_ref(
+        q_ref, s_ref, base, cache0, glob, pk, ud, dp, cp, w)
+    cache = cache0.clone()
+    ptr = cache.data_ptr()
+    ng, nc, nl = safa_aggregate_packed_q8_fleet(q_ref, s_ref, base, cache,
+                                                glob, pk, ud, dp, cp, w)
+    torch.cuda.synchronize()
+    check(nc.data_ptr() == ptr, 'safa_aggregate_packed_q8_fleet not in place')
+    check(torch.equal(nc, nc_ref), 'safa_aggregate_packed_q8_fleet new_cache '
+                                   'differs from the plain version')
+    check(torch.equal(nl, nl_ref), 'safa_aggregate_packed_q8_fleet new_local '
+                                   'differs from the plain version')
+    err = global_err(ng, ng_ref, 'safa_aggregate_packed_q8_fleet')
+    per_member('safa_aggregate_packed_q8_fleet', (ng, nc, nl),
+               lambda s: safa_aggregate_packed_q8(
+                   q_ref[s], s_ref[s], base[s], cache0[s].clone(), glob[s],
+                   pk[s], ud[s], dp[s], cp[s], w[s]))
+    ms = _time_ms(torch, lambda: safa_aggregate_packed_q8_fleet(
+        q_ref, s_ref, base, cache, glob, pk, ud, dp, cp, w))
+    plain = _time_ms(torch, lambda: ref.safa_aggregate_q8_ref(
+        q_ref, s_ref, base, cache, glob, pk, ud, dp, cp, w), warm=2,
+        timed=10)
+    recs.append(_record(
+        'safa_aggregate_packed_q8_fleet',
+        'src/repro_torch/csrc/safa_aggregate.cu',
+        'src/repro/kernels/safa_aggregate.py:271', err, ms, plain,
+        summed_bytes(picked=host['picked'], undrafted=host['undrafted'],
+                     deprecated=host['deprecated'],
+                     completed=host['completed']),
+        3 * mn, S * (17 * M * n + 4 * (M * n // 128) + 8 * n + 8 * M)))
+
+    _print_records(recs)
     return recs
 
 
-def main_path_phase(torch, fails: list) -> dict:
-    """Task 2's CNN through the port's entry points; returns the launch
-    counts of each kernel in the run that drives it."""
-    import numpy as np
-
-    from repro_torch import api
+def cnn_setup(torch):
+    """Task 2's CNN on the card at full width: (EnvSpec, task)."""
     from repro_torch.configs import PAPER_TASKS
-    from repro_torch.core import protocol
     from repro_torch.data import make_images, partition
     from repro_torch.data.tasks import cnn_task
     from repro_torch.fedsim import EnvSpec
-    from repro_torch.kernels import backend
 
     cfg = PAPER_TASKS['task2_cnn']
     spec = EnvSpec(m=cfg['m'], crash_prob=0.3,
@@ -246,23 +391,37 @@ def main_path_phase(torch, fails: list) -> dict:
     data = partition(x, y, spec.build().partition_sizes, spec.batch_size,
                      seed=0)
     task = cnn_task(data, lr=1e-3, epochs=cfg['epochs'])
+    print(f'setup: data {tuple(data.x.shape)} made in '
+          f'{time.perf_counter() - t0:.1f} s')
+    return spec, task
+
+
+def _timed(torch, fn, into):
+    """``fn`` with the host seconds of each call (synchronised on both
+    sides) appended to ``into``."""
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        into.append(time.perf_counter() - t)
+        return out
+    return wrapper
+
+
+def main_path_phase(torch, spec, task, fails: list) -> dict:
+    """Task 2's CNN through the port's entry points; returns the launch
+    counts of each kernel in the run that drives it."""
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.core import protocol
+    from repro_torch.kernels import backend
+
     init_loss = task.evaluate(task.init_global(0))['loss']
-    print(f'main: data {tuple(data.x.shape)} made in '
-          f'{time.perf_counter() - t0:.1f} s; initial eval loss '
-          f'{init_loss:.6f}; rounds {ROUNDS} (not cut)')
-
+    print(f'main: initial eval loss {init_loss:.6f}; rounds {ROUNDS} '
+          f'(not cut)')
     train_s, server_s = [], []
-
-    def timed(fn, into):
-        def wrapper(*args, **kwargs):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            into.append(time.perf_counter() - t)
-            return out
-        return wrapper
-
     launches, finals = {}, {}
     runs = [('packed', dict(use_kernel='packed'),
              ('safa_aggregate_packed',)),
@@ -277,8 +436,8 @@ def main_path_phase(torch, fails: list) -> dict:
                              rounds=ROUNDS)
         train_s.clear()
         server_s.clear()
-        task.local_train = timed(task.local_train, train_s)
-        protocol.safa_server_step = timed(server_step, server_s)
+        task.local_train = _timed(torch, task.local_train, train_s)
+        protocol.safa_server_step = _timed(torch, server_step, server_s)
         try:
             backend.reset_launches()
             t = time.perf_counter()
@@ -313,14 +472,97 @@ def main_path_phase(torch, fails: list) -> dict:
     print(f'main: packed vs plain final_global max abs diff {diff:.3e}')
     if not diff <= 1e-4:
         fails.append(f'packed vs plain final_global differ by {diff:.3e}')
-    profile_train(torch, task, protocol.broadcast_global(
-        task.init_global(0), cfg['m']))
+    profile_train(torch, 'profile', lambda: task.local_train(
+        protocol.broadcast_global(task.init_global(0), spec.m), 0))
     return launches
 
 
-def profile_train(torch, task, stacked, top=6):
+def fleet_path_phase(torch, spec, task, fails: list) -> dict:
+    """A 4-member sweep of Task 2's CNN at full width through
+    ``run_sweep``; returns the launch counts of each fleet kernel in the
+    run that drives it."""
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.core import protocol
+    from repro_torch.kernels import backend
+
+    init_loss = [task.evaluate(task.init_global(s))['loss']
+                 for s in range(S)]
+    print(f'fleet: {S} members, crash rates {FLEET_CRASH}, initial eval '
+          f'losses {init_loss}; rounds {FLEET_ROUNDS}')
+
+    def members():
+        return [api.SweepMember(env=spec, fraction=0.3, lag_tolerance=5,
+                                seed=s, overrides={'crash_prob': cr})
+                for s, cr in enumerate(FLEET_CRASH)]
+
+    train_s, server_s = [], []
+    launches, finals = {}, {}
+    runs = [('packed', dict(use_kernel='packed'),
+             ('safa_aggregate_packed_fleet',)),
+            ('int8', dict(wire='int8'),
+             ('quantize_packed_fleet', 'safa_aggregate_packed_q8_fleet')),
+            ('plain', dict(use_kernel=False), ())]
+    server_step = protocol.safa_server_step
+    for name, ex, kernels in runs:
+        exp = api.Experiment(task, None, api.SafaSpec(),
+                             api.ExecSpec(eval_every=FLEET_ROUNDS, **ex),
+                             rounds=FLEET_ROUNDS)
+        train_s.clear()
+        server_s.clear()
+        task.local_train_fleet = _timed(torch, task.local_train_fleet,
+                                        train_s)
+        protocol.safa_server_step = _timed(torch, server_step, server_s)
+        try:
+            backend.reset_launches()
+            t = time.perf_counter()
+            hists = exp.compile().run_sweep(members())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            counts = dict(backend.LAUNCHES)
+        finally:
+            protocol.safa_server_step = server_step
+            del task.local_train_fleet
+        losses = [[e['loss'] for _, e in h.evals()] for h in hists]
+        print(f'fleet[{name}]: {wall:.2f} s for {FLEET_ROUNDS} rounds of '
+              f'{S} members; per fleet round train '
+              f'{[round(v, 4) for v in train_s]} s, server step '
+              f'{[round(v, 4) for v in server_s]} s; launches {counts}; '
+              f'eval losses per member {losses}')
+        for k in kernels:
+            launches[k] = counts[k]
+            if counts[k] != FLEET_ROUNDS:
+                fails.append(f'fleet {name}: {k} launched {counts[k]} times '
+                             f'in {FLEET_ROUNDS} rounds')
+        others = {k: v for k, v in counts.items() if k not in kernels and v}
+        if others:
+            fails.append(f'fleet {name}: unexpected launches {others}')
+        for s, ls in enumerate(losses):
+            if not all(np.isfinite(v) for v in ls) or \
+                    not ls[-1] < init_loss[s]:
+                fails.append(f'fleet {name}: member {s} eval losses {ls} '
+                             f'not finite and below the initial '
+                             f'{init_loss[s]}')
+        finals[name] = [h.final_global for h in hists]
+
+    diffs = [max((finals['packed'][s][k] - finals['plain'][s][k])
+                 .abs().max().item() for k in finals['plain'][s])
+             for s in range(S)]
+    print(f'fleet: packed vs plain final_global max abs diff per member '
+          f'{diffs}')
+    if not max(diffs) <= 1e-4:
+        fails.append(f'fleet: packed vs plain final_global differ by '
+                     f'{diffs}')
+    g = api.init_fleet_global(task, list(range(S)))
+    profile_train(torch, 'fleet profile', lambda: task.local_train_fleet(
+        protocol.broadcast_global(g, spec.m, fleet=True), None))
+    return launches
+
+
+def profile_train(torch, label, train, top=6):
     """Where one round's local training spends the device: torch.profiler
-    over one ``local_train`` call.  Device kernels are deduplicated by
+    over one ``train()`` call.  Device kernels are deduplicated by
     (name, start, end); the busy share is the union of their intervals
     over the call's wall time, so kernels that overlap count once.  A
     measurement only: a profiler that cannot trace the card leaves the
@@ -330,17 +572,17 @@ def profile_train(torch, task, stacked, top=6):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
-            task.local_train(stacked, 0)
+            train()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
         spans = sorted({(e.time_range.start, e.time_range.end, e.name)
                         for e in prof.events()
                         if e.device_type.name == 'CUDA'})
     except Exception as e:  # noqa: BLE001 - report and go on
-        print(f'profile: not measured ({e!r})')
+        print(f'{label}: not measured ({e!r})')
         return
     if not spans:
-        print('profile: not measured (the trace holds no device kernels)')
+        print(f'{label}: not measured (the trace holds no device kernels)')
         return
     busy, reach = 0.0, spans[0][0]
     by_name = {}
@@ -350,13 +592,13 @@ def profile_train(torch, task, stacked, top=6):
         tot, n = by_name.get(name, (0.0, 0))
         by_name[name] = (tot + stop - start, n + 1)
     summed = sum(tot for tot, _ in by_name.values()) / 1e6
-    print(f'profile: one local_train {wall:.3f} s wall; device busy '
+    print(f'{label}: one train call {wall:.3f} s wall; device busy '
           f'{busy / 1e6:.3f} s ({busy / 1e6 / wall:.1%}) as the union of '
           f'{len(spans)} kernels ({summed:.3f} s summed), '
           f'{len(by_name)} kernel names')
     for name, (tot, n) in sorted(by_name.items(),
                                  key=lambda kv: -kv[1][0])[:top]:
-        print(f'profile:   {tot / 1e3:9.1f} ms {n:6d}x  {name[:90]}')
+        print(f'{label}:   {tot / 1e3:9.1f} ms {n:6d}x  {name[:90]}')
 
 
 def main() -> int:
@@ -380,10 +622,23 @@ def main() -> int:
     _, build_s = backend.load_library(verbose=True)
     print(f'build: {build_s:.1f} s')
 
+    clock = [time.perf_counter()]
+
+    def lap(phase):
+        now = time.perf_counter()
+        print(f'phase {phase}: {now - clock[0]:.1f} s')
+        clock[0] = now
+
     fails = []
     n = ops.wire_spec(_cnn_init(torch.Generator().manual_seed(0))).n_padded
-    recs = kernel_phase(torch, n, fails)
-    launches = main_path_phase(torch, fails)
+    recs = kernel_phase(torch, n, fails) + fleet_kernel_phase(torch, n, fails)
+    torch.cuda.empty_cache()
+    lap('kernels')
+    spec, task = cnn_setup(torch)
+    launches = main_path_phase(torch, spec, task, fails)
+    lap('main')
+    launches.update(fleet_path_phase(torch, spec, task, fails))
+    lap('fleet')
     for r in recs:
         r['launches'] = launches.get(r['name'], 0)
         del r['bytes'], r['flops'], r['dense_bytes']

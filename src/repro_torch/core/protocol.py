@@ -5,10 +5,17 @@ clients dim of size m.  The server's cache (one entry per client) and the
 bypass are masked updates: picked entries overwrite pre-aggregation
 (Eq. 6), undrafted entries overwrite post-aggregation (Eq. 8).
 
+A fleet of S independent runs carries one more leading axis: masks and
+weights [S, m], stacked models [S, m, ...], globals [S, ...].  The algebra
+reads the axes from the masks (``mask.ndim`` is 1 for a run, 2 for a
+fleet), so one round body serves both, and a fleet member's numbers are
+the single run's.
+
 ``safa_run_scan`` replays a device-resident segment of precomputed round
-masks; ``safa_round`` is one round of it.  The functions on masks
-(``classify_versions``) work on numpy arrays and on tensors alike: the
-host event process in ``core.federation`` calls them on numpy.
+masks; ``safa_round`` is one round of it; ``safa_run_fleet`` runs a
+fleet's segment, one round of all S members at a time.  The functions on
+masks (``classify_versions``) work on numpy arrays and on tensors alike:
+the host event process in ``core.federation`` calls them on numpy.
 """
 from __future__ import annotations
 
@@ -18,19 +25,31 @@ import torch
 
 
 def _bmask(mask, leaf):
-    """Broadcast a [m] client mask against a [m, ...] leaf."""
-    return mask.reshape(mask.shape + (1,) * (leaf.ndim - 1))
+    """Broadcast a [m] (or fleet [S, m]) client mask against a [m, ...]
+    (or [S, m, ...]) leaf."""
+    return mask.reshape(mask.shape + (1,) * (leaf.ndim - mask.ndim))
 
 
 def masked_select(mask, a: dict, b: dict) -> dict:
-    """Per-client where: leaf = mask ? a : b  (mask: [m] bool)."""
+    """Per-client where: leaf = mask ? a : b  (mask: [(S,) m] bool)."""
     return {k: torch.where(_bmask(mask, a[k]), a[k], b[k]) for k in a}
 
 
-def broadcast_global(global_tree: dict, m: int) -> dict:
-    """Tile the global model across the clients dim (views, no copy)."""
+def broadcast_global(global_tree: dict, m: int, *, fleet: bool = False
+                     ) -> dict:
+    """Tile the global model across the clients dim (views, no copy):
+    [...] -> [m, ...], or for a fleet [S, ...] -> [S, m, ...]."""
+    if fleet:
+        return {k: g[:, None].expand((g.shape[0], m) + tuple(g.shape[1:]))
+                for k, g in global_tree.items()}
     return {k: g[None].expand((m,) + tuple(g.shape))
             for k, g in global_tree.items()}
+
+
+def _tile(global_tree: dict, mask) -> dict:
+    """``broadcast_global`` to the client axes of ``mask``."""
+    return broadcast_global(global_tree, mask.shape[-1],
+                            fleet=mask.ndim == 2)
 
 
 # ---------------------------------------------------------------------------
@@ -40,8 +59,7 @@ def broadcast_global(global_tree: dict, m: int) -> dict:
 def distribute(global_w: dict, local_w: dict, sync_mask) -> dict:
     """sync_mask[k] True => client k (up-to-date or deprecated) takes the
     latest global model; tolerable clients keep their local model."""
-    m = sync_mask.shape[0]
-    return masked_select(sync_mask, broadcast_global(global_w, m), local_w)
+    return masked_select(sync_mask, _tile(global_w, sync_mask), local_w)
 
 
 def classify_versions(versions, global_version, lag_tolerance,
@@ -70,17 +88,19 @@ def classify_versions(versions, global_version, lag_tolerance,
 def pre_agg_cache_update(cache, trained, global_prev, picked, deprecated):
     """Eq. 6.  picked -> trained update; deprecated (and not picked) ->
     previous global; otherwise keep the existing entry."""
-    m = picked.shape[0]
-    out = masked_select(deprecated & ~picked,
-                        broadcast_global(global_prev, m), cache)
+    out = masked_select(deprecated & ~picked, _tile(global_prev, picked),
+                        cache)
     return masked_select(picked, trained, out)
 
 
 def aggregate(cache: dict, weights) -> dict:
-    """Eq. 7: w(t) = sum_k (n_k / n) * cache_k.  weights: [m], sums to 1."""
+    """Eq. 7: w(t) = sum_k (n_k / n) * cache_k.  weights: [m] (or a
+    fleet's [S, m]), each row summing to 1."""
+    axis = weights.ndim - 1             # the clients axis
+
     def red(leaf):
-        w = weights.reshape((-1,) + (1,) * (leaf.ndim - 1)).float()
-        return torch.sum(leaf.float() * w, dim=0).to(leaf.dtype)
+        w = _bmask(weights, leaf).float()
+        return torch.sum(leaf.float() * w, dim=axis).to(leaf.dtype)
     return {k: red(v) for k, v in cache.items()}
 
 
@@ -95,15 +115,22 @@ def discriminative_aggregation(cache, trained, global_prev, *, picked,
     """The full three-step aggregation; returns (new_global, new_cache).
 
     ``use_kernel=True`` launches the fused kernel once per leaf;
-    ``'packed'`` flattens the model into one buffer and launches once."""
+    ``'packed'`` flattens the model into one buffer and launches once.  On
+    a fleet ([S, m] masks) each launch is the fleet kernel's, for all S
+    members at once."""
     if use_kernel not in (False, True, 'packed'):
         raise ValueError(
             f'unknown use_kernel {use_kernel!r} (want False, True, or '
             f'"packed")')
     if use_kernel:
         from repro_torch.kernels import ops as kops
-        agg = kops.safa_aggregate_tree_packed if use_kernel == 'packed' \
-            else kops.safa_aggregate_tree
+        fleet = picked.ndim == 2
+        if use_kernel == 'packed':
+            agg = kops.safa_aggregate_tree_packed_fleet if fleet \
+                else kops.safa_aggregate_tree_packed
+        else:
+            agg = kops.safa_aggregate_tree_fleet if fleet \
+                else kops.safa_aggregate_tree
         return agg(cache, trained, global_prev, picked=picked,
                    undrafted=undrafted, deprecated=deprecated,
                    weights=weights)
@@ -126,11 +153,13 @@ def safa_server_step(base, trained, cache, global_w, *, completed, picked,
                      undrafted, deprecated, weights, use_kernel=False,
                      wire='f32'):
     """Everything the SAFA server does after local training: the wire
-    transfer, the Eq. 6-8 aggregation and the local sync.
-    Returns (new_global, new_local, new_cache)."""
+    transfer, the Eq. 6-8 aggregation and the local sync; for one run or
+    a fleet ([S, m] masks).  Returns (new_global, new_local, new_cache)."""
     if wire == 'int8':
         from repro_torch.kernels import ops as kops
-        return kops.safa_compressed_update(
+        update = kops.safa_compressed_update_fleet if picked.ndim == 2 \
+            else kops.safa_compressed_update
+        return update(
             base, trained, cache, global_w, picked=picked,
             undrafted=undrafted, deprecated=deprecated, completed=completed,
             weights=weights)
@@ -166,7 +195,8 @@ def safa_round(global_w, local_w, cache, *, sync_mask, completed, picked,
 
 class RoundSchedule(NamedTuple):
     """SAFA per-round masks, stacked [k, m] on the device (plus the round
-    indices [k]), so a whole run crosses host->device in one transfer."""
+    indices [k]), so a whole run crosses host->device in one transfer.  A
+    fleet's are [S, k, m] (round indices [S, k])."""
     sync: Any
     completed: Any
     picked: Any
@@ -177,6 +207,11 @@ class RoundSchedule(NamedTuple):
     def segment(self, start: int, stop: int) -> 'RoundSchedule':
         """Rounds [start, stop) as views of the resident schedule."""
         return RoundSchedule(*(a[start:stop] for a in self))
+
+    def fleet_segment(self, start: int, stop: int) -> 'RoundSchedule':
+        """Rounds [start, stop) of a fleet's [S, rounds, ...] schedule
+        (the rounds axis is axis 1), as views."""
+        return RoundSchedule(*(a[:, start:stop] for a in self))
 
 
 def safa_run_scan(global_w, local_w, cache, schedule: RoundSchedule, weights,
@@ -196,4 +231,34 @@ def safa_run_scan(global_w, local_w, cache, schedule: RoundSchedule, weights,
             local_train_fn=local_train_fn,
             train_args=(schedule.round_idx[i],), use_kernel=use_kernel,
             wire=wire)
+    return global_w, local_w, cache
+
+
+def safa_run_fleet(global_w, local_w, cache, schedule: RoundSchedule, weights,
+                   *, local_train_fn, use_kernel=False, wire='f32',
+                   train_ctx=None):
+    """Run S independent SAFA simulations over a segment of a fleet's
+    device-resident schedule: masks [S, k, m], round indices [S, k],
+    weights [S, m], stacked models [S, m, ...] and globals [S, ...].
+
+    Each round is one ``safa_round`` on the whole fleet: one
+    ``local_train_fn(base [S, m, ...], round_idx [S], *extra)`` call for
+    all S * m client replicas, and one launch of each server kernel for
+    all S members.  ``train_ctx`` (a per-member-task fleet's data) rides
+    along as the extra train argument.  Member s's numbers are those of
+    ``safa_run_scan`` on its own schedule.
+    Returns (new_global, new_local, new_cache), each fleet-stacked."""
+    # round-major [k, S, ...] so that each round's [S, m] masks are one
+    # contiguous block, as the kernels take them
+    rounds = RoundSchedule(*(a.transpose(0, 1).contiguous()
+                             for a in schedule))
+    extra = () if train_ctx is None else (train_ctx,)
+    for i in range(rounds.round_idx.shape[0]):
+        global_w, local_w, cache = safa_round(
+            global_w, local_w, cache, sync_mask=rounds.sync[i],
+            completed=rounds.completed[i], picked=rounds.picked[i],
+            undrafted=rounds.undrafted[i], deprecated=rounds.deprecated[i],
+            weights=weights, local_train_fn=local_train_fn,
+            train_args=(rounds.round_idx[i],) + extra,
+            use_kernel=use_kernel, wire=wire)
     return global_w, local_w, cache

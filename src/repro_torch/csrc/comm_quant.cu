@@ -1,9 +1,16 @@
 // Int8 per-block quantisation of a packed [m, N] upload buffer for Hopper
 // (sm_90a).
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/comm_quant.py:
-// _quant_packed_kernel (quantize_packed).  For every client row and every
-// block of 128 values:
+// Replaces two Pallas TPU kernels of the JAX package:
+//   * src/repro/kernels/comm_quant.py:_quant_packed_kernel (quantize_packed)
+//     -> quantize_packed_f32 below;
+//   * src/repro/kernels/comm_quant.py:_quant_fleet_kernel
+//     (quantize_packed_fleet) -> quantize_packed_fleet_f32 below.  The
+//     quantisation is row by row, so an [S, m, N] fleet buffer is an
+//     [S * m, N] one: the fleet entry launches the same kernel over S * m
+//     rows, and each member's q and scales are bit for bit the single-run
+//     kernel's on its rows.
+// For every client row and every block of 128 values:
 //   scale = max(amax, 1e-30) / 127        (amax = max |x| over the block)
 //   q     = clip(round_half_even(x / scale), -127, 127)  as int8
 //
@@ -55,6 +62,17 @@ quantize_packed_kernel(const float* x, int8_t* q, float* scales,
   if (lane == 0) scales[blk] = scale;
 }
 
+int launch(const float* x, int8_t* q, float* scales, long long rows,
+           long long n, cudaStream_t stream) {
+  const long long n_blocks = rows * (n / kQBlock);
+  if (n_blocks == 0) return (int)cudaSuccess;
+  const long long threads = n_blocks * kLanes;
+  const unsigned int grid = (unsigned int)((threads + kThreads - 1) / kThreads);
+  quantize_packed_kernel<<<grid, kThreads, 0, stream>>>(x, q, scales,
+                                                        n_blocks);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -63,13 +81,14 @@ extern "C" {
 // multiple of 128.  Returns the launch's cudaError_t.
 int quantize_packed_f32(const float* x, int8_t* q, float* scales, int m,
                         long long n, cudaStream_t stream) {
-  const long long n_blocks = (long long)m * (n / kQBlock);
-  if (n_blocks == 0) return (int)cudaSuccess;
-  const long long threads = n_blocks * kLanes;
-  const unsigned int grid = (unsigned int)((threads + kThreads - 1) / kThreads);
-  quantize_packed_kernel<<<grid, kThreads, 0, stream>>>(x, q, scales,
-                                                        n_blocks);
-  return (int)cudaGetLastError();
+  return launch(x, q, scales, m, n, stream);
+}
+
+// The fleet form: x [s, m, n] f32; q [s, m, n] int8; scales
+// [s, m, n / 128] f32.  One launch over the s * m rows.
+int quantize_packed_fleet_f32(const float* x, int8_t* q, float* scales, int s,
+                              int m, long long n, cudaStream_t stream) {
+  return launch(x, q, scales, (long long)s * m, n, stream);
 }
 
 }  // extern "C"

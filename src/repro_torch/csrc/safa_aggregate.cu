@@ -1,10 +1,21 @@
 // SAFA discriminative aggregation (Eq. 6 + 7 + 8) for Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of the JAX package:
+// Replaces four Pallas TPU kernels of the JAX package:
 //   * src/repro/kernels/safa_aggregate.py:_kernel     (safa_aggregate,
 //     safa_aggregate_packed)  -> safa_aggregate_f32 below;
 //   * src/repro/kernels/safa_aggregate.py:_q8_kernel  (safa_aggregate_packed_q8)
-//     -> safa_aggregate_q8_f32 below.
+//     -> safa_aggregate_q8_f32 below;
+//   * src/repro/kernels/safa_aggregate.py:_fleet_kernel
+//     (safa_aggregate_packed_fleet) -> safa_aggregate_fleet_f32 below;
+//   * src/repro/kernels/safa_aggregate.py:_q8_fleet_kernel
+//     (safa_aggregate_packed_q8_fleet) -> safa_aggregate_q8_fleet_f32 below.
+//
+// The fleet forms run S independent servers in one launch: every operand
+// gains a leading member axis ([S, m, N] rows, [S, N] globals, [S, m] masks
+// and weights) and the grid a second dimension, blockIdx.y = s.  A block
+// of member s runs exactly the single-run code on member s's slices, so
+// its new_global is bit for bit what the single-run launch gives on them;
+// a single run is the fleet of one (gridDim.y = 1).
 //
 // Math, per client k and column j of the [m, N] pack buffers:
 //   c1 = picked ? trained : (deprecated ? global : cache)       (Eq. 6)
@@ -67,6 +78,16 @@ __device__ __forceinline__ void fma4(float4& acc, float4 v, float w) {
   acc.w = fmaf(v.w, w, acc.w);
 }
 
+// Where fleet member s = blockIdx.y starts in each operand: its [m, n]
+// rows (in float4s), its [n] global row (in float4s) and its [m] masks and
+// weights.  64-bit, as every offset here.
+struct Member {
+  long long rows, row, clients;
+  __device__ Member(int m, long long n4)
+      : rows((long long)blockIdx.y * m * n4), row((long long)blockIdx.y * n4),
+        clients((long long)blockIdx.y * m) {}
+};
+
 // Stage clients [k0, k0 + kn) of the masks and weights into shared memory.
 __device__ __forceinline__ void stage(uint8_t* s_flags, float* s_w, int k0,
                                       int kn, const bool* picked,
@@ -115,19 +136,22 @@ safa_aggregate_kernel(const float* cache, const float* trained,
   __shared__ uint8_t s_flags[kChunk];
   __shared__ float s_w[kChunk];
   __shared__ float4 s_acc[kSlices][kLanes];
+  const Member mb(m, n4);
   const long long col = (long long)blockIdx.x * kLanes + threadIdx.x;
   const bool active = col < n4;
-  const float4 g = active ? reinterpret_cast<const float4*>(global)[col]
-                          : make_float4(0.f, 0.f, 0.f, 0.f);
-  const float4* c4 = reinterpret_cast<const float4*>(cache);
-  const float4* t4 = reinterpret_cast<const float4*>(trained);
-  float4* nc4 = reinterpret_cast<float4*>(new_cache);
+  const float4 g = active
+      ? reinterpret_cast<const float4*>(global)[mb.row + col]
+      : make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4* c4 = reinterpret_cast<const float4*>(cache) + mb.rows;
+  const float4* t4 = reinterpret_cast<const float4*>(trained) + mb.rows;
+  float4* nc4 = reinterpret_cast<float4*>(new_cache) + mb.rows;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int k0 = 0; k0 < m; k0 += kChunk) {
     const int kn = min(kChunk, m - k0);
     __syncthreads();   // the previous chunk's readers are done
-    stage(s_flags, s_w, k0, kn, picked, undrafted, deprecated, nullptr,
-          weights);
+    stage(s_flags, s_w, k0, kn, picked + mb.clients,
+          undrafted + mb.clients, deprecated + mb.clients, nullptr,
+          weights + mb.clients);
     __syncthreads();
     if (!active) continue;
 #pragma unroll 4
@@ -144,7 +168,7 @@ safa_aggregate_kernel(const float* cache, const float* trained,
       }
     }
   }
-  finish(s_acc, acc, active, new_global, col);
+  finish(s_acc, acc, active, new_global + mb.row * kVec, col);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -158,22 +182,27 @@ safa_aggregate_q8_kernel(const int8_t* q, const float* scales,
   __shared__ uint8_t s_flags[kChunk];
   __shared__ float s_w[kChunk];
   __shared__ float4 s_acc[kSlices][kLanes];
+  const Member mb(m, n4);
   const long long col = (long long)blockIdx.x * kLanes + threadIdx.x;
   const bool active = col < n4;
   const long long n_scales = n4 / (kQBlock / kVec);   // scales per row
   const long long sblk = col / (kQBlock / kVec);      // this thread's block
-  const float4 g = active ? reinterpret_cast<const float4*>(global)[col]
-                          : make_float4(0.f, 0.f, 0.f, 0.f);
-  const char4* q4 = reinterpret_cast<const char4*>(q);
-  const float4* b4 = reinterpret_cast<const float4*>(base);
-  float4* c4 = reinterpret_cast<float4*>(cache);   // new cache, in place
-  float4* nl4 = reinterpret_cast<float4*>(new_local);
+  const float4 g = active
+      ? reinterpret_cast<const float4*>(global)[mb.row + col]
+      : make_float4(0.f, 0.f, 0.f, 0.f);
+  const char4* q4 = reinterpret_cast<const char4*>(q) + mb.rows;
+  scales += mb.clients * n_scales;
+  const float4* b4 = reinterpret_cast<const float4*>(base) + mb.rows;
+  // new cache, in place
+  float4* c4 = reinterpret_cast<float4*>(cache) + mb.rows;
+  float4* nl4 = reinterpret_cast<float4*>(new_local) + mb.rows;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int k0 = 0; k0 < m; k0 += kChunk) {
     const int kn = min(kChunk, m - k0);
     __syncthreads();
-    stage(s_flags, s_w, k0, kn, picked, undrafted, deprecated, completed,
-          weights);
+    stage(s_flags, s_w, k0, kn, picked + mb.clients,
+          undrafted + mb.clients, deprecated + mb.clients,
+          completed + mb.clients, weights + mb.clients);
     __syncthreads();
     if (!active) continue;
     for (int i0 = threadIdx.y; i0 < kn; i0 += kSlices * kGroup) {
@@ -216,11 +245,40 @@ safa_aggregate_q8_kernel(const int8_t* q, const float* scales,
       }
     }
   }
-  finish(s_acc, acc, active, new_global, col);
+  finish(s_acc, acc, active, new_global + mb.row * kVec, col);
 }
 
-inline unsigned int blocks_for(long long n4) {
-  return (unsigned int)((n4 + kLanes - 1) / kLanes);
+inline dim3 grid_for(long long n4, int s) {
+  return dim3((unsigned int)((n4 + kLanes - 1) / kLanes), (unsigned int)s);
+}
+
+int launch_f32(const float* cache, const float* trained, const float* global,
+               const bool* picked, const bool* undrafted,
+               const bool* deprecated, const float* weights,
+               float* new_global, float* new_cache, int s, int m, long long n,
+               cudaStream_t stream) {
+  const long long n4 = n / kVec;
+  if (n4 == 0 || s == 0) return (int)cudaSuccess;
+  safa_aggregate_kernel<<<grid_for(n4, s), dim3(kLanes, kSlices), 0,
+                          stream>>>(
+      cache, trained, global, picked, undrafted, deprecated, weights,
+      new_global, new_cache, new_cache == cache, m, n4);
+  return (int)cudaGetLastError();
+}
+
+int launch_q8(const int8_t* q, const float* scales, const float* base,
+              float* cache, const float* global, const bool* picked,
+              const bool* undrafted, const bool* deprecated,
+              const bool* completed, const float* weights, float* new_global,
+              float* new_local, int s, int m, long long n,
+              cudaStream_t stream) {
+  const long long n4 = n / kVec;
+  if (n4 == 0 || s == 0) return (int)cudaSuccess;
+  safa_aggregate_q8_kernel<<<grid_for(n4, s), dim3(kLanes, kSlices), 0,
+                             stream>>>(
+      q, scales, base, cache, global, picked, undrafted, deprecated,
+      completed, weights, new_global, new_local, m, n4);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -237,12 +295,21 @@ int safa_aggregate_f32(const float* cache, const float* trained,
                        const float* weights, float* new_global,
                        float* new_cache, int m, long long n,
                        cudaStream_t stream) {
-  const long long n4 = n / kVec;
-  if (n4 == 0) return (int)cudaSuccess;
-  safa_aggregate_kernel<<<blocks_for(n4), dim3(kLanes, kSlices), 0, stream>>>(
-      cache, trained, global, picked, undrafted, deprecated, weights,
-      new_global, new_cache, new_cache == cache, m, n4);
-  return (int)cudaGetLastError();
+  return launch_f32(cache, trained, global, picked, undrafted, deprecated,
+                    weights, new_global, new_cache, 1, m, n, stream);
+}
+
+// The fleet form: cache/trained/new_cache [s, m, n] f32 (new_cache may
+// equal cache: in place); global/new_global [s, n]; masks and weights
+// [s, m].  One launch, gridDim.y = s (at most 65,535).
+int safa_aggregate_fleet_f32(const float* cache, const float* trained,
+                             const float* global, const bool* picked,
+                             const bool* undrafted, const bool* deprecated,
+                             const float* weights, float* new_global,
+                             float* new_cache, int s, int m, long long n,
+                             cudaStream_t stream) {
+  return launch_f32(cache, trained, global, picked, undrafted, deprecated,
+                    weights, new_global, new_cache, s, m, n, stream);
 }
 
 // q: [m, n] int8; scales: [m, n / 128] f32; base/cache/new_local: [m, n]
@@ -255,12 +322,24 @@ int safa_aggregate_q8_f32(const int8_t* q, const float* scales,
                           const bool* completed, const float* weights,
                           float* new_global, float* new_local, int m,
                           long long n, cudaStream_t stream) {
-  const long long n4 = n / kVec;
-  if (n4 == 0) return (int)cudaSuccess;
-  safa_aggregate_q8_kernel<<<blocks_for(n4), dim3(kLanes, kSlices), 0, stream>>>(
-      q, scales, base, cache, global, picked, undrafted, deprecated,
-      completed, weights, new_global, new_local, m, n4);
-  return (int)cudaGetLastError();
+  return launch_q8(q, scales, base, cache, global, picked, undrafted,
+                   deprecated, completed, weights, new_global, new_local, 1,
+                   m, n, stream);
+}
+
+// The fleet form: q [s, m, n] int8; scales [s, m, n / 128];
+// base/cache/new_local [s, m, n] f32, the cache written in place;
+// global/new_global [s, n]; masks and weights [s, m].  gridDim.y = s.
+int safa_aggregate_q8_fleet_f32(const int8_t* q, const float* scales,
+                                const float* base, float* cache,
+                                const float* global, const bool* picked,
+                                const bool* undrafted, const bool* deprecated,
+                                const bool* completed, const float* weights,
+                                float* new_global, float* new_local, int s,
+                                int m, long long n, cudaStream_t stream) {
+  return launch_q8(q, scales, base, cache, global, picked, undrafted,
+                   deprecated, completed, weights, new_global, new_local, s,
+                   m, n, stream);
 }
 
 }  // extern "C"

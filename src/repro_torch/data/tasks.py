@@ -7,7 +7,11 @@ Task 3: SVM         (KDD-like,      m=500, linear SVM, hinge loss)
 Each implements ``repro_torch.core.federation.Task``: ``local_train`` runs
 E epochs of mini-batch SGD (Algorithm 2's client_update) on every client
 at once, batched over the stacked clients dim with
-``torch.func.vmap(torch.func.grad(loss))``.
+``torch.func.vmap(torch.func.grad(loss))``.  ``local_train_fleet`` trains
+a fleet of S runs sharing the task in one call: a second ``vmap`` over
+the members, the client data not batched over them, so it is held once
+whatever S.  ``stack_tasks`` stacks S tasks with different client data
+(padded to the longest) for a per-member-task sweep.
 
 Parameters keep the JAX package's layouts, so weights carry across
 unchanged (``repro_torch.convert``): conv weights are HWIO, fully
@@ -62,6 +66,9 @@ class SupervisedTask(Task):
         self._test_x = torch.as_tensor(data.test_x, device=self.device)
         self._test_y = torch.as_tensor(data.test_y, device=self.device)
         self._grads = torch.func.vmap(torch.func.grad(loss_fn))
+        # fleets: members outer, the client data shared by every member
+        self._fleet_grads = torch.func.vmap(self._grads,
+                                            in_dims=(0, None, None))
 
     def init_global(self, seed: int) -> dict:
         """The port's own seeded init (JAX's PRNG cannot be reproduced in
@@ -77,6 +84,20 @@ class SupervisedTask(Task):
             for _ in range(self.epochs):
                 for j in range(self._x.shape[1]):
                     g = self._grads(params, self._x[:, j], self._y[:, j])
+                    params, _ = self.opt.update(g, (), params)
+        return params
+
+    def local_train_fleet(self, fleet_params: dict, round_idx) -> dict:
+        """``local_train`` for a fleet of S runs sharing this task:
+        [S, m, ...] replicas, every member's m clients on the same client
+        data, all in one call per SGD step."""
+        del round_idx
+        params = dict(fleet_params)
+        with fp32_math():
+            for _ in range(self.epochs):
+                for j in range(self._x.shape[1]):
+                    g = self._fleet_grads(params, self._x[:, j],
+                                          self._y[:, j])
                     params, _ = self.opt.update(g, (), params)
         return params
 
@@ -97,6 +118,95 @@ class SupervisedTask(Task):
             self._fingerprint = \
                 f'{type(self).__name__}:{h.hexdigest()[:16]}'
         return self._fingerprint
+
+
+# ---------------------------------------------------------------------------
+# Fleet stacking: per-member tasks for batched sweeps
+# ---------------------------------------------------------------------------
+
+class StackedSupervisedTask:
+    """S ``SupervisedTask``s stacked member-major, so that a sweep whose
+    members hold different client data (multi-``seed`` env grids with
+    distinct partitions) still trains every member in one call per step.
+
+    Members may disagree on batch count (partition sizes differ), so each
+    member's [m, nb_s, B, ...] batch stack is zero-padded to the fleet's
+    largest and a per-member [nb_max] validity mask rides along: on a
+    padding batch the step's result is discarded and the parameters pass
+    through unchanged, an exact no-op, so each member's numbers are those
+    of its own unpadded run.  Members must share the model, the client
+    count m, the batch size, the epochs and the train step (lr, loss).
+
+    This is not a ``Task``: per-member init and eval stay with the member
+    tasks; the fleet engine passes ``fleet_ctx()`` to ``fleet_train``."""
+
+    def __init__(self, tasks):
+        if not tasks:
+            raise ValueError('empty task stack')
+        t0 = tasks[0]
+        if any(t.epochs != t0.epochs for t in tasks):
+            raise ValueError('stacked tasks must share the epoch count')
+        # one train step serves every member, so the steps must be the
+        # same: training member s with member 0's lr or loss would break
+        # the fleet == sequential identity silently
+        hypers = {(t.lr, t.loss_fn, t.acc_fn) for t in tasks}
+        if len(hypers) != 1:
+            raise ValueError(
+                'stacked tasks must share lr/loss_fn/acc_fn (the fleet '
+                'runs one train step for all members); got '
+                f'{len(hypers)} distinct combinations')
+        shapes = {t._x.shape[:1] + t._x.shape[3:] for t in tasks}
+        if len(shapes) != 1 or len({t._x.shape[2] for t in tasks}) != 1:
+            raise ValueError(
+                'stacked tasks must share (m, batch_size, features); got '
+                f'x shapes {sorted(tuple(t._x.shape) for t in tasks)}')
+        if len({t.device for t in tasks}) != 1:
+            raise ValueError('stacked tasks must lie on one device')
+        self.tasks = tuple(tasks)
+        self._t0 = t0
+        self.device = t0.device
+        nb = [t._x.shape[1] for t in tasks]
+        nb_max = max(nb)
+
+        def pad(a, n):
+            # zero batches appended along the batch-count axis (dim 1)
+            widths = [0, 0] * (a.ndim - 2) + [0, n - a.shape[1]]
+            return F.pad(a, widths)
+
+        self._x = torch.stack([pad(t._x, nb_max) for t in tasks])
+        self._y = torch.stack([pad(t._y, nb_max) for t in tasks])
+        self._valid = (torch.arange(nb_max, device=self.device)[None, :]
+                       < torch.as_tensor(nb, device=self.device)[:, None])
+        self._grads = torch.func.vmap(t0._grads)      # members outer
+
+    def fleet_ctx(self) -> dict:
+        """The [S, ...] train context the fleet engine hands to
+        ``fleet_train``."""
+        return {'x': self._x, 'y': self._y, 'valid': self._valid}
+
+    def fleet_train(self, fleet_params: dict, round_idx, ctx: dict) -> dict:
+        """Every member's m client replicas ([S, m, ...] leaves) trained
+        on its own client data, padding batches masked out."""
+        del round_idx
+        t = self._t0
+        params = dict(fleet_params)
+        with fp32_math():
+            for _ in range(t.epochs):
+                for j in range(ctx['x'].shape[2]):
+                    g = self._grads(params, ctx['x'][:, :, j],
+                                    ctx['y'][:, :, j])
+                    stepped, _ = t.opt.update(g, (), params)
+                    v = ctx['valid'][:, j]
+                    params = {k: torch.where(
+                        v.reshape((-1,) + (1,) * (p.ndim - 1)), stepped[k], p)
+                        for k, p in params.items()}
+        return params
+
+
+def stack_tasks(tasks) -> StackedSupervisedTask:
+    """Stack per-member ``SupervisedTask``s for a per-member-task sweep
+    (``repro_torch.api.SweepSpec(tasks=...)``)."""
+    return StackedSupervisedTask(list(tasks))
 
 
 def _normal(gen, shape):

@@ -3,7 +3,8 @@
 The paper assumes models are compressed before transmission (§IV-A).  The
 int8 wire carries one f32 scale per ``QBLOCK`` values: ``quantize_packed``
 block-quantises a whole packed [m, N] upload buffer, each client row on
-its own.  On a CUDA tensor it launches the kernel of
+its own; ``quantize_packed_fleet`` does the same for a fleet's
+[S, m, N] buffer in one launch.  On a CUDA tensor it launches the kernel of
 ``csrc/comm_quant.cu``; on a CPU tensor it runs the plain version in
 ``kernels.ref``.
 """
@@ -27,18 +28,34 @@ def _check_packed(n: int):
             f'PACK_TILE={PACK_TILE}; pack with ops.pack_spec')
 
 
-def quantize_packed(x: torch.Tensor):
-    """x: [m, N] f32 pack buffer (N % PACK_TILE == 0) -> (q [m, N] int8,
-    scales [m, N / QBLOCK] f32), one kernel launch for the whole buffer."""
-    m, n = x.shape
+def _quantize(key: str, entry: str, rank: int, x: torch.Tensor):
+    if x.ndim != rank:
+        raise ValueError(f'expected a rank-{rank} pack buffer, got shape '
+                         f'{tuple(x.shape)}')
+    n = x.shape[-1]
     _check_packed(n)
     if not backend.is_cuda(x):
         return ref.quantize_packed_ref(x)
-    backend.check_operand(x, 'x', torch.float32, (m, n), x.device)
-    q = torch.empty((m, n), dtype=torch.int8, device=x.device)
-    scales = torch.empty((m, n // QBLOCK), dtype=torch.float32,
+    lead = tuple(x.shape[:-1])
+    backend.check_operand(x, 'x', torch.float32, lead + (n,), x.device)
+    q = torch.empty(lead + (n,), dtype=torch.int8, device=x.device)
+    scales = torch.empty(lead + (n // QBLOCK,), dtype=torch.float32,
                          device=x.device)
-    backend.call('quantize_packed_f32', x.device, x.data_ptr(), q.data_ptr(),
-                 scales.data_ptr(), m, n)
-    backend.LAUNCHES['quantize_packed'] += 1
+    backend.call(entry, x.device, x.data_ptr(), q.data_ptr(),
+                 scales.data_ptr(), *lead, n)
+    backend.LAUNCHES[key] += 1
     return q, scales
+
+
+def quantize_packed(x: torch.Tensor):
+    """x: [m, N] f32 pack buffer (N % PACK_TILE == 0) -> (q [m, N] int8,
+    scales [m, N / QBLOCK] f32), one kernel launch for the whole buffer."""
+    return _quantize('quantize_packed', 'quantize_packed_f32', 2, x)
+
+
+def quantize_packed_fleet(x: torch.Tensor):
+    """Fleet form: x [S, m, N] -> (q [S, m, N] int8, scales
+    [S, m, N / QBLOCK] f32), every member's upload buffer in one launch
+    (of the same kernel, over the S * m rows)."""
+    return _quantize('quantize_packed_fleet', 'quantize_packed_fleet_f32', 3,
+                     x)

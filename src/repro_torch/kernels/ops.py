@@ -15,6 +15,11 @@ Two tree-level aggregation paths:
 
 ``safa_compressed_update`` is the int8 wire's server step: two launches
 per round (``quantize_packed``, then ``safa_aggregate_packed_q8``).
+
+Each has a fleet form (``*_fleet``) over S independent servers: stacked
+models carry [S, m, ...] leaves and globals [S, ...], and each form
+launches its fleet kernel once for all S members (``pack_fleet`` lays
+the [S, m, ...] stacks out as [S, m, n_padded] buffers).
 """
 from __future__ import annotations
 
@@ -23,15 +28,20 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.comm_quant import PACK_TILE, QBLOCK, quantize_packed
-from repro_torch.kernels.safa_aggregate import (safa_aggregate,
-                                                safa_aggregate_packed,
-                                                safa_aggregate_packed_q8)
+from repro_torch.kernels.comm_quant import (PACK_TILE, QBLOCK,
+                                            quantize_packed,
+                                            quantize_packed_fleet)
+from repro_torch.kernels.safa_aggregate import (
+    safa_aggregate, safa_aggregate_fleet, safa_aggregate_packed,
+    safa_aggregate_packed_fleet, safa_aggregate_packed_q8,
+    safa_aggregate_packed_q8_fleet)
 
-__all__ = ['PackSpec', 'comm_bytes', 'pack_global', 'pack_spec',
-           'pack_stacked', 'safa_aggregate_tree', 'safa_aggregate_tree_packed',
-           'safa_compressed_update', 'tree_keys', 'unpack_global',
-           'unpack_stacked', 'wire_spec']
+__all__ = ['PackSpec', 'comm_bytes', 'pack_fleet', 'pack_global', 'pack_spec',
+           'pack_stacked', 'safa_aggregate_tree', 'safa_aggregate_tree_fleet',
+           'safa_aggregate_tree_packed', 'safa_aggregate_tree_packed_fleet',
+           'safa_compressed_update', 'safa_compressed_update_fleet',
+           'tree_keys', 'unpack_fleet', 'unpack_global', 'unpack_stacked',
+           'wire_spec']
 
 
 def tree_keys(tree: dict) -> tuple:
@@ -50,6 +60,24 @@ def safa_aggregate_tree(cache, trained, global_prev, *, picked, undrafted,
         ng, nc = safa_aggregate(
             c.reshape(m, -1), t.reshape(m, -1), g.reshape(-1).to(c.dtype),
             picked, undrafted, deprecated, weights)
+        new_global[k] = ng.reshape(g.shape).to(g.dtype)
+        new_cache[k] = nc.reshape(c.shape)
+    return new_global, new_cache
+
+
+def safa_aggregate_tree_fleet(cache, trained, global_prev, *, picked,
+                              undrafted, deprecated, weights):
+    """Fleet form of ``safa_aggregate_tree``: [S, m, ...] stacks, [S, ...]
+    globals, [S, m] masks and weights; one fleet launch per leaf, into a
+    fresh output.  Returns (new_global, new_cache)."""
+    new_global, new_cache = {}, {}
+    for k in tree_keys(global_prev):
+        c, t, g = cache[k], trained[k], global_prev[k]
+        s, m = c.shape[:2]
+        ng, nc = safa_aggregate_fleet(
+            c.reshape(s, m, -1), t.reshape(s, m, -1),
+            g.reshape(s, -1).to(c.dtype), picked, undrafted, deprecated,
+            weights)
         new_global[k] = ng.reshape(g.shape).to(g.dtype)
         new_cache[k] = nc.reshape(c.shape)
     return new_global, new_cache
@@ -137,6 +165,13 @@ def pack_global(tree: dict, spec: PackSpec, *, dtype=torch.float32):
     return _pack(tree, (), spec, dtype)
 
 
+def pack_fleet(tree: dict, spec: PackSpec, *, dtype=torch.float32):
+    """Fleet-stacked model dict ([S, m, ...] leaves) -> [S, m, n_padded]
+    buffer.  Fleet globals ([S, ...] leaves) pack with ``pack_stacked``:
+    their leading axis is S instead of m."""
+    return _pack(tree, tuple(tree[spec.keys[0]].shape[:2]), spec, dtype)
+
+
 def _unpack(buf, spec: PackSpec, lead: tuple) -> dict:
     return {k: buf[..., off:off + size].reshape(lead + shape).to(dt)
             for k, shape, dt, size, off in zip(spec.keys, spec.shapes,
@@ -152,6 +187,18 @@ def unpack_stacked(buf, spec: PackSpec) -> dict:
 def unpack_global(buf, spec: PackSpec) -> dict:
     """[n_padded] buffer -> global model dict (views into ``buf``)."""
     return _unpack(buf, spec, ())
+
+
+def unpack_fleet(buf, spec: PackSpec) -> dict:
+    """[S, m, n_padded] buffer -> fleet-stacked model dict (views)."""
+    return _unpack(buf, spec, tuple(buf.shape[:2]))
+
+
+def _member_spec(global_prev: dict, spec, layout) -> PackSpec:
+    """A fleet's pack layout: one member's (``[0]`` of every leaf)."""
+    if spec is not None:
+        return spec
+    return layout({k: v[0] for k, v in global_prev.items()})
 
 
 def _require_f32(spec: PackSpec):
@@ -181,6 +228,23 @@ def safa_aggregate_tree_packed(cache, trained, global_prev, *, picked,
     return unpack_global(ng, spec), unpack_stacked(nc, spec)
 
 
+def safa_aggregate_tree_packed_fleet(cache, trained, global_prev, *, picked,
+                                     undrafted, deprecated, weights,
+                                     spec: PackSpec = None):
+    """Fleet form of ``safa_aggregate_tree_packed``: [S, m, ...] stacks,
+    [S, ...] globals, [S, m] masks and weights; all S servers' Eq. 6-8 in
+    one launch of ``safa_aggregate_packed_fleet``.  ``spec`` is one
+    member's layout.  Returns (new_global, new_cache)."""
+    spec = _member_spec(global_prev, spec, pack_spec)
+    _require_f32(spec)
+    pc = pack_fleet(cache, spec)
+    pt = pack_fleet(trained, spec)
+    pg = pack_stacked(global_prev, spec)            # [S, n_padded]
+    ng, nc = safa_aggregate_packed_fleet(pc, pt, pg, picked, undrafted,
+                                         deprecated, weights)
+    return unpack_stacked(ng, spec), unpack_fleet(nc, spec)
+
+
 # ---------------------------------------------------------------------------
 # Compressed wire path: packed int8 uplink in 2 launches
 # ---------------------------------------------------------------------------
@@ -204,6 +268,24 @@ def safa_compressed_update(base, trained, cache, global_prev, *, picked,
         completed, weights)
     return (unpack_global(ng, spec), unpack_stacked(nl, spec),
             unpack_stacked(nc, spec))
+
+
+def safa_compressed_update_fleet(base, trained, cache, global_prev, *,
+                                 picked, undrafted, deprecated, completed,
+                                 weights, spec: PackSpec = None):
+    """Fleet form of ``safa_compressed_update``: ``quantize_packed_fleet``
+    on the [S, m, N] upload pack, then one ``safa_aggregate_packed_q8_fleet``
+    launch: two launches per round for the whole fleet.  ``spec`` is one
+    member's wire layout.  Returns (new_global, new_local, new_cache)."""
+    spec = _member_spec(global_prev, spec, wire_spec)
+    _require_f32(spec)
+    q, scales = quantize_packed_fleet(pack_fleet(trained, spec))
+    ng, nc, nl = safa_aggregate_packed_q8_fleet(
+        q, scales, pack_fleet(base, spec), pack_fleet(cache, spec),
+        pack_stacked(global_prev, spec), picked, undrafted, deprecated,
+        completed, weights)
+    return (unpack_stacked(ng, spec), unpack_fleet(nl, spec),
+            unpack_fleet(nc, spec))
 
 
 def comm_bytes(tree: dict, quantized: bool, *, layout: str = 'tree') -> int:

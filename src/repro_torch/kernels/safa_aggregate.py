@@ -18,6 +18,11 @@ CUDA tensors and its plain version (``kernels.ref``) on CPU tensors:
   arrives as (q, scales) and is dequantised in registers; the cache is
   written in place and the post-wire trained matrix comes back as
   new_local.
+
+Each has a fleet form (``*_fleet``) for S independent servers in one
+launch: every operand gains a leading member axis ([S, m, N] rows, [S, N]
+globals, [S, m] masks and weights), and member s's results are bit for
+bit the single-run launch's on member s's slices.
 """
 from __future__ import annotations
 
@@ -28,31 +33,86 @@ from repro_torch.kernels import backend, ref
 from repro_torch.kernels.comm_quant import PACK_TILE, QBLOCK, _check_packed
 
 
-def _check_column_operands(m: int, n: int, device, global_prev, weights,
-                           **masks):
-    backend.check_operand(global_prev, 'global_prev', torch.float32, (n,),
+def _lead(x, fleet: bool) -> tuple:
+    """The member axis of a kernel operand: (S,) for a fleet, () for one
+    run; raises on the wrong rank."""
+    want = 3 if fleet else 2
+    if x.ndim != want:
+        raise ValueError(
+            f'expected {"[S, m, N]" if fleet else "[m, N]"} rows, got shape '
+            f'{tuple(x.shape)}')
+    return tuple(x.shape[:1]) if fleet else ()
+
+
+def _check_column_operands(lead: tuple, m: int, n: int, device, global_prev,
+                           weights, **masks):
+    backend.check_operand(global_prev, 'global_prev', torch.float32,
+                          lead + (n,), device)
+    backend.check_operand(weights, 'weights', torch.float32, lead + (m,),
                           device)
-    backend.check_operand(weights, 'weights', torch.float32, (m,), device)
     for name, mask in masks.items():
-        backend.check_operand(mask, name, torch.bool, (m,), device)
+        backend.check_operand(mask, name, torch.bool, lead + (m,), device)
 
 
 def _launch(cache, trained, global_prev, picked, undrafted, deprecated,
-            weights, new_cache):
-    """One launch of the f32 kernel over [m, N] operands (N % 4 == 0)."""
-    m, n = cache.shape
+            weights, new_cache, fleet: bool):
+    """One launch of the f32 kernel over [(S,) m, N] operands
+    (N % 4 == 0)."""
+    lead = _lead(cache, fleet)
+    m, n = cache.shape[-2:]
     dev = cache.device
-    backend.check_operand(cache, 'cache', torch.float32, (m, n), dev)
-    backend.check_operand(trained, 'trained', torch.float32, (m, n), dev)
-    _check_column_operands(m, n, dev, global_prev, weights, picked=picked,
-                           undrafted=undrafted, deprecated=deprecated)
-    new_global = torch.empty(n, dtype=torch.float32, device=cache.device)
-    backend.call('safa_aggregate_f32', cache.device, cache.data_ptr(),
-                 trained.data_ptr(), global_prev.data_ptr(),
-                 picked.data_ptr(), undrafted.data_ptr(),
-                 deprecated.data_ptr(), weights.data_ptr(),
-                 new_global.data_ptr(), new_cache.data_ptr(), m, n)
+    backend.check_operand(cache, 'cache', torch.float32, lead + (m, n), dev)
+    backend.check_operand(trained, 'trained', torch.float32, lead + (m, n),
+                          dev)
+    backend.check_operand(new_cache, 'new_cache', torch.float32,
+                          lead + (m, n), dev)
+    _check_column_operands(lead, m, n, dev, global_prev, weights,
+                           picked=picked, undrafted=undrafted,
+                           deprecated=deprecated)
+    new_global = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
+    backend.call('safa_aggregate_fleet_f32' if fleet else 'safa_aggregate_f32',
+                 dev, cache.data_ptr(), trained.data_ptr(),
+                 global_prev.data_ptr(), picked.data_ptr(),
+                 undrafted.data_ptr(), deprecated.data_ptr(),
+                 weights.data_ptr(), new_global.data_ptr(),
+                 new_cache.data_ptr(), *lead, m, n)
     return new_global
+
+
+def _fresh(key: str, fleet: bool, cache, trained, global_prev, picked,
+           undrafted, deprecated, weights):
+    """The per-leaf route: pad the rows to ``PACK_TILE`` and launch into a
+    fresh new-cache output."""
+    if not backend.is_cuda(cache, trained, global_prev):
+        _lead(cache, fleet)
+        return ref.safa_aggregate_ref(cache, trained, global_prev, picked,
+                                      undrafted, deprecated, weights)
+    n = cache.shape[-1]
+    pad = (-n) % PACK_TILE
+    cache_p = F.pad(cache, (0, pad)).contiguous()
+    trained_p = F.pad(trained, (0, pad)).contiguous()
+    global_p = F.pad(global_prev, (0, pad)).contiguous()
+    new_cache = torch.empty_like(cache_p)
+    new_global = _launch(cache_p, trained_p, global_p, picked, undrafted,
+                         deprecated, weights, new_cache, fleet)
+    backend.LAUNCHES[key] += 1
+    return new_global[..., :n], new_cache[..., :n]
+
+
+def _in_place(key: str, fleet: bool, cache, trained, global_prev, picked,
+              undrafted, deprecated, weights):
+    """The packed route: the new cache written over ``cache``."""
+    _check_packed(cache.shape[-1])
+    if not backend.is_cuda(cache, trained, global_prev):
+        _lead(cache, fleet)
+        ng, nc = ref.safa_aggregate_ref(cache, trained, global_prev, picked,
+                                        undrafted, deprecated, weights)
+        cache.copy_(nc)      # same in-place contract as the kernel
+        return ng, cache
+    new_global = _launch(cache, trained, global_prev, picked, undrafted,
+                         deprecated, weights, cache, fleet)
+    backend.LAUNCHES[key] += 1
+    return new_global, cache
 
 
 def safa_aggregate(cache, trained, global_prev, picked, undrafted, deprecated,
@@ -60,19 +120,18 @@ def safa_aggregate(cache, trained, global_prev, picked, undrafted, deprecated,
     """cache/trained: [m, N]; global_prev: [N]; masks: [m] bool;
     weights: [m] f32.  Returns (new_global [N], new_cache [m, N]) with the
     new cache in a fresh tensor."""
-    if not backend.is_cuda(cache, trained, global_prev):
-        return ref.safa_aggregate_ref(cache, trained, global_prev, picked,
-                                      undrafted, deprecated, weights)
-    m, n = cache.shape
-    pad = (-n) % PACK_TILE
-    cache_p = F.pad(cache, (0, pad)).contiguous()
-    trained_p = F.pad(trained, (0, pad)).contiguous()
-    global_p = F.pad(global_prev, (0, pad)).contiguous()
-    new_cache = torch.empty_like(cache_p)
-    new_global = _launch(cache_p, trained_p, global_p, picked, undrafted,
-                         deprecated, weights, new_cache)
-    backend.LAUNCHES['safa_aggregate'] += 1
-    return new_global[:n], new_cache[:, :n]
+    return _fresh('safa_aggregate', False, cache, trained, global_prev,
+                  picked, undrafted, deprecated, weights)
+
+
+def safa_aggregate_fleet(cache, trained, global_prev, picked, undrafted,
+                         deprecated, weights):
+    """Fleet form of ``safa_aggregate`` (the per-leaf route of a sweep):
+    cache/trained: [S, m, N]; global_prev: [S, N]; masks and weights:
+    [S, m].  One launch for all S members.  Returns (new_global [S, N],
+    new_cache [S, m, N]) with the new cache in a fresh tensor."""
+    return _fresh('safa_aggregate_fleet', True, cache, trained, global_prev,
+                  picked, undrafted, deprecated, weights)
 
 
 def safa_aggregate_packed(cache, trained, global_prev, picked, undrafted,
@@ -82,16 +141,54 @@ def safa_aggregate_packed(cache, trained, global_prev, picked, undrafted,
     model depth; the new cache is written over ``cache`` in place and
     ``cache`` itself is returned.  Returns (new_global [N], new_cache
     [m, N])."""
-    _check_packed(cache.shape[1])
-    if not backend.is_cuda(cache, trained, global_prev):
-        ng, nc = ref.safa_aggregate_ref(cache, trained, global_prev, picked,
-                                        undrafted, deprecated, weights)
-        cache.copy_(nc)      # same in-place contract as the kernel
-        return ng, cache
-    new_global = _launch(cache, trained, global_prev, picked, undrafted,
-                         deprecated, weights, cache)
-    backend.LAUNCHES['safa_aggregate_packed'] += 1
-    return new_global, cache
+    return _in_place('safa_aggregate_packed', False, cache, trained,
+                     global_prev, picked, undrafted, deprecated, weights)
+
+
+def safa_aggregate_packed_fleet(cache, trained, global_prev, picked,
+                                undrafted, deprecated, weights):
+    """Fleet form of ``safa_aggregate_packed``: cache/trained [S, m, N]
+    pack buffers (N % PACK_TILE == 0); global_prev [S, N]; masks and
+    weights [S, m].  One launch runs Eq. 6-8 for all S servers, the
+    [S, m, N] cache written in place and returned.  Returns
+    (new_global [S, N], new_cache [S, m, N])."""
+    return _in_place('safa_aggregate_packed_fleet', True, cache, trained,
+                     global_prev, picked, undrafted, deprecated, weights)
+
+
+def _q8(key: str, fleet: bool, q, scales, base, cache, global_prev, picked,
+        undrafted, deprecated, completed, weights):
+    lead = _lead(cache, fleet)
+    m, n = cache.shape[-2:]
+    _check_packed(n)
+    if not backend.is_cuda(q, scales, base, cache, global_prev):
+        ng, nc, nl = ref.safa_aggregate_q8_ref(
+            q, scales, base, cache, global_prev, picked, undrafted,
+            deprecated, completed, weights)
+        cache.copy_(nc)
+        return ng, cache, nl
+    dev = cache.device
+    rows = lead + (m, n)
+    backend.check_operand(q, 'q', torch.int8, rows, dev)
+    backend.check_operand(scales, 'scales', torch.float32,
+                          lead + (m, n // QBLOCK), dev)
+    backend.check_operand(base, 'base', torch.float32, rows, dev)
+    backend.check_operand(cache, 'cache', torch.float32, rows, dev)
+    _check_column_operands(lead, m, n, dev, global_prev, weights,
+                           picked=picked, undrafted=undrafted,
+                           deprecated=deprecated, completed=completed)
+    new_global = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
+    new_local = torch.empty_like(cache)
+    backend.call('safa_aggregate_q8_fleet_f32' if fleet
+                 else 'safa_aggregate_q8_f32', dev, q.data_ptr(),
+                 scales.data_ptr(), base.data_ptr(), cache.data_ptr(),
+                 global_prev.data_ptr(), picked.data_ptr(),
+                 undrafted.data_ptr(), deprecated.data_ptr(),
+                 completed.data_ptr(), weights.data_ptr(),
+                 new_global.data_ptr(), new_local.data_ptr(),
+                 *lead, m, n)
+    backend.LAUNCHES[key] += 1
+    return new_global, cache, new_local
 
 
 def safa_aggregate_packed_q8(q, scales, base, cache, global_prev, picked,
@@ -103,30 +200,18 @@ def safa_aggregate_packed_q8(q, scales, base, cache, global_prev, picked,
     global_prev: [N]; picked/undrafted/deprecated/completed: [m] bool;
     weights: [m] f32.  The new cache is written over ``cache`` in place.
     Returns (new_global [N], new_cache [m, N], new_local [m, N])."""
-    m, n = cache.shape
-    _check_packed(n)
-    if not backend.is_cuda(q, scales, base, cache, global_prev):
-        ng, nc, nl = ref.safa_aggregate_q8_ref(
-            q, scales, base, cache, global_prev, picked, undrafted,
-            deprecated, completed, weights)
-        cache.copy_(nc)
-        return ng, cache, nl
-    dev = cache.device
-    backend.check_operand(q, 'q', torch.int8, (m, n), dev)
-    backend.check_operand(scales, 'scales', torch.float32, (m, n // QBLOCK),
-                          dev)
-    backend.check_operand(base, 'base', torch.float32, (m, n), dev)
-    backend.check_operand(cache, 'cache', torch.float32, (m, n), dev)
-    _check_column_operands(m, n, dev, global_prev, weights, picked=picked,
-                           undrafted=undrafted, deprecated=deprecated,
-                           completed=completed)
-    new_global = torch.empty(n, dtype=torch.float32, device=cache.device)
-    new_local = torch.empty_like(cache)
-    backend.call('safa_aggregate_q8_f32', cache.device, q.data_ptr(),
-                 scales.data_ptr(), base.data_ptr(), cache.data_ptr(),
-                 global_prev.data_ptr(), picked.data_ptr(),
-                 undrafted.data_ptr(), deprecated.data_ptr(),
-                 completed.data_ptr(), weights.data_ptr(),
-                 new_global.data_ptr(), new_local.data_ptr(), m, n)
-    backend.LAUNCHES['safa_aggregate_packed_q8'] += 1
-    return new_global, cache, new_local
+    return _q8('safa_aggregate_packed_q8', False, q, scales, base, cache,
+               global_prev, picked, undrafted, deprecated, completed, weights)
+
+
+def safa_aggregate_packed_q8_fleet(q, scales, base, cache, global_prev,
+                                   picked, undrafted, deprecated, completed,
+                                   weights):
+    """Fleet form of ``safa_aggregate_packed_q8``: q/base/cache
+    [S, m, N]; scales [S, m, N / QBLOCK]; global_prev [S, N]; masks and
+    weights [S, m].  S compressed server steps in one launch, the cache
+    written in place.  Returns (new_global [S, N], new_cache [S, m, N],
+    new_local [S, m, N])."""
+    return _q8('safa_aggregate_packed_q8_fleet', True, q, scales, base,
+               cache, global_prev, picked, undrafted, deprecated, completed,
+               weights)

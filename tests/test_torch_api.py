@@ -167,7 +167,7 @@ def test_own_init_trains(quickstart):
     (tapi.SafaSpec(), tapi.ExecSpec(schedule='sparse')),
     (tapi.SafaSpec(), tapi.ExecSpec(schedule='sparse_delta')),
     (tapi.SafaSpec(), tapi.ExecSpec(schedule='sparse_tier')),
-    (tapi.SafaSpec(), tapi.ExecSpec(engine='fleet')),
+    (tapi.SafaSpec(), tapi.ExecSpec(engine='fleet', schedule='sparse')),
     (tapi.SafaSpec(quantize_uploads=True), tapi.ExecSpec()),
     (japi.FedAvgSpec(), tapi.ExecSpec()),
 ], ids=['sparse', 'sparse_delta', 'sparse_tier', 'fleet', 'quantize_uploads',
@@ -190,8 +190,9 @@ def test_unported_runner_options_raise(quickstart):
     runner = _port_exp(tt, init).compile()
     with pytest.raises(NotImplementedError, match='item 7'):
         runner.run(checkpoint='ckpt')
-    with pytest.raises(NotImplementedError, match='item 8'):
-        runner.run_sweep([])
+    with pytest.raises(NotImplementedError, match='item 7'):
+        runner.run_sweep([tapi.SweepMember(env=TEnvSpec(**QUICKSTART))],
+                         checkpoint='ckpt')
 
 
 def test_experiment_defaults_to_cuda(quickstart, monkeypatch):

@@ -8,17 +8,23 @@ installed:
 
 Tolerances: caches, locals, q and scales are selects, one multiply or one
 IEEE division, so they match exactly; new_global is a sum taken in
-another order, held to rtol 1e-5 / atol 1e-6.
+another order, held to rtol 1e-5 / atol 1e-6.  A fleet kernel runs the
+single-run kernel's code on each member's slices, so it must equal the
+single-run kernel bit for bit on every member.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import backend, ref
-from repro_torch.kernels.comm_quant import quantize_packed
-from repro_torch.kernels.safa_aggregate import (safa_aggregate,
-                                                safa_aggregate_packed,
-                                                safa_aggregate_packed_q8)
+from repro_torch.kernels.comm_quant import (quantize_packed,
+                                            quantize_packed_fleet)
+from repro_torch.kernels.safa_aggregate import (
+    safa_aggregate, safa_aggregate_fleet, safa_aggregate_packed,
+    safa_aggregate_packed_fleet, safa_aggregate_packed_q8,
+    safa_aggregate_packed_q8_fleet)
 
 pytestmark = pytest.mark.cuda
 
@@ -34,16 +40,17 @@ def dev():
     return torch.device('cuda')
 
 
-def _inputs(m, n, dev, seed=0):
+def _inputs(m, n, dev, seed=0, lead=()):
+    """Seeded kernel operands; ``lead=(S,)`` gives a fleet's."""
     rng = np.random.default_rng(seed)
-    t = {k: torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+    t = {k: torch.as_tensor(rng.normal(size=lead + shape).astype(np.float32),
                             device=dev)
          for k, shape in (('cache', (m, n)), ('trained', (m, n)),
                           ('base', (m, n)), ('global_prev', (n,)))}
-    t['weights'] = torch.as_tensor(rng.dirichlet(np.ones(m)),
+    t['weights'] = torch.as_tensor(rng.dirichlet(np.ones(m), size=lead),
                                    dtype=torch.float32, device=dev)
     for k in ('picked', 'undrafted', 'deprecated', 'completed'):
-        t[k] = torch.as_tensor(rng.random(m) < 0.4, device=dev)
+        t[k] = torch.as_tensor(rng.random(lead + (m,)) < 0.4, device=dev)
     return t
 
 
@@ -103,6 +110,143 @@ def test_aggregate_q8_matches_plain(dev, m, n):
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
     assert backend.LAUNCHES['safa_aggregate_packed_q8'] == 1
+
+
+FLEET_SHAPES = [(2, 5, 4096), (3, 300, 2048)]   # (S, m, N)
+Q8_ARGS = ('global_prev', 'picked', 'undrafted', 'deprecated', 'completed',
+           'weights')
+
+
+def _member(t, s):
+    return {k: v[s].clone() for k, v in t.items()}
+
+
+@pytest.mark.parametrize('s,m,n', FLEET_SHAPES)
+def test_aggregate_packed_fleet_matches_plain_and_single_run(dev, s, m, n):
+    t = _inputs(m, n, dev, seed=4, lead=(s,))
+    want_g, want_c = ref.safa_aggregate_ref(t['cache'], *(t[k] for k in AGG))
+    cache = t['cache'].clone()
+    got_g, got_c = safa_aggregate_packed_fleet(cache, *(t[k] for k in AGG))
+    torch.cuda.synchronize()
+    assert got_c is cache
+    assert torch.equal(got_c, want_c)
+    torch.testing.assert_close(got_g, want_g, rtol=1e-5, atol=1e-6)
+    for i in range(s):
+        one = _member(t, i)
+        g1, c1 = safa_aggregate_packed(one['cache'], *(one[k] for k in AGG))
+        assert torch.equal(got_g[i], g1) and torch.equal(got_c[i], c1)
+    assert backend.LAUNCHES['safa_aggregate_packed_fleet'] == 1
+    assert backend.LAUNCHES['safa_aggregate_packed'] == s
+
+
+@pytest.mark.parametrize('s,m,n', [(2, 5, 1000), (3, 300, 3000)])
+def test_aggregate_fleet_per_leaf_matches_single_run(dev, s, m, n):
+    t = _inputs(m, n, dev, seed=5, lead=(s,))
+    got_g, got_c = safa_aggregate_fleet(t['cache'], *(t[k] for k in AGG))
+    torch.cuda.synchronize()
+    want_g, want_c = ref.safa_aggregate_ref(t['cache'], *(t[k] for k in AGG))
+    assert torch.equal(got_c, want_c)
+    torch.testing.assert_close(got_g, want_g, rtol=1e-5, atol=1e-6)
+    for i in range(s):
+        one = _member(t, i)
+        g1, c1 = safa_aggregate(one['cache'], *(one[k] for k in AGG))
+        assert torch.equal(got_g[i], g1) and torch.equal(got_c[i], c1)
+    assert backend.LAUNCHES['safa_aggregate_fleet'] == 1
+
+
+@pytest.mark.parametrize('s,m,n', FLEET_SHAPES)
+def test_quantize_packed_fleet_matches_plain_and_single_run(dev, s, m, n):
+    x = _inputs(m, n, dev, seed=6, lead=(s,))['trained'] * 3
+    x[1, 0, :128] = 0.0
+    want_q, want_s = ref.quantize_packed_ref(x)
+    got_q, got_s = quantize_packed_fleet(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got_q, want_q) and torch.equal(got_s, want_s)
+    for i in range(s):
+        q1, s1 = quantize_packed(x[i].contiguous())
+        assert torch.equal(got_q[i], q1) and torch.equal(got_s[i], s1)
+    assert backend.LAUNCHES['quantize_packed_fleet'] == 1
+
+
+@pytest.mark.parametrize('s,m,n', FLEET_SHAPES)
+def test_aggregate_q8_fleet_matches_plain_and_single_run(dev, s, m, n):
+    t = _inputs(m, n, dev, seed=7, lead=(s,))
+    q, sc = ref.quantize_packed_ref(t['trained'])
+    want = ref.safa_aggregate_q8_ref(q, sc, t['base'], t['cache'],
+                                     *(t[k] for k in Q8_ARGS))
+    cache = t['cache'].clone()
+    got = safa_aggregate_packed_q8_fleet(q, sc, t['base'], cache,
+                                         *(t[k] for k in Q8_ARGS))
+    torch.cuda.synchronize()
+    assert got[1] is cache
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    for i in range(s):
+        one = _member(t, i)
+        single = safa_aggregate_packed_q8(q[i].contiguous(),
+                                          sc[i].contiguous(), one['base'],
+                                          one['cache'],
+                                          *(one[k] for k in Q8_ARGS))
+        for a, b in zip(got, single):
+            assert torch.equal(a[i], b)
+    assert backend.LAUNCHES['safa_aggregate_packed_q8_fleet'] == 1
+
+
+SWEEP_CELLS = {
+    # exec fields -> {fleet-engine launch counter: launches per round}
+    'packed': (dict(use_kernel='packed'),
+               {'safa_aggregate_packed_fleet': 1}),
+    'per_leaf': (dict(use_kernel=True), {'safa_aggregate_fleet': 2}),
+    'int8': (dict(wire='int8'), {'quantize_packed_fleet': 1,
+                                 'safa_aggregate_packed_q8_fleet': 1}),
+    'plain': (dict(use_kernel=False), {}),
+}
+
+
+@pytest.mark.parametrize('cell', sorted(SWEEP_CELLS))
+def test_run_sweep_on_the_card(dev, cell):
+    """``run_sweep`` on the card, both engines: the fleet launches each of
+    its fleet kernels once per round for all members (per leaf: once per
+    leaf, the regression model has two) and no single-run kernel; the
+    sequential engine launches the single-run kernels once per member.
+    Fleet and sequential train the same replicas in batches of other
+    sizes, so they are held to atol 1e-5, not bit for bit."""
+    from repro_torch import api
+    from repro_torch.data import make_regression, partition
+    from repro_torch.data.tasks import regression_task
+    from repro_torch.fedsim import EnvSpec
+    spec = EnvSpec(m=5, crash_prob=0.3, dataset_size=506, batch_size=5,
+                   epochs=3, t_lim=830.0, seed=3)
+    x, y = make_regression()
+    task = regression_task(partition(x, y, spec.build().partition_sizes, 5,
+                                     seed=1), lr=1e-3, epochs=3)
+    members = [api.SweepMember(env=spec, seed=s,
+                               overrides={'crash_prob': cr, 'draw_seed': s})
+               for s, cr in enumerate((0.1, 0.3, 0.5))]
+    ex, per_round = SWEEP_CELLS[cell]
+    rounds = 4
+    hists = {}
+    for engine in ('fleet', 'sequential'):
+        backend.reset_launches()
+        hists[engine] = api.Experiment(
+            task, None, api.SafaSpec(),
+            api.ExecSpec(engine=engine, eval_every=2, **ex),
+            rounds=rounds).compile().run_sweep(members)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in backend.LAUNCHES.items() if v}
+        if engine == 'fleet':
+            assert counts == {k: n * rounds for k, n in per_round.items()}
+        else:
+            assert counts == {k.replace('_fleet', ''): n * rounds * 3
+                              for k, n in per_round.items()}
+    def timing(records):
+        return [dataclasses.replace(r, eval=None) for r in records]
+    for f, q in zip(hists['fleet'], hists['sequential']):
+        assert timing(f.records) == timing(q.records)
+        for k, v in q.final_global.items():
+            assert v.is_cuda
+            torch.testing.assert_close(f.final_global[k], v, rtol=0,
+                                       atol=1e-5)
 
 
 def test_operand_on_another_device_raises(dev):

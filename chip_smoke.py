@@ -8,7 +8,7 @@ Phases, each of which must pass:
 
 1. build   — nvcc compiles src/repro_torch/csrc/*.cu (one process per
              source, in parallel) into build/repro_torch/.
-2. kernels — every kernel of both paths at their shapes (m = 100 clients,
+2. kernels — every kernel of the paths at their shapes (m = 100 clients,
              N = 342,016: the Task 2 CNN's pack width; the fleet kernels at
              S = 4 members), on seeded inputs, against its plain version on
              the card, and each fleet kernel bit for bit against the
@@ -29,6 +29,14 @@ Phases, each of which must pass:
              each must launch its fleet kernels once per round for the
              whole fleet and no single-run kernel, and lower every
              member's eval loss; packed and plain agree per member.
+5. baselines — the paper's baselines on the same task at full width, 2
+             rounds each: FedAvg and FedCS on the int8 wire (each round
+             launches ``quantize_packed`` and ``dequantize_packed`` once),
+             FedAvg f32, fully-local and FedAsync (no kernel), and a
+             4-member FedAvg int8 crash-rate sweep (the two fleet kernels
+             once per round).  Every run's eval loss must fall below its
+             initial model's, and FedAvg int8 and f32 must agree within
+             what the int8 wire's rounding allows.
 
 The line before the last is a JSON object of kernel records; the last
 line is ``{"ok": true, "device": {...}}``.  Without a visible card, or
@@ -48,6 +56,7 @@ FLEET_ROUNDS = 2        # rounds per fleet run: a fleet round trains 4x the
 M = 100                 # clients on the main path (PAPER_TASKS['task2_cnn'])
 S = 4                   # fleet members
 FLEET_CRASH = (0.1, 0.3, 0.5, 0.7)   # member s's crash probability
+BASE_ROUNDS = 2         # rounds per baseline run and baseline sweep
 WARM, TIMED = 5, 30     # kernel launches before and inside the timed window
 #: the H100 SXM's published device-memory rate (bytes/s) and float32
 #: CUDA-core rate (FLOP/s), at its 700 W limit; the card's name and power
@@ -119,7 +128,8 @@ def kernel_phase(torch, n: int, fails: list) -> list:
     import numpy as np
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.comm_quant import quantize_packed
+    from repro_torch.kernels.comm_quant import (dequantize_packed,
+                                                quantize_packed)
     from repro_torch.kernels.safa_aggregate import (safa_aggregate,
                                                     safa_aggregate_packed,
                                                     safa_aggregate_packed_q8)
@@ -196,10 +206,25 @@ def kernel_phase(torch, n: int, fails: list) -> list:
     ms = _time_ms(torch, lambda: quantize_packed(trained))
     plain = _time_ms(torch, lambda: ref.quantize_packed_ref(trained),
                      warm=2, timed=10)
+    wire = 5 * mn + 4 * (mn // 128)     # f32 values, int8 values, scales
     recs.append(_record(
         'quantize_packed', 'src/repro_torch/csrc/comm_quant.cu',
-        'src/repro/kernels/comm_quant.py:111', err, ms, plain,
-        5 * mn + 4 * (mn // 128), 3 * mn, 5 * mn + 4 * (mn // 128)))
+        'src/repro/kernels/comm_quant.py:111', err, ms, plain, wire, 3 * mn,
+        wire))
+
+    # -- dequantize_packed (the int8 wire's inverse: x = q * scale) ---------
+    x = dequantize_packed(q_ref, s_ref)
+    x_ref = ref.dequantize_packed_ref(q_ref, s_ref)
+    torch.cuda.synchronize()
+    check(torch.equal(x, x_ref), 'dequantize_packed differs from its plain '
+                                 'version')
+    ms = _time_ms(torch, lambda: dequantize_packed(q_ref, s_ref))
+    plain = _time_ms(torch, lambda: ref.dequantize_packed_ref(q_ref, s_ref),
+                     warm=2, timed=10)
+    recs.append(_record(
+        'dequantize_packed', 'src/repro_torch/csrc/comm_quant.cu',
+        'src/repro/kernels/comm_quant.py:122',
+        (x - x_ref).abs().max().item(), ms, plain, wire, mn, wire))
 
     # -- safa_aggregate_packed_q8 (dequant + Eq. 6-8, cache in place) --------
     ng_ref, nc_ref, nl_ref = ref.safa_aggregate_q8_ref(
@@ -247,7 +272,9 @@ def fleet_kernel_phase(torch, n: int, fails: list) -> list:
     import numpy as np
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.comm_quant import (quantize_packed,
+    from repro_torch.kernels.comm_quant import (dequantize_packed,
+                                                dequantize_packed_fleet,
+                                                quantize_packed,
                                                 quantize_packed_fleet)
     from repro_torch.kernels.safa_aggregate import (
         safa_aggregate_packed, safa_aggregate_packed_fleet,
@@ -337,6 +364,22 @@ def fleet_kernel_phase(torch, n: int, fails: list) -> list:
         'quantize_packed_fleet', 'src/repro_torch/csrc/comm_quant.cu',
         'src/repro/kernels/comm_quant.py:128', err, ms, plain, wire, 3 * mn,
         wire))
+
+    # -- dequantize_packed_fleet -------------------------------------------
+    x = dequantize_packed_fleet(q_ref, s_ref)
+    x_ref = ref.dequantize_packed_ref(q_ref, s_ref)
+    torch.cuda.synchronize()
+    check(torch.equal(x, x_ref), 'dequantize_packed_fleet differs from its '
+                                 'plain version')
+    per_member('dequantize_packed_fleet', (x,),
+               lambda s: (dequantize_packed(q_ref[s], s_ref[s]),))
+    ms = _time_ms(torch, lambda: dequantize_packed_fleet(q_ref, s_ref))
+    plain = _time_ms(torch, lambda: ref.dequantize_packed_ref(q_ref, s_ref),
+                     warm=2, timed=10)
+    recs.append(_record(
+        'dequantize_packed_fleet', 'src/repro_torch/csrc/comm_quant.cu',
+        'src/repro/kernels/comm_quant.py:122',
+        (x - x_ref).abs().max().item(), ms, plain, wire, mn, wire))
 
     # -- safa_aggregate_packed_q8_fleet ------------------------------------
     ng_ref, nc_ref, nl_ref = ref.safa_aggregate_q8_ref(
@@ -560,6 +603,112 @@ def fleet_path_phase(torch, spec, task, fails: list) -> dict:
     return launches
 
 
+def baselines_phase(torch, spec, task, fails: list) -> dict:
+    """The paper's baselines on Task 2's CNN at full width through the
+    port's entry points: single runs of every baseline cell, then a
+    4-member FedAvg int8 sweep; returns the launch counts of the
+    dequantisation kernels in the runs that drive them."""
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.core import protocol
+    from repro_torch.kernels import backend
+
+    init_loss = [task.evaluate(task.init_global(s))['loss']
+                 for s in range(S)]
+    print(f'baselines: initial eval losses {init_loss}; rounds '
+          f'{BASE_ROUNDS}, C = 0.3')
+    wire = ('quantize_packed', 'dequantize_packed')
+    runs = [('fedavg-int8', api.FedAvgSpec(fraction=0.3), 'int8', wire),
+            ('fedcs-int8', api.FedCSSpec(fraction=0.3), 'int8', wire),
+            ('fedavg', api.FedAvgSpec(fraction=0.3), 'f32', ()),
+            ('local', api.LocalSpec(fraction=0.3), 'f32', ()),
+            ('fedasync', api.FedAsyncSpec(), 'f32', ())]
+    # the server step of each protocol, timed where its round calls it
+    steps = ('fedavg_server_step', 'fedasync_merge')
+    originals = {k: getattr(protocol, k) for k in steps}
+    train_s, server_s = [], []
+    launches = {'dequantize_packed': 0, 'dequantize_packed_fleet': 0}
+    finals = {}
+
+    def drive(name, kernels, rounds, go, fleet):
+        train_s.clear()
+        server_s.clear()
+        attr = 'local_train_fleet' if fleet else 'local_train'
+        setattr(task, attr, _timed(torch, getattr(task, attr), train_s))
+        for k in steps:
+            setattr(protocol, k, _timed(torch, originals[k], server_s))
+        try:
+            backend.reset_launches()
+            t = time.perf_counter()
+            out = go()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            counts = dict(backend.LAUNCHES)
+        finally:
+            for k in steps:
+                setattr(protocol, k, originals[k])
+            delattr(task, attr)
+        print(f'baselines[{name}]: {wall:.2f} s for {rounds} rounds; per '
+              f'round train {[round(v, 4) for v in train_s]} s, server step '
+              f'{[round(v, 4) for v in server_s]} s; launches '
+              f'{ {k: v for k, v in counts.items() if v} }')
+        for k in kernels:
+            if counts[k] != rounds:
+                fails.append(f'baselines {name}: {k} launched {counts[k]} '
+                             f'times in {rounds} rounds')
+            if k in launches:
+                launches[k] += counts[k]
+        others = {k: v for k, v in counts.items() if k not in kernels and v}
+        if others:
+            fails.append(f'baselines {name}: unexpected launches {others}')
+        return out
+
+    def check_losses(name, losses, init):
+        print(f'baselines[{name}]: eval losses {losses}')
+        if not all(np.isfinite(v) for v in losses) or not losses[-1] < init:
+            fails.append(f'baselines {name}: eval losses {losses} not finite '
+                         f'and below the initial {init}')
+
+    for name, sp, wire_kind, kernels in runs:
+        exp = api.Experiment(task, spec, sp,
+                             api.ExecSpec(eval_every=BASE_ROUNDS,
+                                          wire=wire_kind),
+                             rounds=BASE_ROUNDS)
+        hist = drive(name, kernels, BASE_ROUNDS, exp.compile().run, False)
+        check_losses(name, [e['loss'] for _, e in hist.evals()],
+                     init_loss[0])
+        finals[name] = hist.final_global
+
+    # int8 against f32 on the same schedule: each round the wire moves an
+    # upload by at most half its block's step (amax / 254); the renormalised
+    # average moves the global by no more, and the next round's training
+    # carries it on.  Bound: one step of the largest weight per round.
+    amax = max(v.abs().max().item() for v in finals['fedavg'].values())
+    bound = BASE_ROUNDS * amax / 127
+    diff = max((finals['fedavg-int8'][k] - finals['fedavg'][k])
+               .abs().max().item() for k in finals['fedavg'])
+    print(f'baselines: FedAvg int8 vs f32 final_global max abs diff '
+          f'{diff:.3e}, bound {bound:.3e} (rounds x max |w| / 127)')
+    if not diff <= bound:
+        fails.append(f'baselines: FedAvg int8 vs f32 differ by {diff:.3e} '
+                     f'> {bound:.3e}')
+
+    members = [api.SweepMember(env=spec, fraction=0.3, seed=s,
+                               overrides={'crash_prob': cr})
+               for s, cr in enumerate(FLEET_CRASH)]
+    exp = api.Experiment(task, None, api.FedAvgSpec(),
+                         api.ExecSpec(eval_every=BASE_ROUNDS, wire='int8'),
+                         rounds=BASE_ROUNDS)
+    hists = drive('fedavg-int8 sweep', tuple(k + '_fleet' for k in wire),
+                  BASE_ROUNDS, lambda: exp.compile().run_sweep(members),
+                  True)
+    for s, h in enumerate(hists):
+        check_losses(f'fedavg-int8 sweep member {s}',
+                     [e['loss'] for _, e in h.evals()], init_loss[s])
+    return launches
+
+
 def profile_train(torch, label, train, top=6):
     """Where one round's local training spends the device: torch.profiler
     over one ``train()`` call.  Device kernels are deduplicated by
@@ -639,6 +788,8 @@ def main() -> int:
     lap('main')
     launches.update(fleet_path_phase(torch, spec, task, fails))
     lap('fleet')
+    launches.update(baselines_phase(torch, spec, task, fails))
+    lap('baselines')
     for r in recs:
         r['launches'] = launches.get(r['name'], 0)
         del r['bytes'], r['flops'], r['dense_bytes']

@@ -1,5 +1,5 @@
-"""Experiment API of the port: declarative specs -> host precompute ->
-the SAFA engines on the device.
+"""Experiment API of the port: declarative specs -> protocol registry ->
+host precompute -> the engines on the device.
 
     from repro_torch import api
 
@@ -12,12 +12,16 @@ the SAFA engines on the device.
     hists = exp.compile().run_sweep([api.SweepMember(env=env_spec, seed=s)
                                      for s in range(4)])
 
-The port runs the SAFA cells of ``repro.api`` on the dense schedule:
+``PROTOCOLS`` maps each spec type to its ``ProtocolDef``: SAFA
+(``SafaSpec``) and the paper's baselines, FedAvg (``FedAvgSpec``), FedCS
+(``FedCSSpec``), fully-local (``LocalSpec``) and FedAsync
+(``FedAsyncSpec``).  The port runs them on the dense schedule:
 ``engine`` None/'scan'/'loop' for ``run()`` and None/'fleet'/'sequential'
-for ``run_sweep()``, ``use_kernel`` False/True/'packed' and ``wire``
-'f32'/'int8'; ``ExecSpec(numeric=False)`` gives the timing records
-alone.  ``check_compat`` raises ``NotImplementedError``, naming the
-ROADMAP queue item, for every cell not ported yet.
+for ``run_sweep()``, ``use_kernel`` False/True/'packed' (SAFA) and
+``wire`` 'f32'/'int8' (SAFA, FedAvg, FedCS); ``ExecSpec(numeric=False)``
+gives the timing records alone.  ``check_compat`` raises the JAX
+package's errors for the cells it refuses, and ``NotImplementedError``,
+naming the ROADMAP queue item, for every cell not ported yet.
 
 ``Experiment`` takes ``device=`` (default ``'cuda'``; it raises without a
 card) and ``init_params=``: a param dict to start from, or a callable
@@ -36,15 +40,18 @@ import torch
 
 from repro_torch import fedsim
 from repro_torch.convert import params_from_jax
-from repro_torch.core import federation, protocol
+from repro_torch.core import agg_schemes, federation, protocol, schedules
+from repro_torch.core.agg_schemes import STALENESS_FNS
 from repro_torch.core.federation import Task
 from repro_torch.core.schedules import History, RoundRecord, SweepMember
 from repro_torch.kernels.backend import resolve_device
 
 __all__ = [
-    'CompiledRunner', 'ExecSpec', 'Experiment', 'History', 'ProtocolSpec',
-    'RoundRecord', 'SafaSpec', 'SweepMember', 'SweepSpec', 'Task',
-    'check_compat', 'init_fleet_global',
+    'CompiledRunner', 'ExecSpec', 'Experiment', 'FedAsyncSpec', 'FedAvgSpec',
+    'FedCSSpec', 'History', 'LocalSpec', 'PROTOCOLS', 'ProtocolDef',
+    'ProtocolSpec', 'RoundRecord', 'STALENESS_FNS', 'SafaSpec', 'SweepMember',
+    'SweepSpec', 'Task', 'check_compat', 'init_fleet_global', 'register',
+    'spec',
 ]
 
 
@@ -70,6 +77,46 @@ class SafaSpec(ProtocolSpec):
 
 
 @dataclasses.dataclass(frozen=True)
+class FedAvgSpec(ProtocolSpec):
+    """FedAvg baseline: random pre-training selection, synchronous.
+
+    ``sampler`` picks the without-replacement draw: ``'choice'`` (default)
+    is the legacy per-round ``Generator.choice`` stream; ``'topk'`` is the
+    vectorised bulk-uniform draw (one ``rng.random((rounds, m))``),
+    distributionally identical, a different stream by design."""
+    fraction: float = 0.5
+    sampler: str = 'choice'
+
+
+@dataclasses.dataclass(frozen=True)
+class FedCSSpec(ProtocolSpec):
+    """FedCS baseline: fastest-first selection under the deadline."""
+    fraction: float = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalSpec(ProtocolSpec):
+    """Fully-local baseline: no aggregation except at eval points."""
+    fraction: float = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class FedAsyncSpec(ProtocolSpec):
+    """FedAsync baseline: every client, every round; merge-per-arrival
+    with staleness-discounted mixing alpha * s(staleness).
+
+    ``staleness_fn`` picks s(dt) from ``STALENESS_FNS``; the default
+    ``'poly'`` is the legacy alpha*(1+staleness)^(-staleness_exp) form.
+    ``hinge_a`` / ``hinge_b`` parameterise the hinge discount (ignored
+    otherwise)."""
+    alpha: float = 0.6
+    staleness_exp: float = 0.5
+    staleness_fn: str = 'poly'
+    hinge_a: float = 10.0
+    hinge_b: int = 4
+
+
+@dataclasses.dataclass(frozen=True)
 class ExecSpec:
     """Execution knobs, orthogonal to protocol semantics.
 
@@ -80,8 +127,9 @@ class ExecSpec:
     of each kernel per round for the whole fleet; ``'sequential'`` runs
     the members one after another through the scan engine.
     ``use_kernel`` routes Eq. 6-8 through the fused CUDA kernel (``True``
-    per leaf, ``'packed'`` once per round); ``wire='int8'`` sends the
-    uploads over the int8 wire (two kernels per round).  ``numeric=False``
+    per leaf, ``'packed'`` once per round; SAFA only); ``wire='int8'``
+    sends the uploads over the int8 wire (two kernels per round; SAFA,
+    FedAvg and FedCS).  ``numeric=False``
     runs the host event process alone (timing records, no model, no
     task).  Only ``schedule='dense'`` is ported; the field names the JAX
     package's sparse schedules so that they are refused by name."""
@@ -128,15 +176,84 @@ def _check_env(env) -> None:
                               '13 (env and API extras)')
 
 
+# ---------------------------------------------------------------------------
+# Protocol registry
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ProtocolDef:
+    """Everything the runners need to execute one protocol.
+
+    ``precompute(env, spec, *, rounds, seed)`` runs the host event state
+    machine; ``fleet_precompute(members, spec, *, rounds)`` the
+    fleet-major form.  ``segment(st, seg, weights, train_fn, ex, ctx)``
+    advances the model state through one eval segment of a run's or a
+    fleet's device-resident schedule (``ctx``: a per-member-task fleet's
+    data, else None); ``loop_round(st, sched, i, weights, train_fn, ex,
+    device)`` is the per-round reference; ``finish_segment(st, weights)``
+    (optional) runs at eval stops (the fully-local aggregation)."""
+    name: str
+    spec_cls: type
+    precompute: Callable
+    fleet_precompute: Callable
+    segment: Callable
+    loop_round: Callable
+    finish_segment: Optional[Callable] = None
+    uses_cache: bool = False
+    supports_wire: bool = False
+    supports_kernel: bool = False
+    #: the schedules besides ``'dense'`` the JAX package runs this
+    #: protocol on; the port refuses them by ROADMAP item (11, 12)
+    sparse_forms: tuple = ()
+    #: leftover ``SweepMember.overrides`` keys are protocol-spec fields
+    #: of the member's precompute (FedAsync); else they are refused at
+    #: sweep resolution
+    spec_overrides: bool = False
+
+
+#: spec type -> ProtocolDef: the single source of protocol dispatch
+PROTOCOLS: dict = {}
+_BY_NAME: dict = {}
+#: protocols of the JAX package that the port does not run yet
+_UNPORTED = {'seafl': '10 (aggregation family)',
+             'csafl': '10 (aggregation family)'}
+
+
+def register(pdef: ProtocolDef) -> ProtocolDef:
+    """Add a protocol to the registry (spec type and name must be new)."""
+    if pdef.spec_cls in PROTOCOLS:
+        raise ValueError(f'spec type {pdef.spec_cls.__name__} already '
+                         f'registered (as {PROTOCOLS[pdef.spec_cls].name!r})')
+    if pdef.name in _BY_NAME:
+        raise ValueError(f'protocol name {pdef.name!r} already registered')
+    PROTOCOLS[pdef.spec_cls] = pdef
+    _BY_NAME[pdef.name] = pdef
+    return pdef
+
+
+def spec(name: str, **fields) -> ProtocolSpec:
+    """Build a protocol spec by registry name ('safa', 'fedavg', ...)."""
+    if name in _UNPORTED:
+        raise _not_ported(f'protocol {name!r}', _UNPORTED[name])
+    if name not in _BY_NAME:
+        raise ValueError(
+            f'unknown proto {name!r} (want one of {sorted(_BY_NAME)})')
+    return _BY_NAME[name].spec_cls(**fields)
+
+
 def check_compat(protocol_spec: ProtocolSpec,
-                 exec_spec: Optional[ExecSpec] = None, env=None) -> None:
-    """Validate a (protocol, exec[, env]) spec triple.  Values the JAX
-    package rejects raise ``ValueError`` with its messages; cells it runs
-    but the port does not yet raise ``NotImplementedError``."""
-    if not isinstance(protocol_spec, SafaSpec):
-        raise _not_ported(
-            f'protocol spec {type(protocol_spec).__name__!r} (only SafaSpec '
-            f'is ported)', '9 (baseline protocols) / 10 (aggregation family)')
+                 exec_spec: Optional[ExecSpec] = None,
+                 env=None) -> ProtocolDef:
+    """Validate a (protocol, exec[, env]) spec triple; returns the
+    ProtocolDef.  Values the JAX package rejects raise its errors with its
+    messages; cells it runs but the port does not yet raise
+    ``NotImplementedError``."""
+    pdef = PROTOCOLS.get(type(protocol_spec))
+    if pdef is None:
+        raise TypeError(
+            f'unregistered protocol spec {type(protocol_spec).__name__!r}; '
+            f'known specs: {sorted(c.__name__ for c in PROTOCOLS)} '
+            f'(register new ones via api.register)')
     ex = exec_spec if exec_spec is not None else ExecSpec()
     if env is not None:
         _check_env(env)
@@ -149,21 +266,73 @@ def check_compat(protocol_spec: ProtocolSpec,
         raise ValueError(
             f'unknown use_kernel {ex.use_kernel!r} (want False, True, or '
             f'"packed")')
-    if protocol_spec.quantize_uploads:
-        if ex.wire != 'f32':
-            raise ValueError(
-                "quantize_uploads=True is the per-leaf reference for the "
-                "packed wire='int8' path; pass one or the other, not both")
-        raise _not_ported('quantize_uploads=True',
-                          '17 (per-leaf int8 reference)')
-    if ex.schedule in ('sparse', 'sparse_delta'):
-        raise _not_ported(f'schedule={ex.schedule!r}', '11 (sparse schedules)')
-    if ex.schedule == 'sparse_tier':
-        raise _not_ported("schedule='sparse_tier'", '12 (lag-tier schedule)')
-    if ex.schedule != 'dense':
+    if ex.wire != 'f32' and not pdef.supports_wire:
+        wired = '/'.join(sorted(p.name for p in PROTOCOLS.values()
+                                if p.supports_wire))
+        raise ValueError(
+            f"protocol {pdef.name!r} has no upload-aggregate wire; "
+            f"wire='int8' applies to {wired} only")
+    if ex.use_kernel and not pdef.supports_kernel:
+        kerneled = '/'.join(sorted(p.name for p in PROTOCOLS.values()
+                                   if p.supports_kernel))
+        raise ValueError(
+            f'protocol {pdef.name!r} has no fused aggregation kernel; '
+            f'use_kernel applies to {kerneled} only')
+    fn = getattr(protocol_spec, 'staleness_fn', None)
+    if fn is not None and fn not in STALENESS_FNS:
+        raise ValueError(
+            f'unknown staleness_fn {fn!r} (want one of {STALENESS_FNS})')
+    alpha = getattr(protocol_spec, 'alpha', None)
+    if alpha is not None and not 0.0 < alpha <= 1.0:
+        raise ValueError(
+            f'alpha must be in (0, 1] (the residual global weight '
+            f'1 - sum(wrow) must stay non-negative), got {alpha}')
+    if getattr(protocol_spec, 'hinge_a', 1.0) <= 0:
+        raise ValueError(
+            f'hinge_a must be > 0, got {protocol_spec.hinge_a}')
+    quantize_uploads = getattr(protocol_spec, 'quantize_uploads', False)
+    if quantize_uploads and ex.wire != 'f32':
+        raise ValueError(
+            "quantize_uploads=True is the per-leaf reference for the packed "
+            "wire='int8' path; pass one or the other, not both")
+    if getattr(protocol_spec, 'sampler', 'choice') not in ('choice', 'topk'):
+        raise ValueError(
+            f'unknown sampler {protocol_spec.sampler!r} '
+            f"(want 'choice' or 'topk')")
+    if ex.schedule not in ('dense', 'sparse', 'sparse_delta', 'sparse_tier'):
         raise ValueError(
             f'unknown schedule {ex.schedule!r} (want "dense", "sparse", '
             f'"sparse_delta", or "sparse_tier")')
+    if ex.schedule != 'dense':
+        if not pdef.sparse_forms:
+            raise ValueError(
+                f'protocol {pdef.name!r} has no sparse schedule form; '
+                f'sparse schedules apply to safa/fedavg/fedcs only')
+        if ex.schedule not in pdef.sparse_forms:
+            raise ValueError(
+                f'protocol {pdef.name!r} has no lag-tier schedule form; '
+                f"schedule='sparse_tier' applies to safa only (the "
+                f'version-ring compression needs SAFA lag-bounded bases)')
+        if quantize_uploads:
+            raise ValueError(
+                'quantize_uploads is the dense per-leaf reference knob; '
+                "sparse schedules take the packed wire instead "
+                "(wire='int8')")
+        if ex.schedule in ('sparse_delta', 'sparse_tier') \
+                and ex.use_kernel is True:
+            raise ValueError(
+                f'the leaf-wise kernel (use_kernel=True) has no rows form; '
+                f"schedule={ex.schedule!r} takes use_kernel=False or "
+                f"'packed'")
+        if ex.schedule == 'sparse_tier':
+            raise _not_ported("schedule='sparse_tier'",
+                              '12 (lag-tier schedule)')
+        raise _not_ported(f'schedule={ex.schedule!r}',
+                          '11 (sparse schedules)')
+    if quantize_uploads:
+        raise _not_ported('quantize_uploads=True',
+                          '17 (per-leaf int8 reference)')
+    return pdef
 
 
 # ---------------------------------------------------------------------------
@@ -172,10 +341,11 @@ def check_compat(protocol_spec: ProtocolSpec,
 
 @dataclasses.dataclass
 class _RunState:
-    """The model-state carry between segments: global, local and cache."""
+    """The model-state carry between segments: global, local and (SAFA)
+    cache."""
     global_w: dict
     local_w: dict
-    cache: dict
+    cache: Optional[dict] = None
 
 
 def _eval_rounds(rounds: int, eval_every: int):
@@ -204,11 +374,13 @@ def _init_global(task, seed: int, device, init_params: InitParams) -> dict:
     return params_from_jax(params, device)
 
 
-def _init_state(task, m: int, seed: int, device,
-                init_params: InitParams) -> _RunState:
-    g = _init_global(task, seed, device, init_params)
-    return _RunState(g, protocol.broadcast_global(g, m),
-                     protocol.broadcast_global(g, m))
+def _init_state(g: dict, m: int, uses_cache: bool, *,
+                fleet: bool = False) -> _RunState:
+    """The carry at round 0: every client (and, for SAFA, every cache
+    entry) holds the initial global ``g`` (a fleet's: [S, ...] leaves)."""
+    def tile():
+        return protocol.broadcast_global(g, m, fleet=fleet)
+    return _RunState(g, tile(), tile() if uses_cache else None)
 
 
 def init_fleet_global(task, seeds, *, init_params: InitParams = None
@@ -247,12 +419,14 @@ def _realize_env(env):
 _ENV_FIELDS = frozenset(f.name for f in dataclasses.fields(fedsim.EnvSpec))
 
 
-def _resolve_member(mem: SweepMember) -> SweepMember:
-    """Apply a member's env-field overrides to its declarative env and
-    build the env.  Env-field overrides (``crash_prob``, ``traces``, ...)
-    need an ``fedsim.EnvSpec`` member env; SAFA takes no protocol-field
-    overrides, so any other key is refused with the JAX package's
-    message."""
+def _resolve_member(mem: SweepMember, pdef: ProtocolDef) -> SweepMember:
+    """Split a member's overrides into env fields and protocol fields,
+    apply the env part to its declarative env, and build the env.
+    Env-field overrides (``crash_prob``, ``traces``, ...) need an
+    ``fedsim.EnvSpec`` member env; leftover keys must be protocol-spec
+    fields of a ``spec_overrides`` protocol (FedAsync), which its
+    precompute checks, and are refused here otherwise, with the JAX
+    package's messages."""
     env = mem.env
     ov = dict(mem.overrides or {})
     env_ov = {k: ov.pop(k) for k in list(ov) if k in _ENV_FIELDS}
@@ -263,13 +437,14 @@ def _resolve_member(mem: SweepMember) -> SweepMember:
                 f'env overrides need a declarative member env '
                 f'(fedsim.EnvSpec), got {type(env).__name__}')
         env = env.replace(**env_ov)
-    if ov:
+    if ov and not pdef.spec_overrides:
         raise ValueError(
-            f"unknown member override keys {sorted(ov)}; protocol 'safa' "
-            f'takes env-field overrides only (EnvSpec fields, e.g. '
-            f'crash_prob/traces/draw_seed)')
+            f'unknown member override keys {sorted(ov)}; protocol '
+            f'{pdef.name!r} takes env-field overrides only '
+            f'(EnvSpec fields, e.g. crash_prob/traces/draw_seed)')
     _check_env(env)
-    return dataclasses.replace(mem, env=_realize_env(env), overrides=None)
+    return dataclasses.replace(mem, env=_realize_env(env),
+                               overrides=ov or None)
 
 
 def _stacked_task(tasks):
@@ -285,32 +460,168 @@ def _stacked_task(tasks):
     return cache[key]
 
 
-def _safa_scan_segment(st: _RunState, seg: protocol.RoundSchedule, weights,
-                       train_fn, ex: ExecSpec):
+def _put(a, device, dtype=None) -> torch.Tensor:
+    """One round's host schedule row on the device (the loop engine)."""
+    return torch.as_tensor(a, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Built-in protocol defs
+# ---------------------------------------------------------------------------
+
+def _safa_precompute(env, sp, *, rounds, seed):
+    del seed  # SAFA's event process draws only from the env rng
+    return federation.precompute_safa_schedule(
+        env, fraction=sp.fraction, lag_tolerance=sp.lag_tolerance,
+        rounds=rounds)
+
+
+def _safa_segment(st, seg, weights, train_fn, ex, ctx):
     st.global_w, st.local_w, st.cache = protocol.safa_run_scan(
-        st.global_w, st.local_w, st.cache, seg, weights,
-        local_train_fn=train_fn, use_kernel=ex.use_kernel, wire=ex.wire)
-
-
-def _safa_fleet_segment(st: _RunState, seg: protocol.RoundSchedule, weights,
-                        train_fn, ex: ExecSpec, ctx):
-    st.global_w, st.local_w, st.cache = protocol.safa_run_fleet(
         st.global_w, st.local_w, st.cache, seg, weights,
         local_train_fn=train_fn, use_kernel=ex.use_kernel, wire=ex.wire,
         train_ctx=ctx)
 
 
-def _safa_loop_round(st: _RunState, sched, i: int, weights, train_fn,
-                     ex: ExecSpec, device):
-    def put(mask):
-        return torch.as_tensor(mask, device=device)
+def _safa_loop_round(st, sched, i, weights, train_fn, ex, device):
     st.global_w, st.local_w, st.cache = protocol.safa_round(
         st.global_w, st.local_w, st.cache,
-        sync_mask=put(sched.sync[i]), completed=put(sched.committed[i]),
-        picked=put(sched.picked[i]), undrafted=put(sched.undrafted[i]),
-        deprecated=put(sched.deprecated[i]), weights=weights,
+        sync_mask=_put(sched.sync[i], device),
+        completed=_put(sched.committed[i], device),
+        picked=_put(sched.picked[i], device),
+        undrafted=_put(sched.undrafted[i], device),
+        deprecated=_put(sched.deprecated[i], device), weights=weights,
         local_train_fn=train_fn, train_args=(i + 1,),
         use_kernel=ex.use_kernel, wire=ex.wire)
+
+
+def _sync_precompute(fedcs):
+    def precompute(env, sp, *, rounds, seed):
+        return federation.precompute_sync_schedule(
+            env, fraction=sp.fraction, rounds=rounds, seed=seed, fedcs=fedcs,
+            sampler=getattr(sp, 'sampler', 'choice'))
+    return precompute
+
+
+def _sync_fleet_precompute(fedcs):
+    def precompute(members, sp, *, rounds):
+        return federation.precompute_sync_fleet_schedule(
+            members, rounds=rounds, fedcs=fedcs,
+            sampler=getattr(sp, 'sampler', 'choice'))
+    return precompute
+
+
+def _fedavg_segment(st, seg, weights, train_fn, ex, ctx):
+    st.global_w, st.local_w = protocol.fedavg_run_scan(
+        st.global_w, st.local_w, seg, weights, local_train_fn=train_fn,
+        wire=ex.wire, train_ctx=ctx)
+
+
+def _fedavg_loop_round(st, sched, i, weights, train_fn, ex, device):
+    st.global_w, st.local_w = protocol.fedavg_round(
+        st.global_w, st.local_w, selected=_put(sched.selected[i], device),
+        completed=_put(sched.completed[i], device), weights=weights,
+        local_train_fn=train_fn, train_args=(i + 1,), wire=ex.wire)
+
+
+def _local_precompute(env, sp, *, rounds, seed):
+    return federation.precompute_local_schedule(
+        env, fraction=sp.fraction, rounds=rounds, seed=seed)
+
+
+def _local_fleet_precompute(members, sp, *, rounds):
+    del sp
+    return schedules.LocalFleetSchedule.stack([
+        federation.precompute_local_schedule(
+            mem.env, fraction=mem.fraction, rounds=rounds, seed=mem.seed)
+        for mem in members])
+
+
+def _local_segment(st, seg, weights, train_fn, ex, ctx):
+    del weights, ex
+    st.local_w = protocol.local_run_scan(st.local_w, seg,
+                                         local_train_fn=train_fn,
+                                         train_ctx=ctx)
+
+
+def _local_loop_round(st, sched, i, weights, train_fn, ex, device):
+    del weights, ex
+    st.local_w = protocol.local_only_round(
+        st.local_w, completed=_put(sched.completed[i], device),
+        local_train_fn=train_fn, train_args=(i + 1,))
+
+
+def _local_finish_segment(st, weights):
+    """There is no global model between rounds: aggregate at eval stops
+    (and leave the result in the state, so final_global is uniform)."""
+    st.global_w = protocol.aggregate(st.local_w, weights)
+
+
+def _fedasync_precompute(env, sp, *, rounds, seed):
+    del seed  # FedAsync's event process draws only from the env rng
+    return agg_schemes.precompute_async_schedule(
+        env, rounds=rounds, **agg_schemes.async_kwargs(sp))
+
+
+def _fedasync_fleet_precompute(members, sp, *, rounds):
+    return schedules.AsyncFleetSchedule.stack([
+        agg_schemes.precompute_async_schedule(
+            mem.env, rounds=rounds, **agg_schemes.async_kwargs(sp, mem))
+        for mem in members])
+
+
+def _fedasync_segment(st, seg, weights, train_fn, ex, ctx):
+    del weights, ex  # the mixing weights live in the schedule
+    st.global_w, st.local_w = protocol.fedasync_run_scan(
+        st.global_w, st.local_w, seg, local_train_fn=train_fn,
+        train_ctx=ctx)
+
+
+def _fedasync_loop_round(st, sched, i, weights, train_fn, ex, device):
+    del weights, ex
+    st.global_w, st.local_w = protocol.fedasync_round(
+        st.global_w, st.local_w, committed=_put(sched.committed[i], device),
+        order=_put(sched.order[i], device),
+        alphas=_put(sched.alphas[i], device, torch.float32),
+        local_train_fn=train_fn, train_args=(i + 1,))
+
+
+register(ProtocolDef(
+    name='safa', spec_cls=SafaSpec,
+    precompute=_safa_precompute,
+    fleet_precompute=lambda members, sp, *, rounds:
+        federation.precompute_fleet_schedule(members, rounds=rounds),
+    segment=_safa_segment, loop_round=_safa_loop_round,
+    uses_cache=True, supports_wire=True, supports_kernel=True,
+    sparse_forms=('sparse', 'sparse_delta', 'sparse_tier')))
+
+register(ProtocolDef(
+    name='fedavg', spec_cls=FedAvgSpec,
+    precompute=_sync_precompute(fedcs=False),
+    fleet_precompute=_sync_fleet_precompute(fedcs=False),
+    segment=_fedavg_segment, loop_round=_fedavg_loop_round,
+    supports_wire=True, sparse_forms=('sparse', 'sparse_delta')))
+
+register(ProtocolDef(
+    name='fedcs', spec_cls=FedCSSpec,
+    precompute=_sync_precompute(fedcs=True),
+    fleet_precompute=_sync_fleet_precompute(fedcs=True),
+    segment=_fedavg_segment, loop_round=_fedavg_loop_round,
+    supports_wire=True, sparse_forms=('sparse', 'sparse_delta')))
+
+register(ProtocolDef(
+    name='local', spec_cls=LocalSpec,
+    precompute=_local_precompute,
+    fleet_precompute=_local_fleet_precompute,
+    segment=_local_segment, loop_round=_local_loop_round,
+    finish_segment=_local_finish_segment))
+
+register(ProtocolDef(
+    name='fedasync', spec_cls=FedAsyncSpec,
+    precompute=_fedasync_precompute,
+    fleet_precompute=_fedasync_fleet_precompute,
+    segment=_fedasync_segment, loop_round=_fedasync_loop_round,
+    spec_overrides=True))
 
 
 # ---------------------------------------------------------------------------
@@ -336,7 +647,7 @@ class Experiment:
         self.device = resolve_device(device)
         _check_task_device(task, self.device)
         self.init_params = init_params
-        check_compat(self.protocol, self.exec, env=env)
+        self._pdef = check_compat(self.protocol, self.exec, env=env)
         self.env = _realize_env(env)
         self._sched = None
 
@@ -344,10 +655,8 @@ class Experiment:
         """Run the host event state machine once and cache the [rounds, m]
         schedule; the env rng is consumed exactly once per Experiment."""
         if self._sched is None:
-            self._sched = federation.precompute_safa_schedule(
-                self.env, fraction=self.protocol.fraction,
-                lag_tolerance=self.protocol.lag_tolerance,
-                rounds=self.rounds)
+            self._sched = self._pdef.precompute(
+                self.env, self.protocol, rounds=self.rounds, seed=self.seed)
         return self._sched
 
     def compile(self) -> 'CompiledRunner':
@@ -366,6 +675,7 @@ class CompiledRunner:
 
     def __init__(self, exp: Experiment):
         self.exp = exp
+        self._pdef = exp._pdef
         self._dev = None            # cached device-resident schedule
 
     def _engine(self, *, sweep: bool) -> str:
@@ -382,24 +692,29 @@ class CompiledRunner:
                     f'unknown engine {e!r} (want "scan" or "loop")')
         return e
 
+    def _finish(self, st: _RunState, weights) -> None:
+        if self._pdef.finish_segment is not None:
+            self._pdef.finish_segment(st, weights)
+
     def run(self, *, checkpoint: Optional[str] = None) -> History:
         """Execute the experiment: one segment per eval point, the global
         model evaluated at each."""
         if checkpoint is not None:
             raise _not_ported('checkpoint=', '7 (checkpoint and resume)')
-        exp = self.exp
+        exp, pdef = self.exp, self._pdef
         ex = exp.exec
         engine = self._engine(sweep=False)
         sched = exp.precompute()
-        hist = History('safa', records=_fresh_records(sched.records),
+        hist = History(pdef.name, records=_fresh_records(sched.records),
                        futility=sched.futility)
         if not ex.numeric:
             return hist
         if exp.task is None:
             raise ValueError('numeric run needs a Task '
                              '(or ExecSpec(numeric=False))')
-        st = _init_state(exp.task, exp.env.m, exp.seed, exp.device,
-                         exp.init_params)
+        st = _init_state(_init_global(exp.task, exp.seed, exp.device,
+                                      exp.init_params),
+                         exp.env.m, pdef.uses_cache)
         weights = torch.as_tensor(exp.env.weights, dtype=torch.float32,
                                   device=exp.device)
         train_fn = exp.task.local_train
@@ -408,12 +723,13 @@ class CompiledRunner:
         start = 0
         for stop in _eval_rounds(exp.rounds, ex.eval_every):
             if engine == 'scan':
-                _safa_scan_segment(st, self._dev.segment(start, stop),
-                                   weights, train_fn, ex)
+                pdef.segment(st, self._dev.segment(start, stop), weights,
+                             train_fn, ex, None)
             else:
                 for i in range(start, stop):
-                    _safa_loop_round(st, sched, i, weights, train_fn, ex,
-                                     exp.device)
+                    pdef.loop_round(st, sched, i, weights, train_fn, ex,
+                                    exp.device)
+            self._finish(st, weights)
             _record_eval(hist, hist.records[stop - 1], exp.task, st.global_w)
             start = stop
         hist.final_global = st.global_w
@@ -423,8 +739,8 @@ class CompiledRunner:
 
     def run_sweep(self, members, *, checkpoint: Optional[str] = None
                   ) -> list:
-        """Run S = len(members) SAFA simulations as one fleet; returns one
-        ``History`` per member, in order.
+        """Run S = len(members) simulations of this protocol as one fleet;
+        returns one ``History`` per member, in order.
 
         ``members`` is a list of ``SweepMember`` or a ``SweepSpec``, whose
         ``tasks`` (one per member) may hold different client partitions
@@ -437,7 +753,7 @@ class CompiledRunner:
         if checkpoint is not None:
             raise _not_ported('run_sweep(checkpoint=)',
                               '7 (checkpoint and resume)')
-        exp = self.exp
+        exp, pdef = self.exp, self._pdef
         ex = exp.exec
         engine = self._engine(sweep=True)
         if isinstance(members, SweepSpec):
@@ -448,7 +764,7 @@ class CompiledRunner:
             members, tasks = list(members), None
         if not members:
             raise ValueError('empty sweep')
-        members = [_resolve_member(mem) for mem in members]
+        members = [_resolve_member(mem, pdef) for mem in members]
         m = members[0].env.m
         if any(mem.env.m != m for mem in members):
             raise ValueError('fleet members must share the client count m')
@@ -460,9 +776,9 @@ class CompiledRunner:
         for t in tasks or (shared_task,):
             _check_task_device(t, exp.device)
 
-        fleet = federation.precompute_fleet_schedule(members,
-                                                     rounds=exp.rounds)
-        hists = [History('safa', records=_fresh_records(fleet.records[s]),
+        fleet = pdef.fleet_precompute(members, exp.protocol,
+                                      rounds=exp.rounds)
+        hists = [History(pdef.name, records=_fresh_records(fleet.records[s]),
                          futility=float(fleet.futility[s]))
                  for s in range(fleet.size)]
         if not ex.numeric:
@@ -477,15 +793,17 @@ class CompiledRunner:
         evals = _eval_rounds(exp.rounds, ex.eval_every)
         if engine == 'sequential':
             for s, (mem, hist) in enumerate(zip(members, hists)):
-                st = _init_state(task_of(s), m, mem.seed, exp.device,
-                                 exp.init_params)
+                st = _init_state(_init_global(task_of(s), mem.seed,
+                                              exp.device, exp.init_params),
+                                 m, pdef.uses_cache)
                 dev = fleet.member(s).to_device(exp.device)
                 w_s = torch.as_tensor(mem.env.weights, dtype=torch.float32,
                                       device=exp.device)
                 start = 0
                 for stop in evals:
-                    _safa_scan_segment(st, dev.segment(start, stop), w_s,
-                                       task_of(s).local_train, ex)
+                    pdef.segment(st, dev.segment(start, stop), w_s,
+                                 task_of(s).local_train, ex, None)
+                    self._finish(st, w_s)
                     _record_eval(hist, hist.records[stop - 1], task_of(s),
                                  st.global_w)
                     start = stop
@@ -505,16 +823,16 @@ class CompiledRunner:
             ctx, train_fn = None, shared_task.local_train_fleet
             g = init_fleet_global(shared_task, [mem.seed for mem in members],
                                   init_params=exp.init_params)
-        st = _RunState(g, protocol.broadcast_global(g, m, fleet=True),
-                       protocol.broadcast_global(g, m, fleet=True))
+        st = _init_state(g, m, pdef.uses_cache, fleet=True)
         weights = torch.as_tensor(
             np.stack([mem.env.weights for mem in members]),
             dtype=torch.float32, device=exp.device)
         dev = fleet.to_device(exp.device)
         start = 0
         for stop in evals:
-            _safa_fleet_segment(st, dev.fleet_segment(start, stop), weights,
-                                train_fn, ex, ctx)
+            pdef.segment(st, dev.fleet_segment(start, stop), weights,
+                         train_fn, ex, ctx)
+            self._finish(st, weights)
             for s, hist in enumerate(hists):
                 _record_eval(hist, hist.records[stop - 1], task_of(s),
                              _member(st.global_w, s))

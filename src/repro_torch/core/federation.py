@@ -1,23 +1,37 @@
-"""The SAFA event process on the host.
+"""The event processes of SAFA and the synchronous baselines on the host.
 
-The protocol state machine (versions, commit flags, pending straggler
-progress) runs in numpy: it drives the event simulator for timing and
-crash draws and precomputes a whole run as a [rounds, m] mask schedule,
-because the event process never looks at model weights.  Execution lives
-in ``repro_torch.core.protocol``; ``repro_torch.core.api`` wires specs,
-schedules and engines together.
+The protocol state machines (versions, commit flags, pending straggler
+progress, selections) run in numpy: they drive the event simulator for
+timing and crash draws and precompute a whole run as a [rounds, m] mask
+schedule, because the event process never looks at model weights.
+FedAsync's event pass lives in ``repro_torch.core.agg_schemes``.
+Execution lives in ``repro_torch.core.protocol``; ``repro_torch.core.api``
+wires specs, schedules and engines together.  The legacy free functions
+(``run_safa`` & co., ``run_sweep``) are ``DeprecationWarning`` shims over
+``repro_torch.api``, as in the JAX package.
 """
 from __future__ import annotations
+
+import sys
+import warnings
+from typing import Optional
 
 import numpy as np
 
 from repro_torch.core import protocol, selection
-from repro_torch.core.schedules import (FleetSchedule, RoundRecord,
-                                        SafaSchedule, SweepMember)
+from repro_torch.core.schedules import (FleetSchedule, LocalSchedule,
+                                        RoundRecord, SafaSchedule,
+                                        SweepMember, SyncFleetSchedule,
+                                        SyncSchedule)
 from repro_torch.fedsim import Env
 
-__all__ = ['FleetSchedule', 'SweepMember', 'Task',
-           'precompute_fleet_schedule', 'precompute_safa_schedule']
+__all__ = ['FleetSchedule', 'LocalSchedule', 'PROTOCOLS', 'RUNNERS',
+           'SweepMember', 'SyncFleetSchedule', 'SyncSchedule', 'Task',
+           'precompute_fedasync_schedule', 'precompute_fleet_schedule',
+           'precompute_local_schedule', 'precompute_safa_schedule',
+           'precompute_sync_fleet_schedule', 'precompute_sync_schedule',
+           'run_fedasync', 'run_fedavg', 'run_fedcs', 'run_local',
+           'run_safa', 'run_sweep']
 
 
 class Task:
@@ -54,6 +68,59 @@ def _masked_var(values: np.ndarray, mask: np.ndarray) -> np.ndarray:
     mean = np.sum(np.where(mask, values, 0), axis=-1) / denom
     dev = np.where(mask, (values - mean[..., None]) ** 2, 0.0)
     return np.where(n > 0, np.sum(dev, axis=-1) / denom, 0.0)
+
+
+def _capped_round_len(arrival: np.ndarray, mask: np.ndarray,
+                      t_lim: float) -> float:
+    """Deadline-capped max arrival over ``mask``, ignoring non-finite
+    entries; returns ``t_lim`` when nothing finite remains (e.g. every
+    client crashed, arrival all inf) so inf never leaks into a
+    RoundRecord."""
+    live = arrival[mask]
+    live = live[np.isfinite(live)]
+    return min(t_lim, float(live.max())) if live.size else t_lim
+
+
+def _sync_round_common(env, selected: np.ndarray, crashed: np.ndarray,
+                       cfrac: np.ndarray, t_up: np.ndarray,
+                       t_down: np.ndarray, full_tt: np.ndarray):
+    """Shared FedAvg/FedCS timing: server waits for every selected client;
+    a crash is detected when the client drops (at its partial-progress
+    point), so the round ends at max(finish/drop times), capped at T_lim.
+
+    ``t_up``/``t_down``/``full_tt`` are the round's [m] timing rows
+    (``Env.round_timing``); with constant traces ``t_down + t_up`` equals
+    the legacy ``2 * t_updown`` bitwise."""
+    t_dist = env.t_dist(int(selected.sum()))
+    finish = t_dist + (t_down + t_up) + full_tt
+    drop = t_dist + t_down + cfrac * full_tt
+    per_client = np.where(crashed, drop, finish)
+    if selected.any():
+        round_len = float(np.max(per_client[selected]))
+    else:
+        round_len = t_dist
+    return min(env.t_lim, round_len), t_dist
+
+
+def _sync_rounds_common(selected, crashed, cfrac, full_tt, *, t_lim,
+                        t_up, t_down, msize, server_bw):
+    """``_sync_round_common`` vectorised over stacked leading axes.
+
+    selected/crashed/cfrac: [..., m] (e.g. [rounds, m] or [S, rounds, m]);
+    the timing arrays must already broadcast against those shapes (for a
+    fleet: full_tt/t_up/t_down [S, rounds, m] — or [S, 1, m] when no
+    member carries traces — and msize/server_bw/t_lim [S, 1]).
+    Bit-identical per round to the scalar helper: the masked max equals
+    the compressed max, and every arithmetic expression keeps the scalar
+    path's evaluation order ((t_down + t_up) == 2 * t_updown bitwise for
+    constant traces).  Returns (round_len [...], t_dist [...])."""
+    t_dist = selected.sum(axis=-1) * msize * 8.0 / server_bw
+    finish = t_dist[..., None] + (t_down + t_up) + full_tt
+    drop = t_dist[..., None] + t_down + cfrac * full_tt
+    per_client = np.where(crashed, drop, finish)
+    live_max = np.max(np.where(selected, per_client, -np.inf), axis=-1)
+    round_len = np.where(selected.any(axis=-1), live_max, t_dist)
+    return np.minimum(t_lim, round_len), t_dist
 
 
 def precompute_safa_schedule(env: Env, *, fraction: float,
@@ -251,3 +318,337 @@ def precompute_fleet_schedule(members, *, rounds: int) -> FleetSchedule:
     return FleetSchedule(records=records,
                          futility=wasted / np.maximum(performed, 1e-9),
                          **masks)
+
+
+def precompute_sync_schedule(env: Env, *, fraction: float, rounds: int,
+                             seed: int, fedcs: bool, form: str = 'dense',
+                             sampler: str = 'choice') -> SyncSchedule:
+    """Host pass for the synchronous baselines (selection + crash draws).
+
+    ``sampler`` picks the FedAvg selection stream: 'choice' is the legacy
+    per-round ``Generator.choice`` draw; 'topk' is the vectorised
+    without-replacement sampler (``selection.fedavg_select_topk``) whose
+    bulk-uniform stream scales to large m.  FedCS selection is
+    deterministic and ignores it.  Consumes ``env``'s rng and the
+    selection rng (``seed + 1``) exactly as the JAX package's precompute
+    does.  Only ``form='dense'`` is ported."""
+    if form == 'sparse':
+        raise NotImplementedError(
+            "form='sparse' is not ported yet (ROADMAP queue 1, item 11: "
+            "sparse schedules); use form='dense'")
+    if form != 'dense':
+        raise ValueError(f"unknown form {form!r} (want 'dense' or 'sparse')")
+    m = env.m
+    rng = np.random.default_rng(seed + 1)
+    tim = env.round_timing(rounds)         # [rounds, m] trace/wire-aware
+    work = env.n_batches * env.epochs
+    wasted = 0.0
+    performed = 0.0
+    crashed_all, cfrac_all = env.draw_rounds(rounds)
+    sel_idx_all = None
+    if not fedcs and sampler == 'topk':
+        # one bulk uniform draw for all rounds (row t == round t's draw)
+        sel_idx_all = selection.fedavg_select_topk(rng, m, fraction, rounds)
+    elif sampler not in ('choice', 'topk'):
+        raise ValueError(
+            f"unknown sampler {sampler!r} (want 'choice' or 'topk')")
+    selected_s = np.zeros((rounds, m), bool)
+    completed_s = np.zeros((rounds, m), bool)
+    records = []
+
+    for t in range(1, rounds + 1):
+        t_up, t_down = tim.t_up[t - 1], tim.t_down[t - 1]
+        full_tt = tim.full_tt[t - 1]
+        if fedcs:
+            # per-round estimate: traces move the FedCS pick round to round
+            est = (t_down + t_up) + full_tt
+            sel = selection.fedcs_select(est, fraction, env.t_lim)
+        elif sel_idx_all is not None:
+            sel = np.zeros(m, bool)
+            sel[sel_idx_all[t - 1]] = True
+        else:
+            sel = selection.fedavg_select(rng, m, fraction)
+        crashed, cfrac = crashed_all[t - 1], cfrac_all[t - 1]
+        round_len, t_dist = _sync_round_common(env, sel, crashed, cfrac,
+                                               t_up, t_down, full_tt)
+        # clients that cannot make the deadline are reckoned crashed (§III-B)
+        too_slow = (t_dist + (t_down + t_up) + full_tt) > env.t_lim
+        crashed = crashed | too_slow
+        completed = sel & ~crashed
+        performed += float(np.sum(np.where(sel, np.where(crashed, cfrac, 1.0),
+                                       0.0) * work))
+        wasted += float(np.sum((sel & crashed) * cfrac * work))
+
+        selected_s[t - 1] = sel
+        completed_s[t - 1] = ~crashed
+        records.append(RoundRecord(
+            round=t, round_len=round_len, t_dist=t_dist,
+            eur=float(completed.sum()) / m,
+            sr=float(sel.sum()) / m, vv=0.0,
+            n_picked=int(completed.sum()), n_committed=int(completed.sum()),
+            n_crashed=int(crashed.sum())))
+
+    futility = wasted / max(performed, 1e-9)
+    return SyncSchedule(selected=selected_s, completed=completed_s,
+                        records=records, futility=futility)
+
+
+def precompute_local_schedule(env: Env, *, fraction: float, rounds: int,
+                              seed: int) -> LocalSchedule:
+    """Host pass for the fully-local baseline (selection + crash draws).
+
+    Consumes the selection rng (``seed + 2``) and the env's crash stream
+    exactly as the per-round reference loop does: the two are independent
+    generators, so bulk-drawing each preserves both streams."""
+    m = env.m
+    rng = np.random.default_rng(seed + 2)
+    tim = env.round_timing(rounds)         # [rounds, m] trace/wire-aware
+    crashed_all, cfrac_all = env.draw_rounds(rounds)
+    selected = selection.fedavg_select_batch([rng], m, fraction, rounds)[0]
+    completed = selected & ~crashed_all
+    round_len, _ = _sync_rounds_common(
+        selected, crashed_all, cfrac_all, tim.full_tt, t_lim=env.t_lim,
+        t_up=tim.t_up, t_down=tim.t_down, msize=env._dist_mb(),
+        server_bw=env.server_bw_mbps)
+    round_len = round_len.tolist()
+    n_committed = completed.sum(axis=-1).tolist()
+    n_crashed = crashed_all.sum(axis=-1).tolist()
+    records = [RoundRecord(round=i + 1, round_len=round_len[i], t_dist=0.0,
+                           eur=0.0, sr=0.0, vv=0.0, n_picked=0,
+                           n_committed=n_committed[i],
+                           n_crashed=n_crashed[i])
+               for i in range(rounds)]
+    return LocalSchedule(completed=completed, records=records, futility=0.0)
+
+
+def precompute_sync_fleet_schedule(members, *, rounds: int, fedcs: bool,
+                                   sampler: str = 'choice'
+                                   ) -> SyncFleetSchedule:
+    """FedAvg/FedCS host pass for a whole fleet in one [S, rounds, m] sweep.
+
+    Bit-identical to stacking S ``precompute_sync_schedule`` calls
+    (regression-tested) with the per-member Python state loop eliminated:
+    FedCS selection is one ``selection.fedcs_select_batch`` rank
+    comparison (when no member carries traces the time estimates are
+    round-invariant and one [S, m] selection broadcasts over rounds; with
+    traces the rounds axis folds into the batch axis — one
+    [S*rounds, m] call), FedAvg selections consume each
+    member's own rng stream (``selection.fedavg_select_batch``), and the
+    timing/crash algebra plus record stats vectorise over the full
+    [S, rounds, m] block.  Synchronous protocols carry no cross-round
+    state, so there is no per-round loop either — the futility
+    accumulators use ``np.cumsum`` to keep the scalar path's sequential
+    round-by-round addition order."""
+    s_count = len(members)
+    envs = [mem.env for mem in members]
+    m = envs[0].m
+    if any(e.m != m for e in envs):
+        raise ValueError('fleet members must share the client count m')
+    fraction = np.array([mem.fraction for mem in members], float)
+    t_lim = np.array([e.t_lim for e in envs])
+    msize = np.array([e._dist_mb() for e in envs])
+    server_bw = np.array([e.server_bw_mbps for e in envs])
+    work = np.stack([e.n_batches * e.epochs for e in envs])     # [S, m]
+    draws = [e.draw_rounds(rounds) for e in envs]
+    crashed_all = np.stack([d[0] for d in draws])           # [S, rounds, m]
+    cfrac_all = np.stack([d[1] for d in draws])
+
+    tims = [e.round_timing(rounds) for e in envs]
+    if any(e.has_traces for e in envs):
+        # time-varying timing: full [S, rounds, m] stacks, and FedCS picks
+        # per round (estimates move round to round)
+        t_up = np.stack([tt.t_up for tt in tims])
+        t_down = np.stack([tt.t_down for tt in tims])
+        full_tt = np.stack([tt.full_tt for tt in tims])
+        if fedcs:
+            est = ((t_down + t_up) + full_tt).reshape(s_count * rounds, m)
+            sel = selection.fedcs_select_batch(
+                est, np.repeat(fraction, rounds), np.repeat(t_lim, rounds))
+            selected = sel.reshape(s_count, rounds, m)
+    else:
+        # round-invariant timing: [S, 1, m] row-0 views broadcast over
+        # rounds (legacy memory shape), one FedCS selection for all rounds
+        t_up = np.stack([tt.t_up[0] for tt in tims])[:, None]
+        t_down = np.stack([tt.t_down[0] for tt in tims])[:, None]
+        full_tt = np.stack([tt.full_tt[0] for tt in tims])[:, None]
+        if fedcs:
+            est = (t_down[:, 0] + t_up[:, 0]) + full_tt[:, 0]   # [S, m]
+            sel = selection.fedcs_select_batch(est, fraction, t_lim)
+            selected = np.broadcast_to(sel[:, None],
+                                       (s_count, rounds, m)).copy()
+    if not fedcs:
+        rngs = [np.random.default_rng(mem.seed + 1) for mem in members]
+        selected = selection.fedavg_select_batch(rngs, m, fraction, rounds,
+                                                 sampler=sampler)
+
+    round_len, t_dist = _sync_rounds_common(
+        selected, crashed_all, cfrac_all, full_tt,
+        t_lim=t_lim[:, None], t_up=t_up, t_down=t_down,
+        msize=msize[:, None], server_bw=server_bw[:, None])
+    # clients that cannot make the deadline are reckoned crashed (§III-B)
+    too_slow = (t_dist[..., None] + (t_down + t_up)
+                + full_tt) > t_lim[:, None, None]
+    crashed = crashed_all | too_slow
+    completed = selected & ~crashed
+    performed = np.sum(np.where(selected, np.where(crashed, cfrac_all, 1.0),
+                                0.0) * work[:, None], axis=-1)  # [S, rounds]
+    wasted = np.sum((selected & crashed) * cfrac_all * work[:, None], axis=-1)
+    performed_tot = np.cumsum(performed, axis=1)[:, -1]
+    wasted_tot = np.cumsum(wasted, axis=1)[:, -1]
+
+    round_len_l = round_len.tolist()
+    t_dist_l = t_dist.tolist()
+    n_completed = completed.sum(axis=-1).tolist()
+    n_sel = selected.sum(axis=-1).tolist()
+    n_crashed = crashed.sum(axis=-1).tolist()
+    records = [[RoundRecord(
+        round=i + 1, round_len=round_len_l[s][i], t_dist=t_dist_l[s][i],
+        eur=n_completed[s][i] / m,
+        sr=n_sel[s][i] / m, vv=0.0,
+        n_picked=n_completed[s][i], n_committed=n_completed[s][i],
+        n_crashed=n_crashed[s][i],
+    ) for i in range(rounds)] for s in range(s_count)]
+    return SyncFleetSchedule(
+        selected=selected, completed=~crashed, records=records,
+        futility=wasted_tot / np.maximum(performed_tot, 1e-9))
+
+
+def precompute_fedasync_schedule(env: Env, *, rounds: int,
+                                 alpha: float = 0.6,
+                                 staleness_exp: float = 0.5):
+    """The legacy FedAsync precompute: ``agg_schemes.
+    precompute_async_schedule`` with its default poly discount, which
+    emits the legacy schedule bit for bit."""
+    from repro_torch.core import agg_schemes
+    return agg_schemes.precompute_async_schedule(
+        env, rounds=rounds, alpha=alpha, staleness_exp=staleness_exp)
+
+
+# ---------------------------------------------------------------------------
+# Legacy runner shims (DeprecationWarning; the spec spellings bit for bit)
+# ---------------------------------------------------------------------------
+
+def _deprecated(name: str, spelling: str):
+    # attribute the warning to the first frame outside this module, so
+    # run_fedcs -> run_fedavg chains still point at the user's call site
+    level, frame = 3, sys._getframe(2)
+    while frame is not None and frame.f_globals.get('__name__') == __name__:
+        level += 1
+        frame = frame.f_back
+    warnings.warn(
+        f'federation.{name}() is deprecated; spell it as {spelling} '
+        f'(repro_torch.api)', DeprecationWarning, stacklevel=level)
+
+
+def run_safa(task: Optional[Task], env, *, fraction: float,
+             lag_tolerance: int, rounds: int, eval_every: int = 10,
+             numeric: bool = True, use_kernel=False,
+             quantize_uploads: bool = False, seed: int = 0,
+             engine: str = 'scan', wire: str = 'f32', device='cuda'):
+    """Deprecated shim over ``api.Experiment(..., SafaSpec(...))``."""
+    _deprecated('run_safa', 'Experiment(task, env, SafaSpec(...), '
+                'ExecSpec(...)).compile().run()')
+    from repro_torch.core import api
+    return api.Experiment(
+        task, env,
+        api.SafaSpec(fraction=fraction, lag_tolerance=lag_tolerance,
+                     quantize_uploads=quantize_uploads),
+        api.ExecSpec(engine=engine, wire=wire, use_kernel=use_kernel,
+                     eval_every=eval_every, numeric=numeric),
+        rounds=rounds, seed=seed, device=device).compile().run()
+
+
+def run_fedavg(task: Optional[Task], env, *, fraction: float, rounds: int,
+               eval_every: int = 10, numeric: bool = True, seed: int = 0,
+               fedcs: bool = False, engine: str = 'scan', wire: str = 'f32',
+               device='cuda'):
+    """Deprecated shim over ``api.Experiment(..., FedAvgSpec/FedCSSpec)``."""
+    _deprecated('run_fedcs' if fedcs else 'run_fedavg',
+                'Experiment(task, env, FedCSSpec(...) if fedcs else '
+                'FedAvgSpec(...), ExecSpec(...)).compile().run()')
+    from repro_torch.core import api
+    spec_cls = api.FedCSSpec if fedcs else api.FedAvgSpec
+    return api.Experiment(
+        task, env, spec_cls(fraction=fraction),
+        api.ExecSpec(engine=engine, wire=wire, eval_every=eval_every,
+                     numeric=numeric),
+        rounds=rounds, seed=seed, device=device).compile().run()
+
+
+def run_fedcs(task, env, **kw):
+    return run_fedavg(task, env, fedcs=True, **kw)
+
+
+def run_local(task: Optional[Task], env, *, fraction: float, rounds: int,
+              eval_every: int = 10, numeric: bool = True, seed: int = 0,
+              engine: str = 'scan', wire: str = 'f32', use_kernel=False,
+              device='cuda'):
+    """Deprecated shim over ``api.Experiment(..., LocalSpec(...))``.
+    ``wire``/``use_kernel`` are accepted for signature parity and refused
+    by ``api.check_compat`` with the message every surface uses."""
+    _deprecated('run_local', 'Experiment(task, env, LocalSpec(...), '
+                'ExecSpec(...)).compile().run()')
+    from repro_torch.core import api
+    return api.Experiment(
+        task, env, api.LocalSpec(fraction=fraction),
+        api.ExecSpec(engine=engine, wire=wire, use_kernel=use_kernel,
+                     eval_every=eval_every, numeric=numeric),
+        rounds=rounds, seed=seed, device=device).compile().run()
+
+
+def run_fedasync(task: Optional[Task], env, *, fraction: float = 1.0,
+                 rounds: int = 100, eval_every: int = 10,
+                 numeric: bool = True, alpha: float = 0.6,
+                 staleness_exp: float = 0.5, seed: int = 0,
+                 engine: str = 'scan', wire: str = 'f32', use_kernel=False,
+                 device='cuda'):
+    """Deprecated shim over ``api.Experiment(..., FedAsyncSpec(...))``.
+    ``fraction`` is ignored (fully asynchronous); ``wire``/``use_kernel``
+    are refused by ``api.check_compat``."""
+    del fraction
+    _deprecated('run_fedasync', 'Experiment(task, env, FedAsyncSpec(...), '
+                'ExecSpec(...)).compile().run()')
+    from repro_torch.core import api
+    return api.Experiment(
+        task, env, api.FedAsyncSpec(alpha=alpha, staleness_exp=staleness_exp),
+        api.ExecSpec(engine=engine, wire=wire, use_kernel=use_kernel,
+                     eval_every=eval_every, numeric=numeric),
+        rounds=rounds, seed=seed, device=device).compile().run()
+
+
+def run_sweep(task, members, *, rounds: int, proto: str = 'safa',
+              eval_every: int = 10, numeric: bool = True, use_kernel=False,
+              engine: str = 'fleet', wire: str = 'f32', device='cuda'):
+    """Deprecated shim over ``api.CompiledRunner.run_sweep``: S =
+    len(members) simulations of one protocol as a fleet, one ``History``
+    per member.  ``task`` may be a list of per-member Tasks (the
+    ``api.SweepSpec(members, tasks=...)`` spelling).  ``use_kernel``
+    applies to SAFA alone and is ignored for the other protocols, as in
+    the JAX package."""
+    _deprecated('run_sweep', 'Experiment(task, env, spec, ExecSpec(...))'
+                '.compile().run_sweep(members)')
+    from repro_torch.core import api
+    if isinstance(task, (list, tuple)):
+        sweep = api.SweepSpec(members=tuple(members), tasks=tuple(task))
+        task = None
+    else:
+        sweep = list(members)
+    return api.Experiment(
+        task, members[0].env if members else None, api.spec(proto),
+        api.ExecSpec(engine=engine, wire=wire,
+                     use_kernel=use_kernel if proto == 'safa' else False,
+                     eval_every=eval_every, numeric=numeric),
+        rounds=rounds, device=device).compile().run_sweep(sweep)
+
+
+RUNNERS = {
+    'safa': run_safa,
+    'fedavg': run_fedavg,
+    'fedcs': run_fedcs,
+    'local': run_local,
+    'fedasync': run_fedasync,
+}
+
+# Backwards-compatible alias (pre-unification name); the registry keyed
+# by spec type is ``repro_torch.api.PROTOCOLS``.
+PROTOCOLS = RUNNERS

@@ -1,4 +1,6 @@
-"""SAFA numeric protocol algebra (Eq. 3, 6, 7, 8) on stacked client models.
+"""SAFA numeric protocol algebra (Eq. 3, 6, 7, 8) on stacked client models,
+and the rounds of the paper's baselines (FedAvg/FedCS, fully-local,
+FedAsync).
 
 Models are flat dicts of tensors; a stacked model carries a leading
 clients dim of size m.  The server's cache (one entry per client) and the
@@ -12,10 +14,15 @@ fleet), so one round body serves both, and a fleet member's numbers are
 the single run's.
 
 ``safa_run_scan`` replays a device-resident segment of precomputed round
-masks; ``safa_round`` is one round of it; ``safa_run_fleet`` runs a
-fleet's segment, one round of all S members at a time.  The functions on
-masks (``classify_versions``) work on numpy arrays and on tensors alike:
-the host event process in ``core.federation`` calls them on numpy.
+masks, ``safa_round`` is one round of it; each baseline has the same
+pair (``fedavg_run_scan``/``fedavg_round``, ``local_run_scan``/
+``local_only_round``, ``fedasync_run_scan``/``fedasync_round``).  A scan
+engine takes a run's segment ([k, m] masks, [k] round indices) or a
+fleet's ([S, k, m], [S, k]); on a fleet's it runs one round of all S
+members at a time, the work of the JAX package's ``*_run_fleet``.  The
+functions on masks (``classify_versions``) work on numpy arrays and on
+tensors alike: the host event process in ``core.federation`` calls them
+on numpy.
 """
 from __future__ import annotations
 
@@ -193,6 +200,17 @@ def safa_round(global_w, local_w, cache, *, sync_mask, completed, picked,
 # Multi-round engine over precomputed schedules
 # ---------------------------------------------------------------------------
 
+def _segment(self, start: int, stop: int):
+    """Rounds [start, stop) of a run's [rounds, ...] schedule, as views."""
+    return type(self)(*(a[start:stop] for a in self))
+
+
+def _fleet_segment(self, start: int, stop: int):
+    """Rounds [start, stop) of a fleet's [S, rounds, ...] schedule (the
+    rounds axis is axis 1), as views."""
+    return type(self)(*(a[:, start:stop] for a in self))
+
+
 class RoundSchedule(NamedTuple):
     """SAFA per-round masks, stacked [k, m] on the device (plus the round
     indices [k]), so a whole run crosses host->device in one transfer.  A
@@ -203,62 +221,212 @@ class RoundSchedule(NamedTuple):
     undrafted: Any
     deprecated: Any
     round_idx: Any
+    segment = _segment
+    fleet_segment = _fleet_segment
 
-    def segment(self, start: int, stop: int) -> 'RoundSchedule':
-        """Rounds [start, stop) as views of the resident schedule."""
-        return RoundSchedule(*(a[start:stop] for a in self))
 
-    def fleet_segment(self, start: int, stop: int) -> 'RoundSchedule':
-        """Rounds [start, stop) of a fleet's [S, rounds, ...] schedule
-        (the rounds axis is axis 1), as views."""
-        return RoundSchedule(*(a[:, start:stop] for a in self))
+class SyncSchedule(NamedTuple):
+    """FedAvg/FedCS per-round masks, stacked [k, m] (a fleet's [S, k, m]):
+    ``completed`` is the survivor mask; the round intersects it with
+    ``selected``."""
+    selected: Any
+    completed: Any
+    round_idx: Any
+    segment = _segment
+    fleet_segment = _fleet_segment
+
+
+class LocalSchedule(NamedTuple):
+    """Fully-local per-round masks, stacked [k, m] (a fleet's [S, k, m]):
+    ``completed`` is selected & survived, the only mask the round needs."""
+    completed: Any
+    round_idx: Any
+    segment = _segment
+    fleet_segment = _fleet_segment
+
+
+class AsyncSchedule(NamedTuple):
+    """FedAsync per-round merge schedule, stacked [k, m] (a fleet's
+    [S, k, m]): the commit mask, the arrival-order merge permutation and
+    the staleness-scaled mixing weights (0 for non-commits)."""
+    committed: Any
+    order: Any
+    alphas: Any
+    round_idx: Any
+    segment = _segment
+    fleet_segment = _fleet_segment
+
+
+def _rounds(schedule, train_ctx=None):
+    """(row, train_args) for every round of a device-resident segment.  A
+    fleet's segment (told apart by its [S, k] round indices) is made
+    round-major first, so that each round's [S, m] masks are one
+    contiguous block, as the kernels take them.  ``train_ctx`` (a
+    per-member-task fleet's data) rides along as the extra train
+    argument."""
+    if schedule.round_idx.ndim == 2:
+        schedule = type(schedule)(*(a.transpose(0, 1).contiguous()
+                                    for a in schedule))
+    extra = () if train_ctx is None else (train_ctx,)
+    for i in range(schedule.round_idx.shape[0]):
+        row = type(schedule)(*(a[i] for a in schedule))
+        yield row, (row.round_idx,) + extra
 
 
 def safa_run_scan(global_w, local_w, cache, schedule: RoundSchedule, weights,
-                  *, local_train_fn, use_kernel=False, wire='f32'):
-    """Run ``k = len(schedule.round_idx)`` SAFA rounds over a segment of
-    the device-resident schedule.  Each round is the same ``safa_round``
-    the per-round loop engine calls, on rows of the resident masks, so the
-    two engines agree bit for bit.  ``round_idx`` rides along as a device
-    scalar, like the JAX scan's traced index.
+                  *, local_train_fn, use_kernel=False, wire='f32',
+                  train_ctx=None):
+    """Run the SAFA rounds of a segment of the device-resident schedule.
+    Each round is the same ``safa_round`` the per-round loop engine calls,
+    on rows of the resident masks, so the two engines agree bit for bit.
+    ``round_idx`` rides along as a device scalar, like the JAX scan's
+    traced index.
+
+    On a fleet's segment (masks [S, k, m], round indices [S, k], weights
+    [S, m], stacked models [S, m, ...], globals [S, ...]) each round is one
+    ``safa_round`` on the whole fleet: one ``local_train_fn(base
+    [S, m, ...], round_idx [S], *extra)`` call for all S * m client
+    replicas, and one launch of each server kernel for all S members;
+    member s's numbers are those of its own single run.
     Returns (new_global, new_local, new_cache)."""
-    for i in range(schedule.round_idx.shape[0]):
+    for r, args in _rounds(schedule, train_ctx):
         global_w, local_w, cache = safa_round(
-            global_w, local_w, cache, sync_mask=schedule.sync[i],
-            completed=schedule.completed[i], picked=schedule.picked[i],
-            undrafted=schedule.undrafted[i],
-            deprecated=schedule.deprecated[i], weights=weights,
-            local_train_fn=local_train_fn,
-            train_args=(schedule.round_idx[i],), use_kernel=use_kernel,
-            wire=wire)
-    return global_w, local_w, cache
-
-
-def safa_run_fleet(global_w, local_w, cache, schedule: RoundSchedule, weights,
-                   *, local_train_fn, use_kernel=False, wire='f32',
-                   train_ctx=None):
-    """Run S independent SAFA simulations over a segment of a fleet's
-    device-resident schedule: masks [S, k, m], round indices [S, k],
-    weights [S, m], stacked models [S, m, ...] and globals [S, ...].
-
-    Each round is one ``safa_round`` on the whole fleet: one
-    ``local_train_fn(base [S, m, ...], round_idx [S], *extra)`` call for
-    all S * m client replicas, and one launch of each server kernel for
-    all S members.  ``train_ctx`` (a per-member-task fleet's data) rides
-    along as the extra train argument.  Member s's numbers are those of
-    ``safa_run_scan`` on its own schedule.
-    Returns (new_global, new_local, new_cache), each fleet-stacked."""
-    # round-major [k, S, ...] so that each round's [S, m] masks are one
-    # contiguous block, as the kernels take them
-    rounds = RoundSchedule(*(a.transpose(0, 1).contiguous()
-                             for a in schedule))
-    extra = () if train_ctx is None else (train_ctx,)
-    for i in range(rounds.round_idx.shape[0]):
-        global_w, local_w, cache = safa_round(
-            global_w, local_w, cache, sync_mask=rounds.sync[i],
-            completed=rounds.completed[i], picked=rounds.picked[i],
-            undrafted=rounds.undrafted[i], deprecated=rounds.deprecated[i],
-            weights=weights, local_train_fn=local_train_fn,
-            train_args=(rounds.round_idx[i],) + extra,
+            global_w, local_w, cache, sync_mask=r.sync,
+            completed=r.completed, picked=r.picked, undrafted=r.undrafted,
+            deprecated=r.deprecated, weights=weights,
+            local_train_fn=local_train_fn, train_args=args,
             use_kernel=use_kernel, wire=wire)
     return global_w, local_w, cache
+
+
+def fedavg_run_scan(global_w, local_w, schedule: SyncSchedule, weights, *,
+                    local_train_fn, wire='f32', train_ctx=None):
+    """FedAvg/FedCS counterpart of ``safa_run_scan``, for a run's segment
+    or a fleet's.  ``wire='int8'`` round-trips the uploads through the
+    packed int8 wire (two launches per round, for the whole fleet on a
+    fleet).  Returns (new_global, new_local)."""
+    for r, args in _rounds(schedule, train_ctx):
+        global_w, local_w = fedavg_round(
+            global_w, local_w, selected=r.selected, completed=r.completed,
+            weights=weights, local_train_fn=local_train_fn, train_args=args,
+            wire=wire)
+    return global_w, local_w
+
+
+def local_run_scan(local_w, schedule: LocalSchedule, *, local_train_fn,
+                   train_ctx=None):
+    """Fully-local counterpart of ``safa_run_scan``: train + survivor
+    masking, no global model in the carry (the caller aggregates at eval
+    points).  Returns the new local stack."""
+    for r, args in _rounds(schedule, train_ctx):
+        local_w = local_only_round(local_w, completed=r.completed,
+                                   local_train_fn=local_train_fn,
+                                   train_args=args)
+    return local_w
+
+
+def fedasync_run_scan(global_w, local_w, schedule: AsyncSchedule, *,
+                      local_train_fn, train_ctx=None):
+    """FedAsync counterpart of ``safa_run_scan``: each round's
+    arrival-ordered server merges replay the schedule's precomputed merge
+    order and mixing weights (``fedasync_merge``).
+    Returns (new_global, new_local)."""
+    for r, args in _rounds(schedule, train_ctx):
+        global_w, local_w = fedasync_round(
+            global_w, local_w, committed=r.committed, order=r.order,
+            alphas=r.alphas, local_train_fn=local_train_fn, train_args=args)
+    return global_w, local_w
+
+
+# ---------------------------------------------------------------------------
+# Baseline numeric rounds
+# ---------------------------------------------------------------------------
+
+def fedavg_round(global_w, local_w, *, selected, completed, weights,
+                 local_train_fn, train_args=(), wire: str = 'f32'):
+    """FedAvg: selected clients sync + train; aggregate over the selected
+    clients that committed (renormalised weights); everyone else idles.
+    ``wire='int8'`` ships the uploads through the packed int8 wire
+    (``ops.wire_roundtrip_packed``: one quantise and one dequantise launch
+    for the whole stacked model), so the server aggregates what a
+    compressed transfer delivers.  Returns (new_global, new_local)."""
+    check_wire(wire)
+    base = distribute(global_w, local_w, selected)
+    trained = local_train_fn(base, *train_args)
+    return fedavg_server_step(base, trained, global_w, selected=selected,
+                              completed=completed, weights=weights, wire=wire)
+
+
+def fedavg_server_step(base, trained, global_w, *, selected, completed,
+                       weights, wire: str = 'f32'):
+    """FedAvg's server math after local training: the wire transfer, the
+    aggregation over the selected clients that committed (weights
+    renormalised over them; the global stays when none did) and the local
+    sync; for one run or a fleet ([S, m] masks).
+    Returns (new_global, new_local)."""
+    if wire == 'int8':
+        from repro_torch.kernels import ops as kops
+        trained = kops.wire_roundtrip_packed_fleet(trained, global_w) \
+            if selected.ndim == 2 \
+            else kops.wire_roundtrip_packed(trained, like=global_w)
+    ok = selected & completed
+    axis = ok.ndim - 1                  # the clients axis
+    wsum = torch.clamp_min(torch.sum(weights * ok, dim=axis, keepdim=True),
+                           1e-12)
+    eff_w = torch.where(ok, weights, 0.0) / wsum
+    any_ok = torch.sum(ok, dim=axis) > 0
+
+    def red(t, g):
+        agg = torch.sum(t.float() * _bmask(eff_w, t).float(), dim=axis)
+        return torch.where(_bmask(any_ok, agg), agg, g.float()).to(g.dtype)
+
+    new_global = {k: red(trained[k], g) for k, g in global_w.items()}
+    return new_global, masked_select(ok, trained, base)
+
+
+def local_only_round(local_w, *, completed, local_train_fn, train_args=()):
+    """Fully-local baseline: train, never aggregate."""
+    trained = local_train_fn(local_w, *train_args)
+    return masked_select(completed, trained, local_w)
+
+
+def fedasync_merge(global_w, trained, *, order, alphas):
+    """FedAsync (Xie et al.) server: merge the updates one by one in
+    arrival order with staleness-scaled mixing,
+
+        w <- (1 - alpha_k) w + alpha_k w'_k
+
+    trained: stacked [(S,) m, ...]; order: [(S,) m] arrival permutation;
+    alphas: [(S,) m] mixing weight per client (0 for non-commits).  The m
+    merges run in sequence, as in the JAX package (never folded into one
+    weighted sum: that is another float result).  Returns the post-merge
+    global model."""
+    fleet = order.ndim == 2
+    if fleet:
+        members = torch.arange(order.shape[0], device=order.device)[:, None]
+        ordered = {k: v[members, order] for k, v in trained.items()}
+        a_ord = torch.gather(alphas, 1, order).float()
+    else:
+        ordered = {k: v[order] for k, v in trained.items()}
+        a_ord = alphas[order].float()
+    new_global = {}
+    for k, g in global_w.items():
+        for j in range(order.shape[-1]):
+            a = _bmask(a_ord[:, j], g) if fleet else a_ord[j]
+            upd = ordered[k][:, j] if fleet else ordered[k][j]
+            g = ((1.0 - a) * g.float() + a * upd.float()).to(g.dtype)
+        new_global[k] = g
+    return new_global
+
+
+def fedasync_round(global_w, local_w, *, committed, order, alphas,
+                   local_train_fn, train_args=()):
+    """One FedAsync round: every client trains, crashed or late clients
+    are masked out, the server merges the arrivals one by one
+    (``fedasync_merge``), and committed clients pull the fresh global
+    model.  Returns (new_global, new_local)."""
+    trained = local_train_fn(local_w, *train_args)
+    trained = masked_select(committed, trained, local_w)
+    new_global = fedasync_merge(global_w, trained, order=order, alphas=alphas)
+    return new_global, masked_select(committed, _tile(new_global, committed),
+                                     local_w)

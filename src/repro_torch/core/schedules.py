@@ -1,8 +1,9 @@
 """Schedule and result containers for the federation layer: per-round
-records, run histories, sweep members, and the precomputed dense SAFA
-mask schedules (one run's, and a fleet's stacked member-major) that the
-engines replay.  The state machines that produce the schedules live in
-``repro_torch.core.federation``; the engines that consume them in
+records, run histories, sweep members, and the precomputed dense mask
+schedules of every protocol (one run's, and a fleet's stacked
+member-major) that the engines replay.  The state machines that produce
+the schedules live in ``repro_torch.core.federation`` (FedAsync's in
+``repro_torch.core.agg_schemes``); the engines that consume them in
 ``repro_torch.core.protocol``."""
 from __future__ import annotations
 
@@ -46,7 +47,7 @@ class History:
 
 @dataclasses.dataclass
 class SweepMember:
-    """One simulation in a fleet sweep: its own environment and SAFA
+    """One simulation in a fleet sweep: its own environment and protocol
     hyper-parameters.  All members of a sweep share the client count
     ``m``; they share the Task too unless the sweep carries per-member
     Tasks (``api.SweepSpec(tasks=...)``, padded stacking)."""
@@ -54,12 +55,16 @@ class SweepMember:
     #: sweep builds each member a fresh env, and ``overrides`` may then
     #: rewrite env fields) or a built ``Env``
     env: Any
-    fraction: float = 0.5
-    lag_tolerance: int = 5
-    seed: int = 0               # numeric-init seed
-    #: ``EnvSpec`` field overrides (``crash_prob``, ``traces``,
-    #: ``draw_seed``, ...) applied to the member's declarative env at sweep
-    #: resolution; SAFA takes no protocol-field overrides.  ``None`` == no
+    fraction: float = 0.5       # ignored by fedasync (fully asynchronous)
+    lag_tolerance: int = 5      # SAFA only
+    seed: int = 0               # numeric-init (and sync/local-selection) seed
+    alpha: float = 0.6          # fedasync: base mixing weight
+    staleness_exp: float = 0.5  # fedasync: poly discount exponent
+    #: per-member field overrides, split by key at sweep resolution:
+    #: ``EnvSpec`` field names (``crash_prob``, ``traces``, ``draw_seed``,
+    #: ...) rewrite the member's declarative env; the rest must be
+    #: protocol-spec fields of a protocol that takes them (FedAsync:
+    #: ``staleness_fn``, ``hinge_a``/``hinge_b``).  ``None`` == no
     #: overrides.
     overrides: Optional[dict] = None
 
@@ -88,8 +93,78 @@ class SafaSchedule:
             sync=put(self.sync), completed=put(self.committed),
             picked=put(self.picked), undrafted=put(self.undrafted),
             deprecated=put(self.deprecated),
-            round_idx=torch.arange(1, self.rounds + 1, dtype=torch.int32,
-                                   device=device))
+            round_idx=_round_idx(self.rounds, device))
+
+
+def _round_idx(rounds: int, device) -> torch.Tensor:
+    """[rounds] round indices 1..rounds for ``to_device``."""
+    return torch.arange(1, rounds + 1, dtype=torch.int32, device=device)
+
+
+@dataclasses.dataclass
+class SyncSchedule:
+    """Precomputed FedAvg/FedCS event process ([rounds, m] masks + records).
+    ``completed`` is the per-round survivor mask (``~crashed``); the numeric
+    round intersects it with ``selected`` itself."""
+    selected: np.ndarray
+    completed: np.ndarray
+    records: list
+    futility: float
+
+    @property
+    def rounds(self) -> int:
+        return self.selected.shape[0]
+
+    def to_device(self, device) -> protocol.SyncSchedule:
+        return protocol.SyncSchedule(
+            selected=torch.as_tensor(self.selected, device=device),
+            completed=torch.as_tensor(self.completed, device=device),
+            round_idx=_round_idx(self.rounds, device))
+
+
+@dataclasses.dataclass
+class LocalSchedule:
+    """Precomputed fully-local event process ([rounds, m] survivor mask +
+    records).  ``completed`` is selected & survived, the only mask the
+    numeric round needs (there is no aggregation until eval points)."""
+    completed: np.ndarray
+    records: list
+    futility: float
+
+    @property
+    def rounds(self) -> int:
+        return self.completed.shape[0]
+
+    def to_device(self, device) -> protocol.LocalSchedule:
+        return protocol.LocalSchedule(
+            completed=torch.as_tensor(self.completed, device=device),
+            round_idx=_round_idx(self.rounds, device))
+
+
+@dataclasses.dataclass
+class FedasyncSchedule:
+    """Precomputed FedAsync event process: [rounds, m] commit masks plus
+    the arrival-ordered merge permutations and staleness-scaled mixing
+    weights the sequential server applies each round.  Model weights never
+    enter (merge order is arrival timing, the alphas depend on staleness
+    alone), so the whole schedule is known up front."""
+    committed: np.ndarray       # [rounds, m] bool
+    order: np.ndarray           # [rounds, m] int: arrival merge order
+    alphas: np.ndarray          # [rounds, m] float: 0 for non-commits
+    records: list
+    futility: float
+
+    @property
+    def rounds(self) -> int:
+        return self.committed.shape[0]
+
+    def to_device(self, device) -> protocol.AsyncSchedule:
+        return protocol.AsyncSchedule(
+            committed=torch.as_tensor(self.committed, device=device),
+            order=torch.as_tensor(self.order, device=device),
+            alphas=torch.as_tensor(self.alphas, dtype=torch.float32,
+                                   device=device),
+            round_idx=_round_idx(self.rounds, device))
 
 
 # ---------------------------------------------------------------------------
@@ -129,8 +204,7 @@ class _FleetStack:
 
     def _round_idx(self, device) -> torch.Tensor:
         """[S, rounds] per-member round indices for ``to_device``."""
-        return torch.arange(1, self.rounds + 1, dtype=torch.int32,
-                            device=device).expand(self.size, self.rounds)
+        return _round_idx(self.rounds, device).expand(self.size, self.rounds)
 
 
 @dataclasses.dataclass
@@ -161,4 +235,61 @@ class FleetSchedule(_FleetStack):
             sync=put(self.sync), completed=put(self.committed),
             picked=put(self.picked), undrafted=put(self.undrafted),
             deprecated=put(self.deprecated),
+            round_idx=self._round_idx(device))
+
+
+@dataclasses.dataclass
+class SyncFleetSchedule(_FleetStack):
+    """FedAvg/FedCS counterpart of ``FleetSchedule`` ([S, rounds, m])."""
+    selected: np.ndarray
+    completed: np.ndarray
+    records: list
+    futility: np.ndarray
+
+    MASKS = ('selected', 'completed')
+    _MEMBER_CLS = SyncSchedule
+
+    def to_device(self, device) -> protocol.SyncSchedule:
+        return protocol.SyncSchedule(
+            selected=torch.as_tensor(self.selected, device=device),
+            completed=torch.as_tensor(self.completed, device=device),
+            round_idx=self._round_idx(device))
+
+
+@dataclasses.dataclass
+class LocalFleetSchedule(_FleetStack):
+    """Fully-local counterpart of ``FleetSchedule`` ([S, rounds, m])."""
+    completed: np.ndarray
+    records: list
+    futility: np.ndarray
+
+    MASKS = ('completed',)
+    _MEMBER_CLS = LocalSchedule
+
+    def to_device(self, device) -> protocol.LocalSchedule:
+        return protocol.LocalSchedule(
+            completed=torch.as_tensor(self.completed, device=device),
+            round_idx=self._round_idx(device))
+
+
+@dataclasses.dataclass
+class AsyncFleetSchedule(_FleetStack):
+    """FedAsync counterpart of ``FleetSchedule``: [S, rounds, m] commit
+    masks plus the merge-order and alpha tensors of each member's
+    arrival-ordered sequential merges."""
+    committed: np.ndarray
+    order: np.ndarray
+    alphas: np.ndarray
+    records: list
+    futility: np.ndarray
+
+    MASKS = ('committed', 'order', 'alphas')
+    _MEMBER_CLS = FedasyncSchedule
+
+    def to_device(self, device) -> protocol.AsyncSchedule:
+        return protocol.AsyncSchedule(
+            committed=torch.as_tensor(self.committed, device=device),
+            order=torch.as_tensor(self.order, device=device),
+            alphas=torch.as_tensor(self.alphas, dtype=torch.float32,
+                                   device=device),
             round_idx=self._round_idx(device))

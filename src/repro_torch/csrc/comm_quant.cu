@@ -1,7 +1,7 @@
-// Int8 per-block quantisation of a packed [m, N] upload buffer for Hopper
-// (sm_90a).
+// Int8 per-block quantisation of a packed [m, N] upload buffer, and its
+// inverse, for Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of the JAX package:
+// Replaces three Pallas TPU kernels of the JAX package:
 //   * src/repro/kernels/comm_quant.py:_quant_packed_kernel (quantize_packed)
 //     -> quantize_packed_f32 below;
 //   * src/repro/kernels/comm_quant.py:_quant_fleet_kernel
@@ -9,7 +9,11 @@
 //     quantisation is row by row, so an [S, m, N] fleet buffer is an
 //     [S * m, N] one: the fleet entry launches the same kernel over S * m
 //     rows, and each member's q and scales are bit for bit the single-run
-//     kernel's on its rows.
+//     kernel's on its rows;
+//   * src/repro/kernels/comm_quant.py:_dequant_packed_kernel
+//     (dequantize_packed) -> dequantize_packed_f32 and, for a fleet's
+//     [S, m, N] buffer (the JAX package vmaps the single-buffer kernel),
+//     dequantize_packed_fleet_f32: the same kernel over S * m rows.
 // For every client row and every block of 128 values:
 //   scale = max(amax, 1e-30) / 127        (amax = max |x| over the block)
 //   q     = clip(round_half_even(x / scale), -127, 127)  as int8
@@ -18,12 +22,20 @@
 // one f32 scale per 128), a handful of operations each; at the main path's
 // m = 100, N = 342,016 that is ~172 MB.
 //
+// The inverse: x = float(q) * scale for every value of the block, one f32
+// multiply, so x equals the plain PyTorch version bit for bit.  It moves
+// 1 byte read and 4 written per value (plus the block's scale): ~172 MB at
+// m = 100, N = 342,016, the same bytes as the quantisation.
+//
 // Design: one warp per (row, block).  Each lane loads 4 adjacent floats
 // (16 bytes; the warp reads the block's 512 bytes in one coalesced pass),
 // the block's |x| max comes from a warp-shuffle reduction, and each lane
 // writes its 4 int8 values as one char4.  Both divisions are IEEE divisions
 // (this file must never be built with --use_fast_math) and rintf rounds
 // half to even, so q and scale equal the plain PyTorch version bit for bit.
+// The inverse mirrors it: each lane reads its 4 int8 values as one char4
+// and the block's scale (one address for the whole warp), and writes one
+// float4.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -62,14 +74,44 @@ quantize_packed_kernel(const float* x, int8_t* q, float* scales,
   if (lane == 0) scales[blk] = scale;
 }
 
+__global__ void __launch_bounds__(kThreads)
+dequantize_packed_kernel(const int8_t* q, const float* scales, float* x,
+                         long long n_blocks) {
+  const long long blk =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  if (blk >= n_blocks) return;
+  const long long v = blk * kLanes + lane;   // char4 / float4 index
+  const char4 qv = reinterpret_cast<const char4*>(q)[v];
+  const float scale = scales[blk];           // one address for the warp
+  float4 out;
+  out.x = (float)qv.x * scale;
+  out.y = (float)qv.y * scale;
+  out.z = (float)qv.z * scale;
+  out.w = (float)qv.w * scale;
+  reinterpret_cast<float4*>(x)[v] = out;
+}
+
+// Grid of one warp per 128-value block over rows * n / 128 blocks.
+unsigned int grid_for(long long n_blocks) {
+  return (unsigned int)((n_blocks * kLanes + kThreads - 1) / kThreads);
+}
+
 int launch(const float* x, int8_t* q, float* scales, long long rows,
            long long n, cudaStream_t stream) {
   const long long n_blocks = rows * (n / kQBlock);
   if (n_blocks == 0) return (int)cudaSuccess;
-  const long long threads = n_blocks * kLanes;
-  const unsigned int grid = (unsigned int)((threads + kThreads - 1) / kThreads);
-  quantize_packed_kernel<<<grid, kThreads, 0, stream>>>(x, q, scales,
-                                                        n_blocks);
+  quantize_packed_kernel<<<grid_for(n_blocks), kThreads, 0, stream>>>(
+      x, q, scales, n_blocks);
+  return (int)cudaGetLastError();
+}
+
+int launch_dequant(const int8_t* q, const float* scales, float* x,
+                   long long rows, long long n, cudaStream_t stream) {
+  const long long n_blocks = rows * (n / kQBlock);
+  if (n_blocks == 0) return (int)cudaSuccess;
+  dequantize_packed_kernel<<<grid_for(n_blocks), kThreads, 0, stream>>>(
+      q, scales, x, n_blocks);
   return (int)cudaGetLastError();
 }
 
@@ -89,6 +131,20 @@ int quantize_packed_f32(const float* x, int8_t* q, float* scales, int m,
 int quantize_packed_fleet_f32(const float* x, int8_t* q, float* scales, int s,
                               int m, long long n, cudaStream_t stream) {
   return launch(x, q, scales, (long long)s * m, n, stream);
+}
+
+// The inverse: q [m, n] int8 and scales [m, n / 128] f32 -> x [m, n] f32.
+int dequantize_packed_f32(const int8_t* q, const float* scales, float* x,
+                          int m, long long n, cudaStream_t stream) {
+  return launch_dequant(q, scales, x, m, n, stream);
+}
+
+// Its fleet form: q [s, m, n], scales [s, m, n / 128] -> x [s, m, n].  One
+// launch over the s * m rows.
+int dequantize_packed_fleet_f32(const int8_t* q, const float* scales,
+                                float* x, int s, int m, long long n,
+                                cudaStream_t stream) {
+  return launch_dequant(q, scales, x, (long long)s * m, n, stream);
 }
 
 }  // extern "C"

@@ -1,11 +1,13 @@
-"""Int8 per-block quantisation of packed upload buffers.
+"""Int8 per-block quantisation of packed upload buffers, and its inverse.
 
 The paper assumes models are compressed before transmission (§IV-A).  The
 int8 wire carries one f32 scale per ``QBLOCK`` values: ``quantize_packed``
 block-quantises a whole packed [m, N] upload buffer, each client row on
-its own; ``quantize_packed_fleet`` does the same for a fleet's
-[S, m, N] buffer in one launch.  On a CUDA tensor it launches the kernel of
-``csrc/comm_quant.cu``; on a CPU tensor it runs the plain version in
+its own; ``dequantize_packed`` turns (q, scales) back into f32 values, as
+the server of a protocol without a fused int8 aggregation receives them.
+Each has a fleet form (``*_fleet``) for a fleet's [S, m, N] buffer in one
+launch.  On CUDA tensors a wrapper launches its kernel of
+``csrc/comm_quant.cu``; on CPU tensors it runs the plain version in
 ``kernels.ref``.
 """
 from __future__ import annotations
@@ -59,3 +61,39 @@ def quantize_packed_fleet(x: torch.Tensor):
     (of the same kernel, over the S * m rows)."""
     return _quantize('quantize_packed_fleet', 'quantize_packed_fleet_f32', 3,
                      x)
+
+
+def _dequantize(key: str, entry: str, rank: int, q: torch.Tensor,
+                scales: torch.Tensor):
+    if q.ndim != rank:
+        raise ValueError(f'expected a rank-{rank} int8 pack buffer, got '
+                         f'shape {tuple(q.shape)}')
+    n = q.shape[-1]
+    _check_packed(n)
+    lead = tuple(q.shape[:-1])
+    if not backend.is_cuda(q, scales):
+        return ref.dequantize_packed_ref(q, scales)
+    backend.check_operand(q, 'q', torch.int8, lead + (n,), q.device)
+    backend.check_operand(scales, 'scales', torch.float32,
+                          lead + (n // QBLOCK,), q.device)
+    x = torch.empty(lead + (n,), dtype=torch.float32, device=q.device)
+    backend.call(entry, q.device, q.data_ptr(), scales.data_ptr(),
+                 x.data_ptr(), *lead, n)
+    backend.LAUNCHES[key] += 1
+    return x
+
+
+def dequantize_packed(q: torch.Tensor, scales: torch.Tensor):
+    """Inverse of ``quantize_packed``: (q [m, N] int8, scales
+    [m, N / QBLOCK] f32) -> x [m, N] f32, x = q * scale per block, one
+    kernel launch for the whole buffer."""
+    return _dequantize('dequantize_packed', 'dequantize_packed_f32', 2, q,
+                       scales)
+
+
+def dequantize_packed_fleet(q: torch.Tensor, scales: torch.Tensor):
+    """Fleet form: (q [S, m, N], scales [S, m, N / QBLOCK]) -> x [S, m, N]
+    f32, every member's buffer in one launch (of the same kernel, over the
+    S * m rows)."""
+    return _dequantize('dequantize_packed_fleet',
+                       'dequantize_packed_fleet_f32', 3, q, scales)

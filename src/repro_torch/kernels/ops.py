@@ -15,6 +15,9 @@ Two tree-level aggregation paths:
 
 ``safa_compressed_update`` is the int8 wire's server step: two launches
 per round (``quantize_packed``, then ``safa_aggregate_packed_q8``).
+``wire_roundtrip_packed`` is the int8 wire of the protocols without a
+fused aggregation kernel (FedAvg, FedCS): two launches per round
+(``quantize_packed``, then ``dequantize_packed``).
 
 Each has a fleet form (``*_fleet``) over S independent servers: stacked
 models carry [S, m, ...] leaves and globals [S, ...], and each form
@@ -29,6 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.comm_quant import (PACK_TILE, QBLOCK,
+                                            dequantize_packed,
+                                            dequantize_packed_fleet,
                                             quantize_packed,
                                             quantize_packed_fleet)
 from repro_torch.kernels.safa_aggregate import (
@@ -41,6 +46,7 @@ __all__ = ['PackSpec', 'comm_bytes', 'pack_fleet', 'pack_global', 'pack_spec',
            'safa_aggregate_tree_packed', 'safa_aggregate_tree_packed_fleet',
            'safa_compressed_update', 'safa_compressed_update_fleet',
            'tree_keys', 'unpack_fleet', 'unpack_global', 'unpack_stacked',
+           'wire_roundtrip_packed', 'wire_roundtrip_packed_fleet',
            'wire_spec']
 
 
@@ -286,6 +292,32 @@ def safa_compressed_update_fleet(base, trained, cache, global_prev, *,
         completed, weights)
     return (unpack_stacked(ng, spec), unpack_fleet(nl, spec),
             unpack_fleet(nc, spec))
+
+
+def wire_roundtrip_packed(tree, spec: PackSpec = None, *, like=None):
+    """The int8 wire for a whole stacked model dict ([m, ...] leaves) in
+    two launches: pack -> ``quantize_packed`` -> ``dequantize_packed`` ->
+    unpack, so the server sees exactly what a compressed transfer
+    delivers.  ``like`` (a global model dict) fixes the layout; it
+    defaults to the first client's row of ``tree``."""
+    if spec is None:
+        spec = wire_spec(like if like is not None
+                         else {k: v[0] for k, v in tree.items()})
+    _require_f32(spec)
+    q, scales = quantize_packed(pack_stacked(tree, spec))
+    return unpack_stacked(dequantize_packed(q, scales), spec)
+
+
+def wire_roundtrip_packed_fleet(tree, like, spec: PackSpec = None):
+    """Fleet form of ``wire_roundtrip_packed``: [S, m, ...] stacks, every
+    member's uploads through ``quantize_packed_fleet`` and
+    ``dequantize_packed_fleet``, two launches for the whole fleet.  The
+    layout is one member's global's (``like``: the fleet's [S, ...]
+    globals)."""
+    spec = _member_spec(like, spec, wire_spec)
+    _require_f32(spec)
+    q, scales = quantize_packed_fleet(pack_fleet(tree, spec))
+    return unpack_fleet(dequantize_packed_fleet(q, scales), spec)
 
 
 def comm_bytes(tree: dict, quantized: bool, *, layout: str = 'tree') -> int:

@@ -169,12 +169,15 @@ def test_own_init_trains(quickstart):
     (tapi.SafaSpec(), tapi.ExecSpec(schedule='sparse_tier')),
     (tapi.SafaSpec(), tapi.ExecSpec(engine='fleet', schedule='sparse')),
     (tapi.SafaSpec(quantize_uploads=True), tapi.ExecSpec()),
-    (japi.FedAvgSpec(), tapi.ExecSpec()),
+    (tapi.FedAvgSpec(), tapi.ExecSpec(schedule='sparse')),
 ], ids=['sparse', 'sparse_delta', 'sparse_tier', 'fleet', 'quantize_uploads',
         'fedavg'])
 def test_unported_cells_raise(spec, ex):
     with pytest.raises(NotImplementedError, match='ROADMAP queue 1, item'):
         tapi.check_compat(spec, ex)
+    if isinstance(spec, tapi.FedAvgSpec):
+        with pytest.raises(NotImplementedError, match='item 11'):
+            tapi.check_compat(spec, ex)
 
 
 def test_invalid_cells_raise_value_error():

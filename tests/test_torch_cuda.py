@@ -6,11 +6,12 @@ installed:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: caches, locals, q and scales are selects, one multiply or one
-IEEE division, so they match exactly; new_global is a sum taken in
-another order, held to rtol 1e-5 / atol 1e-6.  A fleet kernel runs the
-single-run kernel's code on each member's slices, so it must equal the
-single-run kernel bit for bit on every member.
+Tolerances: caches, locals, q, scales and dequantised values are
+selects, one multiply or one IEEE division, so they match exactly;
+new_global is a sum taken in another order, held to rtol 1e-5 / atol
+1e-6.  A fleet kernel runs the single-run kernel's code on each member's
+slices, so it must equal the single-run kernel bit for bit on every
+member.
 """
 import dataclasses
 
@@ -19,7 +20,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import backend, ref
-from repro_torch.kernels.comm_quant import (quantize_packed,
+from repro_torch.kernels.comm_quant import (dequantize_packed,
+                                            dequantize_packed_fleet,
+                                            quantize_packed,
                                             quantize_packed_fleet)
 from repro_torch.kernels.safa_aggregate import (
     safa_aggregate, safa_aggregate_fleet, safa_aggregate_packed,
@@ -192,6 +195,31 @@ def test_aggregate_q8_fleet_matches_plain_and_single_run(dev, s, m, n):
     assert backend.LAUNCHES['safa_aggregate_packed_q8_fleet'] == 1
 
 
+@pytest.mark.parametrize('m,n', SHAPES)
+def test_dequantize_packed_matches_plain(dev, m, n):
+    x = _inputs(m, n, dev, seed=8)['trained'] * 3
+    x[0, :128] = 0.0
+    q, s = ref.quantize_packed_ref(x)
+    got = dequantize_packed(q, s)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert torch.equal(got, ref.dequantize_packed_ref(q, s))
+    assert backend.LAUNCHES['dequantize_packed'] == 1
+
+
+@pytest.mark.parametrize('s,m,n', FLEET_SHAPES)
+def test_dequantize_packed_fleet_matches_plain_and_single_run(dev, s, m, n):
+    x = _inputs(m, n, dev, seed=9, lead=(s,))['trained'] * 3
+    q, sc = ref.quantize_packed_ref(x)
+    got = dequantize_packed_fleet(q, sc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.dequantize_packed_ref(q, sc))
+    for i in range(s):
+        assert torch.equal(got[i], dequantize_packed(q[i].contiguous(),
+                                                     sc[i].contiguous()))
+    assert backend.LAUNCHES['dequantize_packed_fleet'] == 1
+
+
 SWEEP_CELLS = {
     # exec fields -> {fleet-engine launch counter: launches per round}
     'packed': (dict(use_kernel='packed'),
@@ -203,6 +231,15 @@ SWEEP_CELLS = {
 }
 
 
+def _regression(spec):
+    from repro_torch.data import make_regression, partition
+    from repro_torch.data.tasks import regression_task
+    x, y = make_regression()
+    return regression_task(partition(x, y,
+                                     spec.build().partition_sizes, 5,
+                                     seed=1), lr=1e-3, epochs=3)
+
+
 @pytest.mark.parametrize('cell', sorted(SWEEP_CELLS))
 def test_run_sweep_on_the_card(dev, cell):
     """``run_sweep`` on the card, both engines: the fleet launches each of
@@ -212,14 +249,10 @@ def test_run_sweep_on_the_card(dev, cell):
     Fleet and sequential train the same replicas in batches of other
     sizes, so they are held to atol 1e-5, not bit for bit."""
     from repro_torch import api
-    from repro_torch.data import make_regression, partition
-    from repro_torch.data.tasks import regression_task
     from repro_torch.fedsim import EnvSpec
     spec = EnvSpec(m=5, crash_prob=0.3, dataset_size=506, batch_size=5,
                    epochs=3, t_lim=830.0, seed=3)
-    x, y = make_regression()
-    task = regression_task(partition(x, y, spec.build().partition_sizes, 5,
-                                     seed=1), lr=1e-3, epochs=3)
+    task = _regression(spec)
     members = [api.SweepMember(env=spec, seed=s,
                                overrides={'crash_prob': cr, 'draw_seed': s})
                for s, cr in enumerate((0.1, 0.3, 0.5))]
@@ -245,6 +278,72 @@ def test_run_sweep_on_the_card(dev, cell):
         assert timing(f.records) == timing(q.records)
         for k, v in q.final_global.items():
             assert v.is_cuda
+            torch.testing.assert_close(f.final_global[k], v, rtol=0,
+                                       atol=1e-5)
+
+
+#: baseline cell -> (protocol name, exec fields, launches per round of the
+#: single-run kernels; the fleet launches the ``*_fleet`` ones)
+BASELINE_CELLS = {
+    'fedavg': ('fedavg', {}, {}),
+    'fedavg-int8': ('fedavg', dict(wire='int8'),
+                    {'quantize_packed': 1, 'dequantize_packed': 1}),
+    'fedcs': ('fedcs', {}, {}),
+    'fedcs-int8': ('fedcs', dict(wire='int8'),
+                   {'quantize_packed': 1, 'dequantize_packed': 1}),
+    'local': ('local', {}, {}),
+    'fedasync': ('fedasync', {}, {}),
+}
+
+
+@pytest.mark.parametrize('cell', sorted(BASELINE_CELLS))
+def test_baseline_run_and_sweep_on_the_card(dev, cell):
+    """Each baseline on the card through ``run()`` (scan and loop) and
+    ``run_sweep()`` (fleet and sequential): the int8 wire launches its two
+    kernels once per round (the fleet their fleet forms, for all members
+    at once); scan equals loop bit for bit (the same calls in the same
+    order); fleet and sequential train the same replicas in batches of
+    other sizes, so they are held to atol 1e-5."""
+    from repro_torch import api
+    from repro_torch.fedsim import EnvSpec
+    spec = EnvSpec(m=5, crash_prob=0.3, dataset_size=506, batch_size=5,
+                   epochs=3, t_lim=830.0, seed=3)
+    task = _regression(spec)
+    name, ex, per_round = BASELINE_CELLS[cell]
+    rounds = 4
+    runs = {}
+    for engine in ('scan', 'loop'):
+        backend.reset_launches()
+        runs[engine] = api.Experiment(
+            task, spec, api.spec(name),
+            api.ExecSpec(engine=engine, eval_every=2, **ex),
+            rounds=rounds).compile().run()
+        torch.cuda.synchronize()
+        assert {k: v for k, v in backend.LAUNCHES.items() if v} == \
+            {k: n * rounds for k, n in per_round.items()}
+    for k, v in runs['scan'].final_global.items():
+        assert v.is_cuda and torch.equal(v, runs['loop'].final_global[k])
+    losses = [e['loss'] for _, e in runs['scan'].evals()]
+    assert all(np.isfinite(losses))
+    members = [api.SweepMember(env=spec, seed=s,
+                               overrides={'crash_prob': cr, 'draw_seed': s})
+               for s, cr in enumerate((0.1, 0.3, 0.5))]
+    hists = {}
+    for engine in ('fleet', 'sequential'):
+        backend.reset_launches()
+        hists[engine] = api.Experiment(
+            task, None, api.spec(name),
+            api.ExecSpec(engine=engine, eval_every=2, **ex),
+            rounds=rounds).compile().run_sweep(members)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in backend.LAUNCHES.items() if v}
+        if engine == 'fleet':
+            assert counts == {k + '_fleet': n * rounds
+                              for k, n in per_round.items()}
+        else:
+            assert counts == {k: n * rounds * 3 for k, n in per_round.items()}
+    for f, q in zip(hists['fleet'], hists['sequential']):
+        for k, v in q.final_global.items():
             torch.testing.assert_close(f.final_global[k], v, rtol=0,
                                        atol=1e-5)
 

@@ -15,7 +15,10 @@ Phases, each of which must pass:
              single-run kernel on every member's slices; times from CUDA
              events over warm launches, beside the least time the card
              could take: the bytes these inputs' masks need (Eq. 6-8
-             selects whole client rows) over the memory rate.
+             selects whole client rows; the weighted merge reads only
+             rows of non-zero weight) over the memory rate, and, where
+             one PyTorch call computes the same function (the weighted
+             merge: ``torch.addmv``, a fleet's ``torch.bmm``), its time.
 3. main    — the paper's Task 2 CNN at full width (m = 100, 24 batches of
              40, 5 epochs) through ``Experiment(...).compile().run()``,
              with ``use_kernel='packed'`` and with ``wire='int8'``; each
@@ -37,6 +40,23 @@ Phases, each of which must pass:
              once per round).  Every run's eval loss must fall below its
              initial model's, and FedAvg int8 and f32 must agree within
              what the int8 wire's rounding allows.
+6. weighted — the staleness-adaptive family on the same task at full
+             width, crash probability 0.3, 2 rounds each: SEAFL with
+             ``use_kernel='packed'`` (kernel 10 once per round), on the
+             int8 wire with ``'packed'`` (kernels 2, 4 and 10 once per
+             round) and plain, CSAFL with 2 clusters ``'packed'``, and a
+             4-member mixed-scheme sweep (SEAFL, SEAFL with the loss term,
+             CSAFL, the folded FedAsync; crash rates 0.1 / 0.3 / 0.5 / 0.7)
+             with ``'packed'`` (kernel 10's fleet form once per round) and
+             plain.  Every eval loss must fall below the initial model's,
+             packed and plain agree within 1e-5 per member, and the folded
+             FedAsync agrees with the sequential FedAsync engine within
+             rtol 2e-5: elementwise at one server step on the same
+             uploads, and over a 2-round run on the member's env and init
+             against the model's largest weight (and in its eval loss).
+             The phase trains with deterministic cuDNN: by default the
+             convolutions' weight gradients vary from run to run by more
+             than these tolerances.
 
 The line before the last is a JSON object of kernel records; the last
 line is ``{"ok": true, "device": {...}}``.  Without a visible card, or
@@ -44,6 +64,7 @@ run from a directory that holds no ``src/repro_torch``, the script prints
 no result and exits non-zero.
 """
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -57,6 +78,11 @@ M = 100                 # clients on the main path (PAPER_TASKS['task2_cnn'])
 S = 4                   # fleet members
 FLEET_CRASH = (0.1, 0.3, 0.5, 0.7)   # member s's crash probability
 BASE_ROUNDS = 2         # rounds per baseline run and baseline sweep
+WEIGHTED_ROUNDS = 2     # rounds per weighted-merge run and sweep
+#: the weighted sweep's members: (protocol-field overrides, crash rate)
+MIXED = (({}, 0.1), ({'use_loss': True}, 0.3),
+         ({'scheme': 'csafl', 'clusters': 2}, 0.5),
+         ({'scheme': 'fedasync'}, 0.7))
 WARM, TIMED = 5, 30     # kernel launches before and inside the timed window
 #: the H100 SXM's published device-memory rate (bytes/s) and float32
 #: CUDA-core rate (FLOP/s), at its 700 W limit; the card's name and power
@@ -91,13 +117,13 @@ def _time_ms(torch, fn, warm=WARM, timed=TIMED) -> float:
 
 
 def _record(name, source, replaces, err, ms, plain_ms, nbytes, flops,
-            dense_bytes):
+            dense_bytes, library_ms=None):
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
     return {'name': name, 'route': 'cuda', 'source': source,
             'replaces': replaces, 'launches': None, 'max_abs_err': err,
             'ms': ms, 'plain_ms': plain_ms, 'bound_ms': max(t_bytes, t_ops),
             'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
-            'library_ms': None, 'bytes': nbytes, 'flops': flops,
+            'library_ms': library_ms, 'bytes': nbytes, 'flops': flops,
             'dense_bytes': dense_bytes}
 
 
@@ -256,7 +282,10 @@ def kernel_phase(torch, n: int, fails: list) -> list:
 
 def _print_records(recs):
     for r in recs:
-        print(f"kernel {r['name']}: {r['ms']} ms (plain {r['plain_ms']} ms), "
+        lib = '' if r['library_ms'] is None else \
+            f", one PyTorch call {r['library_ms']} ms"
+        print(f"kernel {r['name']}: {r['ms']} ms (plain {r['plain_ms']} ms"
+              f"{lib}), "
               f"bound {r['bound_ms']} ms by {r['bound_by']} "
               f"({r['bytes'] / 1e6:.1f} MB for these masks; every row read "
               f"and written: {r['dense_bytes'] / 1e6:.1f} MB, "
@@ -413,6 +442,99 @@ def fleet_kernel_phase(torch, n: int, fails: list) -> list:
                      completed=host['completed']),
         3 * mn, S * (17 * M * n + 4 * (M * n // 128) + 8 * n + 8 * M)))
 
+    _print_records(recs)
+    return recs
+
+
+def merge_kernel_phase(torch, n: int, fails: list) -> list:
+    """Kernel 10 (the weighted merge) at m = 100, N = n, and its fleet
+    form at S = 4, on seeded weight rows that are zero off a seeded commit
+    mask and sum to 0.6: against the plain version, the fleet form bit for
+    bit against the single-run kernel on every member, and each beside
+    one PyTorch call that computes the same function (timed here only;
+    the port never calls it)."""
+    import numpy as np
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.weighted_merge import (
+        weighted_merge_packed, weighted_merge_packed_fleet)
+    dev = torch.device('cuda')
+    rng = np.random.default_rng(2)
+    commit = rng.random((S, M)) < 0.7
+    w = rng.random((S, M)) * commit
+    w = 0.6 * w / w.sum(1, keepdims=True)
+    wrow = torch.as_tensor(w, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    trained = torch.randn((S, M, n), generator=gen, device=dev)
+    glob = torch.randn((S, n), generator=gen, device=dev)
+    recs = []
+
+    def check(cond, what):
+        if not cond:
+            fails.append(what)
+            print(f'FAIL merge kernels: {what}')
+
+    def global_err(got, want, what):
+        err = (got - want).abs().max().item()
+        check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
+              f'{what} beyond rtol 1e-5 / atol 1e-6 (max abs err '
+              f'{err:.3e})')
+        return err
+
+    def merge_bytes(rows):
+        """Weighted rows read, global read, new global written, weights."""
+        return 4 * (int(rows.sum()) * n + 2 * n + M)
+
+    # -- weighted_merge_packed (one run: member 0's operands) -------------
+    t0, g0, w0 = trained[0], glob[0], wrow[0]
+    want = ref.weighted_merge_ref(t0, g0, w0)
+    got = weighted_merge_packed(t0, g0, w0)
+    torch.cuda.synchronize()
+    err = global_err(got, want, 'weighted_merge_packed')
+    ms = _time_ms(torch, lambda: weighted_merge_packed(t0, g0, w0))
+    plain = _time_ms(torch, lambda: ref.weighted_merge_ref(t0, g0, w0),
+                     warm=2, timed=10)
+    beta = 1.0 - w0.sum().item()        # outside the timed window
+
+    def addmv():
+        return torch.addmv(g0, t0.t(), w0, beta=beta, alpha=1.0)
+    global_err(addmv(), want, 'torch.addmv (the yardstick)')
+    lib = _time_ms(torch, addmv)
+    nnz = int(commit[0].sum())
+    recs.append(_record(
+        'weighted_merge_packed', 'src/repro_torch/csrc/weighted_merge.cu',
+        'src/repro/kernels/ops.py:453', err, ms, plain, merge_bytes(commit[0]),
+        2 * (nnz + 1) * n, 4 * ((M + 2) * n + M), library_ms=lib))
+
+    # -- weighted_merge_packed_fleet -----------------------------------------
+    want = ref.weighted_merge_ref(trained, glob, wrow)
+    got = weighted_merge_packed_fleet(trained, glob, wrow)
+    torch.cuda.synchronize()
+    err = global_err(got, want, 'weighted_merge_packed_fleet')
+    check(all(torch.equal(got[s], weighted_merge_packed(trained[s], glob[s],
+                                                        wrow[s]))
+              for s in range(S)),
+          'weighted_merge_packed_fleet differs from the single-run kernel '
+          'on a member')
+    ms = _time_ms(torch, lambda: weighted_merge_packed_fleet(trained, glob,
+                                                             wrow))
+    plain = _time_ms(torch, lambda: ref.weighted_merge_ref(trained, glob,
+                                                           wrow),
+                     warm=2, timed=10)
+    # the yardstick: one bmm of [w, 1 - sum(w)] against the stack with the
+    # global row appended, both built outside the timed window
+    a = torch.cat([wrow, 1.0 - wrow.sum(1, keepdim=True)], 1)[:, None]
+    b = torch.cat([trained, glob[:, None]], 1)
+    global_err(torch.bmm(a, b)[:, 0], want, 'torch.bmm (the yardstick)')
+    lib = _time_ms(torch, lambda: torch.bmm(a, b))
+    del a, b
+    recs.append(_record(
+        'weighted_merge_packed_fleet',
+        'src/repro_torch/csrc/weighted_merge.cu',
+        'src/repro/kernels/ops.py:453', err, ms, plain,
+        sum(merge_bytes(commit[s]) for s in range(S)),
+        2 * (int(commit.sum()) + S) * n, S * 4 * ((M + 2) * n + M),
+        library_ms=lib))
     _print_records(recs)
     return recs
 
@@ -603,16 +725,63 @@ def fleet_path_phase(torch, spec, task, fails: list) -> dict:
     return launches
 
 
+def _drive(torch, task, label, steps, kernels, rounds, go, fleet, fails):
+    """Run ``go()`` once, every launch counter set to 0 just before, with
+    the task's local training and the ``core.protocol`` server steps named
+    in ``steps`` timed per call; print the per-round seconds and the
+    launches, and fail unless each kernel in ``kernels`` launched once per
+    round and no other kernel launched.  Returns (go's result, counts)."""
+    from repro_torch.core import protocol
+    from repro_torch.kernels import backend
+
+    originals = {k: getattr(protocol, k) for k in steps}
+    train_s, server_s = [], []
+    attr = 'local_train_fleet' if fleet else 'local_train'
+    setattr(task, attr, _timed(torch, getattr(task, attr), train_s))
+    for k in steps:
+        setattr(protocol, k, _timed(torch, originals[k], server_s))
+    try:
+        backend.reset_launches()
+        t = time.perf_counter()
+        out = go()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = dict(backend.LAUNCHES)
+    finally:
+        for k in steps:
+            setattr(protocol, k, originals[k])
+        delattr(task, attr)
+    print(f'{label}: {wall:.2f} s for {rounds} rounds; per round train '
+          f'{[round(v, 4) for v in train_s]} s, server step '
+          f'{[round(v, 4) for v in server_s]} s; launches '
+          f'{ {k: v for k, v in counts.items() if v} }')
+    for k in kernels:
+        if counts[k] != rounds:
+            fails.append(f'{label}: {k} launched {counts[k]} times in '
+                         f'{rounds} rounds')
+    others = {k: v for k, v in counts.items() if k not in kernels and v}
+    if others:
+        fails.append(f'{label}: unexpected launches {others}')
+    return out, counts
+
+
+def _check_losses(label, losses, init, fails):
+    print(f'{label}: eval losses {losses}')
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < init:
+        fails.append(f'{label}: eval losses {losses} not finite and below '
+                     f'the initial {init}')
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max((a[k] - b[k]).abs().max().item() for k in b)
+
+
 def baselines_phase(torch, spec, task, fails: list) -> dict:
     """The paper's baselines on Task 2's CNN at full width through the
     port's entry points: single runs of every baseline cell, then a
     4-member FedAvg int8 sweep; returns the launch counts of the
     dequantisation kernels in the runs that drive them."""
-    import numpy as np
-
     from repro_torch import api
-    from repro_torch.core import protocol
-    from repro_torch.kernels import backend
 
     init_loss = [task.evaluate(task.init_global(s))['loss']
                  for s in range(S)]
@@ -626,49 +795,19 @@ def baselines_phase(torch, spec, task, fails: list) -> dict:
             ('fedasync', api.FedAsyncSpec(), 'f32', ())]
     # the server step of each protocol, timed where its round calls it
     steps = ('fedavg_server_step', 'fedasync_merge')
-    originals = {k: getattr(protocol, k) for k in steps}
-    train_s, server_s = [], []
     launches = {'dequantize_packed': 0, 'dequantize_packed_fleet': 0}
     finals = {}
 
     def drive(name, kernels, rounds, go, fleet):
-        train_s.clear()
-        server_s.clear()
-        attr = 'local_train_fleet' if fleet else 'local_train'
-        setattr(task, attr, _timed(torch, getattr(task, attr), train_s))
-        for k in steps:
-            setattr(protocol, k, _timed(torch, originals[k], server_s))
-        try:
-            backend.reset_launches()
-            t = time.perf_counter()
-            out = go()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-            counts = dict(backend.LAUNCHES)
-        finally:
-            for k in steps:
-                setattr(protocol, k, originals[k])
-            delattr(task, attr)
-        print(f'baselines[{name}]: {wall:.2f} s for {rounds} rounds; per '
-              f'round train {[round(v, 4) for v in train_s]} s, server step '
-              f'{[round(v, 4) for v in server_s]} s; launches '
-              f'{ {k: v for k, v in counts.items() if v} }')
+        out, counts = _drive(torch, task, f'baselines[{name}]', steps,
+                             kernels, rounds, go, fleet, fails)
         for k in kernels:
-            if counts[k] != rounds:
-                fails.append(f'baselines {name}: {k} launched {counts[k]} '
-                             f'times in {rounds} rounds')
             if k in launches:
                 launches[k] += counts[k]
-        others = {k: v for k, v in counts.items() if k not in kernels and v}
-        if others:
-            fails.append(f'baselines {name}: unexpected launches {others}')
         return out
 
     def check_losses(name, losses, init):
-        print(f'baselines[{name}]: eval losses {losses}')
-        if not all(np.isfinite(v) for v in losses) or not losses[-1] < init:
-            fails.append(f'baselines {name}: eval losses {losses} not finite '
-                         f'and below the initial {init}')
+        _check_losses(f'baselines[{name}]', losses, init, fails)
 
     for name, sp, wire_kind, kernels in runs:
         exp = api.Experiment(task, spec, sp,
@@ -686,8 +825,7 @@ def baselines_phase(torch, spec, task, fails: list) -> dict:
     # carries it on.  Bound: one step of the largest weight per round.
     amax = max(v.abs().max().item() for v in finals['fedavg'].values())
     bound = BASE_ROUNDS * amax / 127
-    diff = max((finals['fedavg-int8'][k] - finals['fedavg'][k])
-               .abs().max().item() for k in finals['fedavg'])
+    diff = _max_diff(finals['fedavg-int8'], finals['fedavg'])
     print(f'baselines: FedAvg int8 vs f32 final_global max abs diff '
           f'{diff:.3e}, bound {bound:.3e} (rounds x max |w| / 127)')
     if not diff <= bound:
@@ -706,6 +844,150 @@ def baselines_phase(torch, spec, task, fails: list) -> dict:
     for s, h in enumerate(hists):
         check_losses(f'fedavg-int8 sweep member {s}',
                      [e['loss'] for _, e in h.evals()], init_loss[s])
+    return launches
+
+
+def weighted_phase(torch, spec, task, fails: list) -> dict:
+    """The staleness-adaptive family on Task 2's CNN at full width through
+    the port's entry points: SEAFL packed, int8 + packed and plain, CSAFL
+    packed, a 4-member mixed-scheme sweep packed and plain, and the folded
+    FedAsync member against the sequential FedAsync engine; returns the
+    launch counts of kernel 10's two forms in the runs that drive them."""
+    # the comparisons below would otherwise measure cuDNN's run-to-run
+    # noise (its default weight-gradient algorithms add with atomics)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _weighted_runs(torch, spec, task, fails)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _weighted_runs(torch, spec, task, fails: list) -> dict:
+    from repro_torch import api
+    from repro_torch.core import agg_schemes, protocol
+
+    rounds = WEIGHTED_ROUNDS
+    init_loss = [task.evaluate(task.init_global(s))['loss']
+                 for s in range(S)]
+    print(f'weighted: {_card_line()}; initial eval losses {init_loss}; '
+          f'rounds {rounds}')
+    steps = ('weighted_server_step', 'fedasync_merge')
+    merge = ('weighted_merge_packed',)
+    runs = [('seafl-packed', api.SeaflSpec(), dict(use_kernel='packed'),
+             merge),
+            ('seafl-int8', api.SeaflSpec(),
+             dict(use_kernel='packed', wire='int8'),
+             merge + ('quantize_packed', 'dequantize_packed')),
+            ('seafl-plain', api.SeaflSpec(), {}, ()),
+            ('csafl-packed', api.CsaflSpec(clusters=2),
+             dict(use_kernel='packed'), merge)]
+    launches, finals = {}, {}
+    for name, sp, ex, kernels in runs:
+        exp = api.Experiment(task, spec, sp,
+                             api.ExecSpec(eval_every=rounds, **ex),
+                             rounds=rounds)
+        hist, counts = _drive(torch, task, f'weighted[{name}]', steps,
+                              kernels, rounds, exp.compile().run, False,
+                              fails)
+        launches.setdefault('weighted_merge_packed',
+                            counts['weighted_merge_packed'])
+        _check_losses(f'weighted[{name}]', [e['loss'] for _, e in
+                                            hist.evals()],
+                      init_loss[0], fails)
+        finals[name] = hist.final_global
+    diff = _max_diff(finals['seafl-packed'], finals['seafl-plain'])
+    print(f'weighted: SEAFL packed vs plain final_global max abs diff '
+          f'{diff:.3e}')
+    if not diff <= 1e-5:
+        fails.append(f'weighted: SEAFL packed vs plain differ by {diff:.3e}')
+
+    members = [api.SweepMember(env=spec, seed=s,
+                               overrides=dict(ov, crash_prob=cr))
+               for s, (ov, cr) in enumerate(MIXED)]
+    sweeps = {}
+    for name, ex, kernels in (
+            ('packed', dict(use_kernel='packed'),
+             ('weighted_merge_packed_fleet',)),
+            ('plain', {}, ())):
+        exp = api.Experiment(task, None, api.SeaflSpec(),
+                             api.ExecSpec(eval_every=rounds, **ex),
+                             rounds=rounds)
+        hists, counts = _drive(torch, task, f'weighted sweep[{name}]', steps,
+                               kernels, rounds,
+                               lambda: exp.compile().run_sweep(members),
+                               True, fails)
+        if kernels:
+            launches[kernels[0]] = counts[kernels[0]]
+        for s, h in enumerate(hists):
+            _check_losses(f'weighted sweep[{name}] member {s}',
+                          [e['loss'] for _, e in h.evals()], init_loss[s],
+                          fails)
+        sweeps[name] = [h.final_global for h in hists]
+    diffs = [_max_diff(p, q) for p, q in zip(sweeps['packed'],
+                                             sweeps['plain'])]
+    print(f'weighted: sweep packed vs plain final_global max abs diff per '
+          f'member {diffs}')
+    if not max(diffs) <= 1e-5:
+        fails.append(f'weighted: sweep packed vs plain differ by {diffs}')
+
+    # the fold at one server step, where the JAX package's tolerance holds
+    # elementwise: the folded FedAsync member's first-round row (kernel 10)
+    # and the sequential chain's merges of the same uploads
+    folded = members[-1]
+    env = spec.replace(crash_prob=MIXED[-1][1])
+    dev = torch.device('cuda')
+    fold = agg_schemes.precompute_weighted_schedule(
+        env.build(), rounds=1, scheme='fedasync').to_device(dev)
+    chain = agg_schemes.precompute_async_schedule(env.build(),
+                                                  rounds=1).to_device(dev)
+    g = task.init_global(folded.seed)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    uploads = {k: v + 0.01 * torch.randn((spec.m,) + tuple(v.shape),
+                                         generator=gen, device=dev)
+               for k, v in g.items()}
+    got = protocol.weighted_merge(g, uploads, wrow=fold.wrow[0],
+                                  use_kernel='packed')
+    want = protocol.fedasync_merge(g, uploads, order=chain.order[0],
+                                   alphas=chain.alphas[0])
+    bad = [k for k in want if not torch.allclose(got[k], want[k], rtol=2e-5,
+                                                 atol=1e-7)]
+    print(f'weighted: one folded server step vs the sequential chain: max '
+          f'abs diff {_max_diff(got, want):.3e}')
+    if bad:
+        fails.append(f'weighted: the folded merge beyond rtol 2e-5 of the '
+                     f'sequential chain in {bad}')
+
+    # and over a run, against the sequential FedAsync engine on the
+    # member's env and init: both through the single-run training (the
+    # fleet trains its replicas in batches of another size), so that they
+    # differ by the fold's rounding as training carries it on
+    seq = api.Experiment(task, env, api.FedAsyncSpec(alpha=folded.alpha,
+                                                     staleness_exp=folded
+                                                     .staleness_exp),
+                         api.ExecSpec(eval_every=rounds), rounds=rounds,
+                         seed=folded.seed)
+    ref, _ = _drive(torch, task, 'weighted[fedasync sequential]', steps, (),
+                    rounds, seq.compile().run, False, fails)
+    exp = api.Experiment(task, None, api.SeaflSpec(),
+                         api.ExecSpec(engine='sequential', eval_every=rounds,
+                                      use_kernel='packed'), rounds=rounds)
+    (hist,), _ = _drive(torch, task, 'weighted[fedasync folded]', steps,
+                        merge, rounds,
+                        lambda: exp.compile().run_sweep([folded]), False,
+                        fails)
+    diff = _max_diff(hist.final_global, ref.final_global)
+    scale = max(v.abs().max().item() for v in ref.final_global.values())
+    losses = [[e['loss'] for _, e in h.evals()] for h in (hist, ref)]
+    fleet_diff = _max_diff(sweeps['packed'][-1], ref.final_global)
+    print(f'weighted: folded vs sequential FedAsync final_global max abs '
+          f'diff {diff:.3e}, bound 2e-5 x max |w| = {2e-5 * scale:.3e} (the '
+          f'fleet member: {fleet_diff:.3e}); eval losses {losses[0]} vs '
+          f'{losses[1]}')
+    if not (diff <= 2e-5 * scale
+            and math.isclose(losses[0][-1], losses[1][-1], rel_tol=2e-5)):
+        fails.append(f'weighted: folded FedAsync beyond rtol 2e-5 of the '
+                     f'sequential engine ({diff:.3e}; losses {losses})')
     return launches
 
 
@@ -780,7 +1062,8 @@ def main() -> int:
 
     fails = []
     n = ops.wire_spec(_cnn_init(torch.Generator().manual_seed(0))).n_padded
-    recs = kernel_phase(torch, n, fails) + fleet_kernel_phase(torch, n, fails)
+    recs = (kernel_phase(torch, n, fails) + fleet_kernel_phase(torch, n, fails)
+            + merge_kernel_phase(torch, n, fails))
     torch.cuda.empty_cache()
     lap('kernels')
     spec, task = cnn_setup(torch)
@@ -790,6 +1073,8 @@ def main() -> int:
     lap('fleet')
     launches.update(baselines_phase(torch, spec, task, fails))
     lap('baselines')
+    launches.update(weighted_phase(torch, spec, task, fails))
+    lap('weighted')
     for r in recs:
         r['launches'] = launches.get(r['name'], 0)
         del r['bytes'], r['flops'], r['dense_bytes']

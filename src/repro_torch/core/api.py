@@ -13,15 +13,19 @@ host precompute -> the engines on the device.
                                      for s in range(4)])
 
 ``PROTOCOLS`` maps each spec type to its ``ProtocolDef``: SAFA
-(``SafaSpec``) and the paper's baselines, FedAvg (``FedAvgSpec``), FedCS
+(``SafaSpec``), the paper's baselines, FedAvg (``FedAvgSpec``), FedCS
 (``FedCSSpec``), fully-local (``LocalSpec``) and FedAsync
-(``FedAsyncSpec``).  The port runs them on the dense schedule:
-``engine`` None/'scan'/'loop' for ``run()`` and None/'fleet'/'sequential'
-for ``run_sweep()``, ``use_kernel`` False/True/'packed' (SAFA) and
-``wire`` 'f32'/'int8' (SAFA, FedAvg, FedCS); ``ExecSpec(numeric=False)``
-gives the timing records alone.  ``check_compat`` raises the JAX
-package's errors for the cells it refuses, and ``NotImplementedError``,
-naming the ROADMAP queue item, for every cell not ported yet.
+(``FedAsyncSpec``), and the staleness-adaptive weighted-merge family,
+SEAFL (``SeaflSpec``) and CSAFL (``CsaflSpec``), whose sweeps may fold
+FedAsync members in (``SweepMember.overrides={'scheme': 'fedasync'}``).
+The port runs them on the dense schedule: ``engine`` None/'scan'/'loop'
+for ``run()`` and None/'fleet'/'sequential' for ``run_sweep()``,
+``use_kernel`` False/True/'packed' (SAFA) or False/'packed' (SEAFL,
+CSAFL) and ``wire`` 'f32'/'int8' (SAFA, FedAvg, FedCS, SEAFL, CSAFL);
+``ExecSpec(numeric=False)`` gives the timing records alone.
+``check_compat`` raises the JAX package's errors for the cells it
+refuses, and ``NotImplementedError``, naming the ROADMAP queue item, for
+every cell not ported yet.
 
 ``Experiment`` takes ``device=`` (default ``'cuda'``; it raises without a
 card) and ``init_params=``: a param dict to start from, or a callable
@@ -41,9 +45,10 @@ import torch
 from repro_torch import fedsim
 from repro_torch.convert import params_from_jax
 from repro_torch.core import agg_schemes, federation, protocol, schedules
-from repro_torch.core.agg_schemes import STALENESS_FNS
+from repro_torch.core.agg_schemes import STALENESS_FNS, CsaflSpec, SeaflSpec
 from repro_torch.core.federation import Task
-from repro_torch.core.schedules import History, RoundRecord, SweepMember
+from repro_torch.core.schedules import (History, ProtocolSpec, RoundRecord,
+                                        SweepMember)
 from repro_torch.kernels.backend import resolve_device
 
 __all__ = [
@@ -58,12 +63,6 @@ __all__ = [
 # ---------------------------------------------------------------------------
 # Specs
 # ---------------------------------------------------------------------------
-
-@dataclasses.dataclass(frozen=True)
-class ProtocolSpec:
-    """Base class for protocol specs: protocol-semantic fields only —
-    execution knobs live in ``ExecSpec``."""
-
 
 @dataclasses.dataclass(frozen=True)
 class SafaSpec(ProtocolSpec):
@@ -126,10 +125,11 @@ class ExecSpec:
     resolves to ``'fleet'``: all S members in one round body, one launch
     of each kernel per round for the whole fleet; ``'sequential'`` runs
     the members one after another through the scan engine.
-    ``use_kernel`` routes Eq. 6-8 through the fused CUDA kernel (``True``
-    per leaf, ``'packed'`` once per round; SAFA only); ``wire='int8'``
+    ``use_kernel`` routes the server aggregation through its CUDA kernel:
+    SAFA's Eq. 6-8 (``True`` per leaf, ``'packed'`` once per round), the
+    SEAFL/CSAFL weighted merge (``'packed'`` only); ``wire='int8'``
     sends the uploads over the int8 wire (two kernels per round; SAFA,
-    FedAvg and FedCS).  ``numeric=False``
+    FedAvg, FedCS, SEAFL and CSAFL).  ``numeric=False``
     runs the host event process alone (timing records, no model, no
     task).  Only ``schedule='dense'`` is ported; the field names the JAX
     package's sparse schedules so that they are refused by name."""
@@ -201,22 +201,23 @@ class ProtocolDef:
     finish_segment: Optional[Callable] = None
     uses_cache: bool = False
     supports_wire: bool = False
-    supports_kernel: bool = False
+    #: fused-aggregation kernel support: ``False`` (no kernel), ``True``
+    #: (the per-leaf kernel and the packed one), or ``'packed'``: the
+    #: protocol's merge exists on pack buffers only, so ``use_kernel``
+    #: takes False or 'packed' but never True (the weighted-merge family)
+    supports_kernel: Any = False
     #: the schedules besides ``'dense'`` the JAX package runs this
     #: protocol on; the port refuses them by ROADMAP item (11, 12)
     sparse_forms: tuple = ()
     #: leftover ``SweepMember.overrides`` keys are protocol-spec fields
-    #: of the member's precompute (FedAsync); else they are refused at
-    #: sweep resolution
+    #: of the member's precompute (the staleness-adaptive family); else
+    #: they are refused at sweep resolution
     spec_overrides: bool = False
 
 
 #: spec type -> ProtocolDef: the single source of protocol dispatch
 PROTOCOLS: dict = {}
 _BY_NAME: dict = {}
-#: protocols of the JAX package that the port does not run yet
-_UNPORTED = {'seafl': '10 (aggregation family)',
-             'csafl': '10 (aggregation family)'}
 
 
 def register(pdef: ProtocolDef) -> ProtocolDef:
@@ -233,8 +234,6 @@ def register(pdef: ProtocolDef) -> ProtocolDef:
 
 def spec(name: str, **fields) -> ProtocolSpec:
     """Build a protocol spec by registry name ('safa', 'fedavg', ...)."""
-    if name in _UNPORTED:
-        raise _not_ported(f'protocol {name!r}', _UNPORTED[name])
     if name not in _BY_NAME:
         raise ValueError(
             f'unknown proto {name!r} (want one of {sorted(_BY_NAME)})')
@@ -278,6 +277,10 @@ def check_compat(protocol_spec: ProtocolSpec,
         raise ValueError(
             f'protocol {pdef.name!r} has no fused aggregation kernel; '
             f'use_kernel applies to {kerneled} only')
+    if ex.use_kernel is True and pdef.supports_kernel == 'packed':
+        raise ValueError(
+            f'protocol {pdef.name!r} aggregates on pack buffers only (no '
+            f"leaf-wise kernel form); use_kernel takes False or 'packed'")
     fn = getattr(protocol_spec, 'staleness_fn', None)
     if fn is not None and fn not in STALENESS_FNS:
         raise ValueError(
@@ -290,6 +293,9 @@ def check_compat(protocol_spec: ProtocolSpec,
     if getattr(protocol_spec, 'hinge_a', 1.0) <= 0:
         raise ValueError(
             f'hinge_a must be > 0, got {protocol_spec.hinge_a}')
+    if getattr(protocol_spec, 'clusters', 1) < 1:
+        raise ValueError(
+            f'clusters must be >= 1, got {protocol_spec.clusters}')
     quantize_uploads = getattr(protocol_spec, 'quantize_uploads', False)
     if quantize_uploads and ex.wire != 'f32':
         raise ValueError(
@@ -424,9 +430,9 @@ def _resolve_member(mem: SweepMember, pdef: ProtocolDef) -> SweepMember:
     apply the env part to its declarative env, and build the env.
     Env-field overrides (``crash_prob``, ``traces``, ...) need an
     ``fedsim.EnvSpec`` member env; leftover keys must be protocol-spec
-    fields of a ``spec_overrides`` protocol (FedAsync), which its
-    precompute checks, and are refused here otherwise, with the JAX
-    package's messages."""
+    fields of a ``spec_overrides`` protocol (FedAsync, SEAFL, CSAFL),
+    which its precompute checks, and are refused here otherwise, with the
+    JAX package's messages."""
     env = mem.env
     ov = dict(mem.overrides or {})
     env_ov = {k: ov.pop(k) for k in list(ov) if k in _ENV_FIELDS}
@@ -586,6 +592,35 @@ def _fedasync_loop_round(st, sched, i, weights, train_fn, ex, device):
         local_train_fn=train_fn, train_args=(i + 1,))
 
 
+def _weighted_precompute(env, sp, *, rounds, seed):
+    del seed  # the family's event process draws only from the env rng
+    return agg_schemes.precompute_weighted_schedule(
+        env, rounds=rounds, **agg_schemes.weighted_kwargs(sp))
+
+
+def _weighted_fleet_precompute(members, sp, *, rounds):
+    return schedules.WeightedFleetSchedule.stack([
+        agg_schemes.precompute_weighted_schedule(
+            mem.env, rounds=rounds, **agg_schemes.weighted_kwargs(sp, mem))
+        for mem in members])
+
+
+def _weighted_segment(st, seg, weights, train_fn, ex, ctx):
+    del weights  # the merge weights live in the schedule
+    st.global_w, st.local_w = protocol.weighted_run_scan(
+        st.global_w, st.local_w, seg, local_train_fn=train_fn,
+        use_kernel=ex.use_kernel, wire=ex.wire, train_ctx=ctx)
+
+
+def _weighted_loop_round(st, sched, i, weights, train_fn, ex, device):
+    del weights
+    st.global_w, st.local_w = protocol.weighted_round(
+        st.global_w, st.local_w, committed=_put(sched.committed[i], device),
+        wrow=_put(sched.wrow[i], device, torch.float32),
+        local_train_fn=train_fn, train_args=(i + 1,),
+        use_kernel=ex.use_kernel, wire=ex.wire)
+
+
 register(ProtocolDef(
     name='safa', spec_cls=SafaSpec,
     precompute=_safa_precompute,
@@ -622,6 +657,14 @@ register(ProtocolDef(
     fleet_precompute=_fedasync_fleet_precompute,
     segment=_fedasync_segment, loop_round=_fedasync_loop_round,
     spec_overrides=True))
+
+for _name, _cls in (('seafl', SeaflSpec), ('csafl', CsaflSpec)):
+    register(ProtocolDef(
+        name=_name, spec_cls=_cls,
+        precompute=_weighted_precompute,
+        fleet_precompute=_weighted_fleet_precompute,
+        segment=_weighted_segment, loop_round=_weighted_loop_round,
+        supports_wire=True, supports_kernel='packed', spec_overrides=True))
 
 
 # ---------------------------------------------------------------------------

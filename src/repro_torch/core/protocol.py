@@ -1,6 +1,7 @@
 """SAFA numeric protocol algebra (Eq. 3, 6, 7, 8) on stacked client models,
-and the rounds of the paper's baselines (FedAvg/FedCS, fully-local,
-FedAsync).
+the rounds of the paper's baselines (FedAvg/FedCS, fully-local,
+FedAsync), and the weighted-merge round of the staleness-adaptive family
+(SEAFL, CSAFL, folded FedAsync).
 
 Models are flat dicts of tensors; a stacked model carries a leading
 clients dim of size m.  The server's cache (one entry per client) and the
@@ -16,7 +17,8 @@ the single run's.
 ``safa_run_scan`` replays a device-resident segment of precomputed round
 masks, ``safa_round`` is one round of it; each baseline has the same
 pair (``fedavg_run_scan``/``fedavg_round``, ``local_run_scan``/
-``local_only_round``, ``fedasync_run_scan``/``fedasync_round``).  A scan
+``local_only_round``, ``fedasync_run_scan``/``fedasync_round``,
+``weighted_run_scan``/``weighted_round``).  A scan
 engine takes a run's segment ([k, m] masks, [k] round indices) or a
 fleet's ([S, k, m], [S, k]); on a fleet's it runs one round of all S
 members at a time, the work of the JAX package's ``*_run_fleet``.  The
@@ -257,6 +259,17 @@ class AsyncSchedule(NamedTuple):
     fleet_segment = _fleet_segment
 
 
+class WeightedSchedule(NamedTuple):
+    """Weighted-merge per-round schedule, stacked [k, m] (a fleet's
+    [S, k, m]): the commit mask and the precomputed per-client merge
+    weights (0 for non-commits)."""
+    committed: Any
+    wrow: Any
+    round_idx: Any
+    segment = _segment
+    fleet_segment = _fleet_segment
+
+
 def _rounds(schedule, train_ctx=None):
     """(row, train_args) for every round of a device-resident segment.  A
     fleet's segment (told apart by its [S, k] round indices) is made
@@ -335,6 +348,24 @@ def fedasync_run_scan(global_w, local_w, schedule: AsyncSchedule, *,
         global_w, local_w = fedasync_round(
             global_w, local_w, committed=r.committed, order=r.order,
             alphas=r.alphas, local_train_fn=local_train_fn, train_args=args)
+    return global_w, local_w
+
+
+def weighted_run_scan(global_w, local_w, schedule: WeightedSchedule, *,
+                      local_train_fn, use_kernel=False, wire='f32',
+                      train_ctx=None):
+    """Weighted-merge counterpart of ``safa_run_scan``, for a run's
+    segment or a fleet's: the whole aggregation scheme lives in the
+    schedule's weight rows, so every scheme of the staleness-adaptive
+    family (and, on a fleet, any mix of them across members) replays
+    through this one engine.  Under ``use_kernel='packed'`` each round
+    launches the merge kernel once (its fleet form for all S members).
+    Returns (new_global, new_local)."""
+    for r, args in _rounds(schedule, train_ctx):
+        global_w, local_w = weighted_round(
+            global_w, local_w, committed=r.committed, wrow=r.wrow,
+            local_train_fn=local_train_fn, train_args=args,
+            use_kernel=use_kernel, wire=wire)
     return global_w, local_w
 
 
@@ -430,3 +461,81 @@ def fedasync_round(global_w, local_w, *, committed, order, alphas,
     new_global = fedasync_merge(global_w, trained, order=order, alphas=alphas)
     return new_global, masked_select(committed, _tile(new_global, committed),
                                      local_w)
+
+
+# ---------------------------------------------------------------------------
+# Weighted-merge engine: the staleness-adaptive aggregation family
+# ---------------------------------------------------------------------------
+#
+# SEAFL-style adaptive weighting, CSAFL-style per-cluster semi-async
+# aggregation and (through an exact host-side fold of the sequential merge
+# recursion) the FedAsync s(dt) discount family all lower to one schedule
+# representation: a precomputed [rounds, m] weight row ``wrow`` with
+#
+#     new_global = (1 - sum(wrow)) * global + sum_k wrow[k] * trained_k
+#
+# The row is zero off the committed set, so one round body replays every
+# scheme of the family.  Cluster structure (CSAFL) folds in host-side:
+# wrow[k] = alpha_g * what_k, alpha_g being cluster g's mixing
+# coefficient and what_k the intra-cluster weight, so the kernel computes
+# the masked per-cluster sub-aggregates through the weight operand.
+
+def weighted_merge(global_w, trained, *, wrow, use_kernel=False):
+    """One-shot weighted server merge:
+
+        w <- (1 - sum_k wrow_k) w + sum_k wrow_k w'_k
+
+    trained: stacked [(S,) m, ...]; wrow: [(S,) m] f32 effective merge
+    weight per client (0 for non-commits; each row sums to <= 1).
+    ``use_kernel='packed'`` packs the model and launches the merge kernel
+    once (``ops.weighted_merge_tree_packed``, or its fleet form on [S, m]
+    rows).  Returns the post-merge global model."""
+    if use_kernel == 'packed':
+        from repro_torch.kernels import ops as kops
+        merge = kops.weighted_merge_tree_packed_fleet if wrow.ndim == 2 \
+            else kops.weighted_merge_tree_packed
+        return merge(trained, global_w, wrow=wrow)
+    axis = wrow.ndim - 1                # the clients axis
+    w = wrow.float()
+    residual = 1.0 - torch.sum(w, dim=axis)
+
+    def mix(g, t):
+        agg = torch.sum(t.float() * _bmask(w, t), dim=axis)
+        return (_bmask(residual, agg) * g.float() + agg).to(g.dtype)
+    return {k: mix(g, trained[k]) for k, g in global_w.items()}
+
+
+def weighted_server_step(trained, global_w, *, committed, wrow,
+                         use_kernel=False, wire: str = 'f32'):
+    """The weighted-merge server's work after local training, for one run
+    or a fleet ([S, m] masks): ``wire='int8'`` round-trips the uploads
+    through the packed int8 wire (``ops.wire_roundtrip_packed``: two
+    launches) so the server merges what a compressed transfer delivers,
+    then the one-shot merge, then committed clients pull the fresh
+    global.  Non-commits never upload: they keep their un-quantised rows
+    of ``trained``.  Returns (new_global, new_local)."""
+    uploads = trained
+    if wire == 'int8':
+        from repro_torch.kernels import ops as kops
+        uploads = kops.wire_roundtrip_packed_fleet(trained, global_w) \
+            if committed.ndim == 2 \
+            else kops.wire_roundtrip_packed(trained, like=global_w)
+    new_global = weighted_merge(global_w, uploads, wrow=wrow,
+                                use_kernel=use_kernel)
+    return new_global, masked_select(committed, _tile(new_global, committed),
+                                     trained)
+
+
+def weighted_round(global_w, local_w, *, committed, wrow, local_train_fn,
+                   train_args=(), use_kernel=False, wire: str = 'f32'):
+    """One weighted-merge round: every client trains from its local model,
+    crashed or late clients are masked out, the server applies the
+    precomputed weight row in one merge (``weighted_server_step``), and
+    committed clients pull the fresh global model; non-commits keep
+    their stale copy, which is what makes the precomputed staleness
+    meaningful.  Returns (new_global, new_local)."""
+    check_wire(wire)
+    trained = local_train_fn(local_w, *train_args)
+    trained = masked_select(committed, trained, local_w)
+    return weighted_server_step(trained, global_w, committed=committed,
+                                wrow=wrow, use_kernel=use_kernel, wire=wire)

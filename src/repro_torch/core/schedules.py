@@ -1,10 +1,11 @@
-"""Schedule and result containers for the federation layer: per-round
-records, run histories, sweep members, and the precomputed dense mask
-schedules of every protocol (one run's, and a fleet's stacked
-member-major) that the engines replay.  The state machines that produce
-the schedules live in ``repro_torch.core.federation`` (FedAsync's in
-``repro_torch.core.agg_schemes``); the engines that consume them in
-``repro_torch.core.protocol``."""
+"""Spec, schedule and result containers for the federation layer: the
+protocol-spec base class, per-round records, run histories, sweep
+members, and the precomputed dense mask schedules of every protocol (one
+run's, and a fleet's stacked member-major) that the engines replay.  The
+state machines that produce the schedules live in
+``repro_torch.core.federation`` (the FedAsync and weighted-merge
+family's in ``repro_torch.core.agg_schemes``); the engines that consume
+them in ``repro_torch.core.protocol``."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,6 +15,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import protocol
+
+
+@dataclasses.dataclass(frozen=True)
+class ProtocolSpec:
+    """Base class for protocol specs: protocol-semantic fields only;
+    execution knobs live in ``api.ExecSpec``."""
 
 
 @dataclasses.dataclass
@@ -58,14 +65,15 @@ class SweepMember:
     fraction: float = 0.5       # ignored by fedasync (fully asynchronous)
     lag_tolerance: int = 5      # SAFA only
     seed: int = 0               # numeric-init (and sync/local-selection) seed
-    alpha: float = 0.6          # fedasync: base mixing weight
-    staleness_exp: float = 0.5  # fedasync: poly discount exponent
+    alpha: float = 0.6          # fedasync/seafl/csafl: base mixing weight
+    staleness_exp: float = 0.5  # fedasync/seafl/csafl: poly discount exponent
     #: per-member field overrides, split by key at sweep resolution:
     #: ``EnvSpec`` field names (``crash_prob``, ``traces``, ``draw_seed``,
     #: ...) rewrite the member's declarative env; the rest must be
     #: protocol-spec fields of a protocol that takes them (FedAsync:
-    #: ``staleness_fn``, ``hinge_a``/``hinge_b``).  ``None`` == no
-    #: overrides.
+    #: ``staleness_fn``, ``hinge_a``/``hinge_b``; SEAFL/CSAFL also
+    #: ``scheme``, ``use_loss``, ``loss_coef``, ``clusters``).  ``None`` ==
+    #: no overrides.
     overrides: Optional[dict] = None
 
 
@@ -164,6 +172,34 @@ class FedasyncSchedule:
             order=torch.as_tensor(self.order, device=device),
             alphas=torch.as_tensor(self.alphas, dtype=torch.float32,
                                    device=device),
+            round_idx=_round_idx(self.rounds, device))
+
+
+@dataclasses.dataclass
+class WeightedSchedule:
+    """Precomputed weighted-merge event process: [rounds, m] commit masks
+    plus the per-client effective merge weights the one-shot server merge
+    applies each round (``protocol.weighted_round``).
+
+    This is the common lowering of the staleness-adaptive aggregation
+    family (SEAFL adaptive weights, CSAFL per-cluster semi-async
+    aggregation, folded FedAsync discounts): the scheme lives entirely in
+    how ``wrow`` was computed, so every scheme replays through one
+    engine.  Rows are zero off the committed set and sum to at most 1."""
+    committed: np.ndarray       # [rounds, m] bool
+    wrow: np.ndarray            # [rounds, m] float: 0 for non-commits
+    records: list
+    futility: float
+
+    @property
+    def rounds(self) -> int:
+        return self.committed.shape[0]
+
+    def to_device(self, device) -> protocol.WeightedSchedule:
+        return protocol.WeightedSchedule(
+            committed=torch.as_tensor(self.committed, device=device),
+            wrow=torch.as_tensor(self.wrow, dtype=torch.float32,
+                                 device=device),
             round_idx=_round_idx(self.rounds, device))
 
 
@@ -292,4 +328,27 @@ class AsyncFleetSchedule(_FleetStack):
             order=torch.as_tensor(self.order, device=device),
             alphas=torch.as_tensor(self.alphas, dtype=torch.float32,
                                    device=device),
+            round_idx=self._round_idx(device))
+
+
+@dataclasses.dataclass
+class WeightedFleetSchedule(_FleetStack):
+    """Weighted-merge counterpart of ``FleetSchedule``: [S, rounds, m]
+    commit masks and effective merge-weight rows.  The scheme is data
+    (the precomputed ``wrow``), so members of one fleet may replay
+    different schemes of the staleness-adaptive family in one round
+    body."""
+    committed: np.ndarray
+    wrow: np.ndarray
+    records: list
+    futility: np.ndarray
+
+    MASKS = ('committed', 'wrow')
+    _MEMBER_CLS = WeightedSchedule
+
+    def to_device(self, device) -> protocol.WeightedSchedule:
+        return protocol.WeightedSchedule(
+            committed=torch.as_tensor(self.committed, device=device),
+            wrow=torch.as_tensor(self.wrow, dtype=torch.float32,
+                                 device=device),
             round_idx=self._round_idx(device))

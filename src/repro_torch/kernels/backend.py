@@ -37,7 +37,8 @@ LAUNCHES = {'safa_aggregate': 0, 'safa_aggregate_packed': 0,
             'quantize_packed': 0, 'safa_aggregate_packed_q8': 0,
             'safa_aggregate_fleet': 0, 'safa_aggregate_packed_fleet': 0,
             'quantize_packed_fleet': 0, 'safa_aggregate_packed_q8_fleet': 0,
-            'dequantize_packed': 0, 'dequantize_packed_fleet': 0}
+            'dequantize_packed': 0, 'dequantize_packed_fleet': 0,
+            'weighted_merge_packed': 0, 'weighted_merge_packed_fleet': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,6 +57,8 @@ _SIGNATURES = {
                                     _P, _P, _I, _I, _L, _P),
     'dequantize_packed_f32': (_P, _P, _P, _I, _L, _P),
     'dequantize_packed_fleet_f32': (_P, _P, _P, _I, _I, _L, _P),
+    'weighted_merge_f32': (_P, _P, _P, _P, _I, _L, _P),
+    'weighted_merge_fleet_f32': (_P, _P, _P, _P, _I, _I, _L, _P),
 }
 
 _lib = None

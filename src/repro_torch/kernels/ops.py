@@ -16,8 +16,10 @@ Two tree-level aggregation paths:
 ``safa_compressed_update`` is the int8 wire's server step: two launches
 per round (``quantize_packed``, then ``safa_aggregate_packed_q8``).
 ``wire_roundtrip_packed`` is the int8 wire of the protocols without a
-fused aggregation kernel (FedAvg, FedCS): two launches per round
-(``quantize_packed``, then ``dequantize_packed``).
+fused int8 aggregation kernel (FedAvg, FedCS, the weighted-merge family):
+two launches per round (``quantize_packed``, then ``dequantize_packed``).
+``weighted_merge_tree_packed`` is the weighted-merge family's server
+merge: the model packed once, one ``weighted_merge_packed`` launch.
 
 Each has a fleet form (``*_fleet``) over S independent servers: stacked
 models carry [S, m, ...] leaves and globals [S, ...], and each form
@@ -40,12 +42,16 @@ from repro_torch.kernels.safa_aggregate import (
     safa_aggregate, safa_aggregate_fleet, safa_aggregate_packed,
     safa_aggregate_packed_fleet, safa_aggregate_packed_q8,
     safa_aggregate_packed_q8_fleet)
+from repro_torch.kernels.weighted_merge import (weighted_merge_packed,
+                                                weighted_merge_packed_fleet)
 
 __all__ = ['PackSpec', 'comm_bytes', 'pack_fleet', 'pack_global', 'pack_spec',
            'pack_stacked', 'safa_aggregate_tree', 'safa_aggregate_tree_fleet',
            'safa_aggregate_tree_packed', 'safa_aggregate_tree_packed_fleet',
            'safa_compressed_update', 'safa_compressed_update_fleet',
            'tree_keys', 'unpack_fleet', 'unpack_global', 'unpack_stacked',
+           'weighted_merge_packed', 'weighted_merge_packed_fleet',
+           'weighted_merge_tree_packed', 'weighted_merge_tree_packed_fleet',
            'wire_roundtrip_packed', 'wire_roundtrip_packed_fleet',
            'wire_spec']
 
@@ -249,6 +255,37 @@ def safa_aggregate_tree_packed_fleet(cache, trained, global_prev, *, picked,
     ng, nc = safa_aggregate_packed_fleet(pc, pt, pg, picked, undrafted,
                                          deprecated, weights)
     return unpack_stacked(ng, spec), unpack_fleet(nc, spec)
+
+
+# ---------------------------------------------------------------------------
+# Weighted merge: the staleness-adaptive family's server step, one launch
+# ---------------------------------------------------------------------------
+
+def weighted_merge_tree_packed(trained, global_prev, *, wrow,
+                               spec: PackSpec = None):
+    """The weighted merge over a whole model dict in one launch: pack the
+    trained stack ([m, ...] leaves) and the global, run
+    ``weighted_merge_packed`` once, unpack the new global.  ``spec`` may
+    be precomputed by callers that merge every round (the layout depends
+    on the model alone).  Float32 models only."""
+    if spec is None:
+        spec = pack_spec(global_prev)
+    _require_f32(spec)
+    pt = pack_stacked(trained, spec)
+    pg = pack_global(global_prev, spec)
+    return unpack_global(weighted_merge_packed(pt, pg, wrow), spec)
+
+
+def weighted_merge_tree_packed_fleet(trained, global_prev, *, wrow,
+                                     spec: PackSpec = None):
+    """Fleet form of ``weighted_merge_tree_packed``: [S, m, ...] stacks,
+    [S, ...] globals, [S, m] weight rows; all S merges in one launch of
+    ``weighted_merge_packed_fleet``.  ``spec`` is one member's layout."""
+    spec = _member_spec(global_prev, spec, pack_spec)
+    _require_f32(spec)
+    pt = pack_fleet(trained, spec)
+    pg = pack_stacked(global_prev, spec)            # [S, n_padded]
+    return unpack_stacked(weighted_merge_packed_fleet(pt, pg, wrow), spec)
 
 
 # ---------------------------------------------------------------------------

@@ -60,3 +60,13 @@ def safa_aggregate_q8_ref(q, scales, base, cache, global_prev, picked,
     ng, nc = safa_aggregate_ref(cache, trained, global_prev, picked,
                                 undrafted, deprecated, weights)
     return ng, nc, trained
+
+
+def weighted_merge_ref(trained, global_prev, wrow):
+    """The weighted-merge family's server step on [(S,) m, N] rows:
+    (1 - sum(wrow)) * global + sum_k wrow[k] * trained[k], in f32.
+    Returns the new global [(S,) N]."""
+    w = wrow.float()
+    residual = 1.0 - w.sum(dim=-1, keepdim=True)
+    agg = torch.sum(trained.float() * w[..., None], dim=-2)
+    return residual * global_prev.float() + agg

@@ -515,12 +515,11 @@ def test_fedasync_member_overrides(reg):
 # ---------------------------------------------------------------------------
 
 def test_registry_matches_reference_specs():
-    """The port registers the JAX package's protocols but SEAFL and CSAFL
-    (ROADMAP item 10), under the same names, with the same spec fields
-    and defaults."""
+    """The port registers every protocol of the JAX package, under the
+    same names, with the same spec fields, defaults and flags."""
     port = {p.name: p for p in tapi.PROTOCOLS.values()}
     ref = {p.name: p for p in japi.PROTOCOLS.values()}
-    assert set(port) == set(ref) - {'seafl', 'csafl'}
+    assert set(port) == set(ref)
     for name, pdef in port.items():
         fields = [(f.name, f.default)
                   for f in dataclasses.fields(pdef.spec_cls)]
@@ -529,7 +528,7 @@ def test_registry_matches_reference_specs():
         assert pdef.spec_cls.__name__ == ref[name].spec_cls.__name__
         for k in ('uses_cache', 'supports_wire', 'spec_overrides'):
             assert getattr(pdef, k) == getattr(ref[name], k), (name, k)
-        assert bool(pdef.supports_kernel) == bool(ref[name].supports_kernel)
+        assert pdef.supports_kernel == ref[name].supports_kernel, name
     assert [f.name for f in dataclasses.fields(tapi.SweepMember)] == \
         [f.name for f in dataclasses.fields(japi.SweepMember)]
     assert tapi.SweepMember(env=None) == tapi.SweepMember(
@@ -552,8 +551,7 @@ def test_int8_wire_refused_with_reference_message(name):
                    japi.ExecSpec(wire='int8'))
     head = f"protocol {name!r} has no upload-aggregate wire; wire='int8' " \
         f"applies to "
-    assert port == head + 'fedavg/fedcs/safa only'
-    assert ref == head + 'csafl/fedavg/fedcs/safa/seafl only'
+    assert port == ref == head + 'csafl/fedavg/fedcs/safa/seafl only'
 
 
 @pytest.mark.parametrize('use_kernel', [True, 'packed'])
@@ -565,8 +563,7 @@ def test_use_kernel_refused_with_reference_message(name, use_kernel):
                    japi.ExecSpec(use_kernel=use_kernel))
     head = f'protocol {name!r} has no fused aggregation kernel; ' \
         f'use_kernel applies to '
-    assert port == head + 'safa only'
-    assert ref == head + 'csafl/safa/seafl only'
+    assert port == ref == head + 'csafl/safa/seafl only'
 
 
 def test_unknown_spec_type_refused_with_reference_message():
@@ -574,11 +571,12 @@ def test_unknown_spec_type_refused_with_reference_message():
     class GossipSpec(tapi.ProtocolSpec):
         fanout: int = 3
     port = _message(tapi, TypeError, GossipSpec())
-    assert port.startswith("unregistered protocol spec 'GossipSpec'; known "
-                           "specs: ['FedAsyncSpec', 'FedAvgSpec', "
-                           "'FedCSSpec', 'LocalSpec', 'SafaSpec']")
     ref = _message(japi, TypeError, GossipSpec())
-    assert ref.startswith("unregistered protocol spec 'GossipSpec'")
+    assert port == ref == (
+        "unregistered protocol spec 'GossipSpec'; known specs: "
+        "['CsaflSpec', 'FedAsyncSpec', 'FedAvgSpec', 'FedCSSpec', "
+        "'LocalSpec', 'SafaSpec', 'SeaflSpec'] (register new ones via "
+        "api.register)")
     # a spec of the JAX package is foreign to the port's registry
     assert 'unregistered' in _message(tapi, TypeError, japi.FedAvgSpec())
 
@@ -601,8 +599,7 @@ def test_invalid_baseline_cells_raise_reference_value_error(spec, ex):
 
 def test_spec_by_name():
     assert tapi.spec('fedcs', fraction=0.2) == tapi.FedCSSpec(fraction=0.2)
-    with pytest.raises(NotImplementedError, match='item 10'):
-        tapi.spec('seafl')
+    assert tapi.spec('seafl', alpha=0.5) == tapi.SeaflSpec(alpha=0.5)
     with pytest.raises(ValueError, match='unknown proto'):
         tapi.spec('gossip')
     with pytest.raises(ValueError, match='already registered'):

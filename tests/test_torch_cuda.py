@@ -8,8 +8,8 @@ installed:
 
 Tolerances: caches, locals, q, scales and dequantised values are
 selects, one multiply or one IEEE division, so they match exactly;
-new_global is a sum taken in another order, held to rtol 1e-5 / atol
-1e-6.  A fleet kernel runs the single-run kernel's code on each member's
+new_global (of Eq. 6-8 and of the weighted merge) is a sum taken in
+another order, held to rtol 1e-5 / atol 1e-6.  A fleet kernel runs the single-run kernel's code on each member's
 slices, so it must equal the single-run kernel bit for bit on every
 member.
 """
@@ -28,6 +28,8 @@ from repro_torch.kernels.safa_aggregate import (
     safa_aggregate, safa_aggregate_fleet, safa_aggregate_packed,
     safa_aggregate_packed_fleet, safa_aggregate_packed_q8,
     safa_aggregate_packed_q8_fleet)
+from repro_torch.kernels.weighted_merge import (weighted_merge_packed,
+                                                weighted_merge_packed_fleet)
 
 pytestmark = pytest.mark.cuda
 
@@ -355,3 +357,139 @@ def test_operand_on_another_device_raises(dev):
                               t['picked'], t['undrafted'], t['deprecated'],
                               t['weights'].cpu())
     assert backend.LAUNCHES['safa_aggregate_packed'] == 0
+
+
+# ---------------------------------------------------------------------------
+# The weighted merge (kernel 10) and the staleness-adaptive family
+# ---------------------------------------------------------------------------
+
+def _merge_inputs(m, n, dev, seed, lead=(), case='seeded'):
+    """Uploads, global and weight rows zero off a seeded commit mask that
+    sum to 0.6; ``case`` 'zero' zeroes every weight, 'one' keeps a single
+    commit."""
+    rng = np.random.default_rng(seed)
+    w = rng.random(lead + (m,)) * (rng.random(lead + (m,)) < 0.7)
+    if case != 'seeded':
+        w[...] = 0.0
+        if case == 'one':
+            w[..., m // 3] = 1.0
+    tot = w.sum(-1, keepdims=True)
+    w = np.where(tot > 0, 0.6 * w / np.where(tot > 0, tot, 1.0), 0.0)
+    return (torch.as_tensor(rng.normal(size=lead + (m, n)).astype(np.float32),
+                            device=dev),
+            torch.as_tensor(rng.normal(size=lead + (n,)).astype(np.float32),
+                            device=dev),
+            torch.as_tensor(w, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.parametrize('case', ['seeded', 'zero', 'one'])
+@pytest.mark.parametrize('m,n', [(5, 4096), (100, 4096), (300, 2048)])
+def test_weighted_merge_packed_matches_plain(dev, m, n, case):
+    t, g, w = _merge_inputs(m, n, dev, seed=m + n, case=case)
+    got = weighted_merge_packed(t, g, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.weighted_merge_ref(t, g, w),
+                               rtol=1e-5, atol=1e-6)
+    if case == 'zero':
+        assert torch.equal(got, g)
+    assert backend.LAUNCHES['weighted_merge_packed'] == 1
+
+
+@pytest.mark.parametrize('s,m,n', [(2, 5, 4096), (4, 100, 4096),
+                                   (3, 300, 2048)])
+def test_weighted_merge_packed_fleet_matches_plain_and_single_run(dev, s, m,
+                                                                  n):
+    t, g, w = _merge_inputs(m, n, dev, seed=s + m, lead=(s,))
+    w[0] = 0.0                            # a member with no commit
+    got = weighted_merge_packed_fleet(t, g, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.weighted_merge_ref(t, g, w),
+                               rtol=1e-5, atol=1e-6)
+    assert torch.equal(got[0], g[0])
+    for i in range(s):
+        assert torch.equal(got[i], weighted_merge_packed(
+            t[i].contiguous(), g[i].contiguous(), w[i].contiguous()))
+    assert backend.LAUNCHES['weighted_merge_packed_fleet'] == 1
+
+
+@pytest.mark.parametrize('case', ['device', 'dtype', 'width', 'contiguity'])
+def test_weighted_merge_refuses_bad_operands(dev, case):
+    t, g, w = _merge_inputs(4, 2048, dev, seed=0)
+    err, args = {
+        'device': (ValueError, (t, g, w.cpu())),
+        'dtype': (TypeError, (t.double(), g, w)),
+        'width': (ValueError, (t[:, :1000].contiguous(), g[:1000], w)),
+        'contiguity': (ValueError, (t.t().contiguous().t(), g, w)),
+    }[case]
+    with pytest.raises(err):
+        weighted_merge_packed(*args)
+    assert backend.LAUNCHES['weighted_merge_packed'] == 0
+
+
+#: weighted cell -> (protocol name, exec fields, launches per round of the
+#: single-run kernels; the fleet launches the ``*_fleet`` ones)
+WEIGHTED_CELLS = {
+    'seafl-packed': ('seafl', dict(use_kernel='packed'),
+                     {'weighted_merge_packed': 1}),
+    'seafl-int8': ('seafl', dict(use_kernel='packed', wire='int8'),
+                   {'weighted_merge_packed': 1, 'quantize_packed': 1,
+                    'dequantize_packed': 1}),
+    'seafl-plain': ('seafl', {}, {}),
+    'csafl-packed': ('csafl', dict(use_kernel='packed'),
+                     {'weighted_merge_packed': 1}),
+    'csafl-int8': ('csafl', dict(wire='int8'),
+                   {'quantize_packed': 1, 'dequantize_packed': 1}),
+    'csafl-plain': ('csafl', {}, {}),
+}
+
+
+@pytest.mark.parametrize('cell', sorted(WEIGHTED_CELLS))
+def test_weighted_run_and_sweep_on_the_card(dev, cell):
+    """SEAFL and CSAFL on the card through ``run()`` (scan and loop) and a
+    mixed-scheme ``run_sweep()`` (fleet and sequential): each kernel
+    launches once per round (the fleet's forms once per round for all
+    members); scan equals loop bit for bit; fleet and sequential train
+    the same replicas in batches of other sizes, so they are held to atol
+    1e-5."""
+    from repro_torch import api
+    from repro_torch.fedsim import EnvSpec
+    spec = EnvSpec(m=5, crash_prob=0.3, dataset_size=506, batch_size=5,
+                   epochs=3, t_lim=830.0, seed=3)
+    task = _regression(spec)
+    name, ex, per_round = WEIGHTED_CELLS[cell]
+    rounds = 4
+    runs = {}
+    for engine in ('scan', 'loop'):
+        backend.reset_launches()
+        runs[engine] = api.Experiment(
+            task, spec, api.spec(name),
+            api.ExecSpec(engine=engine, eval_every=2, **ex),
+            rounds=rounds).compile().run()
+        torch.cuda.synchronize()
+        assert {k: v for k, v in backend.LAUNCHES.items() if v} == \
+            {k: n * rounds for k, n in per_round.items()}
+    for k, v in runs['scan'].final_global.items():
+        assert v.is_cuda and torch.equal(v, runs['loop'].final_global[k])
+    assert all(np.isfinite([e['loss'] for _, e in runs['scan'].evals()]))
+    members = [api.SweepMember(env=spec, seed=s, overrides=dict(
+        {'crash_prob': cr, 'draw_seed': s}, **ov))
+        for s, (cr, ov) in enumerate(((0.1, {}), (0.3, {'scheme': 'csafl'}),
+                                      (0.5, {'scheme': 'fedasync'})))]
+    hists = {}
+    for engine in ('fleet', 'sequential'):
+        backend.reset_launches()
+        hists[engine] = api.Experiment(
+            task, None, api.spec(name),
+            api.ExecSpec(engine=engine, eval_every=2, **ex),
+            rounds=rounds).compile().run_sweep(members)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in backend.LAUNCHES.items() if v}
+        if engine == 'fleet':
+            assert counts == {k + '_fleet': n * rounds
+                              for k, n in per_round.items()}
+        else:
+            assert counts == {k: n * rounds * 3 for k, n in per_round.items()}
+    for f, q in zip(hists['fleet'], hists['sequential']):
+        for k, v in q.final_global.items():
+            torch.testing.assert_close(f.final_global[k], v, rtol=0,
+                                       atol=1e-5)

@@ -19,6 +19,16 @@ Phases, each of which must pass:
              rows of non-zero weight) over the memory rate, and, where
              one PyTorch call computes the same function (the weighted
              merge: ``torch.addmv``, a fleet's ``torch.bmm``), its time.
+             The sparse schedules' kernels 11, 12, 15 and 16 run at the
+             quota-bounded shape (R = 1001 buffer rows, K = 124 slots) with
+             the rows and roles of round 2 of the m = 1000 schedule:
+             gather, scatter (and a case with a duplicate row and two
+             rows outside [0, R), which go to the scratch row) and the
+             c2 and local rows bit for bit, new_global and new_agg within
+             rtol 1e-5 /
+             atol 1e-6, every kernel the same bits on two launches; the
+             gather and scatter beside ``torch.index_select`` and
+             ``index_copy_``.
 3. main    — the paper's Task 2 CNN at full width (m = 100, 24 batches of
              40, 5 epochs) through ``Experiment(...).compile().run()``,
              with ``use_kernel='packed'`` and with ``wire='int8'``; each
@@ -57,6 +67,31 @@ Phases, each of which must pass:
              The phase trains with deterministic cuDNN: by default the
              convolutions' weight gradients vary from run to run by more
              than these tolerances.
+7. sparse  — the sparse schedules on the same task at full width, 2
+             rounds each, with deterministic cuDNN: on the paper's
+             environment (m = 100) SAFA ``sparse`` packed and int8,
+             ``sparse_delta`` packed, packed int8 and plain, their dense
+             references, FedAvg ``sparse``, FedAvg ``sparse_delta`` int8,
+             FedCS ``sparse_delta`` and their dense references; on the
+             quota-bounded environment (m = 1000, the Task 2 data) SAFA
+             dense and ``sparse_delta`` packed, f32 and int8.  Each run
+             must launch its kernels as
+             often per round as its cell says (``sparse_delta`` packed:
+             ``gather_rows`` once, ``safa_aggregate_packed_rows`` once,
+             ``scatter_rows`` twice; on int8 also ``quantize_packed``, and
+             the q8 rows kernel instead), every eval loss must fall, sparse
+             against dense and packed against plain agree within 1e-5 on
+             f32 after one round (the compared runs are repeated for one
+             round) and after two (FedCS ``sparse_delta``, which carries
+             the global alone, within 1e-4 after two: its second round
+             trains from the first round's rounding, and a control prints
+             how far one round of training carries it); an int8 run
+             agrees with the int8 dense run within 1e-4 after one round,
+             and within one quantisation step of the largest weight
+             (max |w| / 127) after two (an int8 rounding edge turns the
+             aggregation's summation order into a whole step).  Each run
+             prints its K, its train and server-step seconds per round and
+             its peak device memory.
 
 The line before the last is a JSON object of kernel records; the last
 line is ``{"ok": true, "device": {...}}``.  Without a visible card, or
@@ -79,6 +114,8 @@ S = 4                   # fleet members
 FLEET_CRASH = (0.1, 0.3, 0.5, 0.7)   # member s's crash probability
 BASE_ROUNDS = 2         # rounds per baseline run and baseline sweep
 WEIGHTED_ROUNDS = 2     # rounds per weighted-merge run and sweep
+SPARSE_ROUNDS = 2       # rounds per sparse-phase run
+SCALE_M, QUOTA = 1000, 50   # the quota-bounded environment (rows, sparse)
 #: the weighted sweep's members: (protocol-field overrides, crash rate)
 MIXED = (({}, 0.1), ({'use_loss': True}, 0.3),
          ({'scheme': 'csafl', 'clusters': 2}, 0.5),
@@ -539,18 +576,222 @@ def merge_kernel_phase(torch, n: int, fails: list) -> list:
     return recs
 
 
-def cnn_setup(torch):
-    """Task 2's CNN on the card at full width: (EnvSpec, task)."""
+def scale_spec():
+    """The quota-bounded environment of the JAX package's
+    ``benchmarks/scale.py`` (``make_scale_env``) with the Task 2 data,
+    batch and epochs: m = 1000, crash 0, communication negligible, t_lim
+    pinned at the 2.5 x quota-th fastest client, so that SAFA's active set
+    stays near 2.5 x quota whatever m."""
+    import numpy as np
+
+    from repro_torch.configs import PAPER_TASKS
+    from repro_torch.fedsim import EnvSpec
+    cfg = PAPER_TASKS['task2_cnn']
+    spec = EnvSpec(m=SCALE_M, crash_prob=0.0,
+                   dataset_size=cfg['dataset_size'],
+                   batch_size=cfg['batch_size'], epochs=cfg['epochs'],
+                   t_lim=1e9, seed=0, model_size_mb=1e-3)
+    env = spec.build()
+    base = env.t_updown + env.full_train_time()
+    k = min(SCALE_M - 1, int(round(2.5 * QUOTA)))
+    return spec.replace(t_lim=float(np.partition(base, k)[k]))
+
+
+def scale_schedule(rounds):
+    """SAFA's sparse schedule on ``scale_spec()`` (lag tolerance 10 x
+    rounds, as the JAX package's scale benchmark sets it)."""
+    from repro_torch.core import federation
+    return federation.precompute_safa_schedule(
+        scale_spec().build(), fraction=QUOTA / SCALE_M,
+        lag_tolerance=10 * rounds, rounds=rounds, form='sparse')
+
+
+def rows_kernel_phase(torch, n: int, fails: list) -> list:
+    """Kernels 11, 12, 15 and 16 at the quota-bounded shape: R = m + 1 =
+    1001 buffer rows, the K = 124 rows and roles of round 2 of the m =
+    1000 schedule, N = n, against their plain versions, each twice."""
+    import numpy as np
+
+    from repro_torch.core import protocol
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rows import gather_rows, scatter_rows
+    from repro_torch.kernels.safa_aggregate import (
+        safa_aggregate_packed_q8_rows, safa_aggregate_packed_rows)
+    dev = torch.device('cuda')
+    sched = scale_schedule(3)
+    m = sched.m
+    r = m + 1
+    h_rows, h_roles = sched.idx[1], sched.roles[1]      # round 2
+    k = len(h_rows)
+    rows = torch.as_tensor(h_rows, device=dev)
+    roles = torch.as_tensor(h_roles, device=dev)
+    weights = torch.as_tensor(scale_spec().build().weights,
+                              dtype=torch.float32, device=dev)
+    w = protocol._slot_weights(rows, weights)
+    # round 2's rows with a duplicate real row (slot 1 repeats slot 0's,
+    # so slot 1 must win it) and two rows outside [0, R) that must land
+    # in the scratch row R - 1
+    h_dup = h_rows.copy()
+    h_dup[1] = h_dup[0]
+    h_dup[2], h_dup[3] = r + 7, -1
+    dup_rows = torch.as_tensor(h_dup, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    cache0, trained, base, glob, agg = (normal(r, n), normal(k, n),
+                                        normal(k, n), normal(n), normal(n))
+    recs = []
+
+    def check(cond, what):
+        if not cond:
+            fails.append(what)
+            print(f'FAIL rows kernels: {what}')
+
+    def vec_err(got, want, what):
+        err = max((g - w_).abs().max().item() for g, w_ in zip(got, want))
+        check(all(torch.allclose(g, w_, rtol=1e-5, atol=1e-6)
+                  for g, w_ in zip(got, want)),
+              f'{what} new_global/new_agg beyond rtol 1e-5 / atol 1e-6 '
+              f'(max abs err {err:.3e})')
+        return err
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    row = 4 * n
+    real = h_rows < m
+    distinct = len(np.unique(h_rows))
+    print(f'rows: K = {k} slots ({int(real.sum())} real) of R = {r} rows at '
+          f'N = {n}; roles of round 2 of the m = {m} schedule')
+    p = (h_roles & protocol.ROLE_PICKED) != 0
+    u = (h_roles & protocol.ROLE_UNDRAFTED) != 0
+    c = (h_roles & protocol.ROLE_COMMITTED) != 0
+    slot_bytes = 9 * k                      # rows, roles, weights
+
+    # -- gather_rows (kernel 11) -------------------------------------------
+    got = gather_rows(cache0, rows)
+    again = gather_rows(cache0, rows)
+    dup = gather_rows(cache0, dup_rows)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref.gather_rows_ref(cache0, rows)),
+          'gather_rows differs from its plain version')
+    check(torch.equal(dup, ref.gather_rows_ref(cache0, dup_rows)),
+          'gather_rows (duplicate and out-of-range rows) differs from its '
+          'plain version')
+    check(torch.equal(dup[1], cache0[int(h_dup[0])])
+          and torch.equal(dup[2], cache0[r - 1])
+          and torch.equal(dup[3], cache0[r - 1]),
+          'gather_rows: an out-of-range row does not read the scratch row')
+    check(torch.equal(got, again), 'gather_rows differs between launches')
+    ms = _time_ms(torch, lambda: gather_rows(cache0, rows))
+    plain = _time_ms(torch, lambda: ref.gather_rows_ref(cache0, rows),
+                     warm=2, timed=10)
+    lib = _time_ms(torch, lambda: torch.index_select(cache0, 0, rows))
+    check(torch.equal(torch.index_select(cache0, 0, rows), got),
+          'torch.index_select (the yardstick) differs')
+    recs.append(_record(
+        'gather_rows', 'src/repro_torch/csrc/rows.cu',
+        'src/repro/kernels/ops.py:270', 0.0, ms, plain,
+        distinct * row + k * row + slot_bytes, 0, 2 * k * row,
+        library_ms=lib))
+
+    # -- scatter_rows (kernel 12), in place, last slot wins ------------------
+    buf = cache0.clone()
+    ptr = buf.data_ptr()
+    out = scatter_rows(buf, rows, trained)
+    want = ref.scatter_rows_ref(cache0.clone(), rows, trained)
+    dup_buf = scatter_rows(cache0.clone(), dup_rows, trained)
+    dup_want = ref.scatter_rows_ref(cache0.clone(), dup_rows, trained)
+    twice = scatter_rows(cache0.clone(), dup_rows, trained)
+    torch.cuda.synchronize()
+    check(out.data_ptr() == ptr, 'scatter_rows not in place')
+    check(torch.equal(out, want), 'scatter_rows differs from its plain '
+                                  'version')
+    check(torch.equal(dup_buf, dup_want), 'scatter_rows (duplicate rows) '
+                                          'differs from its plain version')
+    check(torch.equal(dup_buf[int(h_dup[0])], trained[1]),
+          'scatter_rows: the last slot does not win its row')
+    scratch_slot = int(np.flatnonzero((h_dup < 0) | (h_dup >= r - 1))[-1])
+    check(torch.equal(dup_buf[r - 1], trained[scratch_slot]),
+          'scatter_rows: an out-of-range row does not land in the scratch '
+          'row')
+    check(torch.equal(dup_buf, twice), 'scatter_rows differs between '
+                                       'launches')
+    ms = _time_ms(torch, lambda: scatter_rows(buf, rows, trained))
+    plain = _time_ms(torch, lambda: ref.scatter_rows_ref(buf, rows, trained),
+                     warm=2, timed=10)
+    rows64 = rows.long()
+    lib = _time_ms(torch, lambda: buf.index_copy_(0, rows64, trained))
+    check(torch.equal(buf, want), 'index_copy_ (the yardstick) differs')
+    recs.append(_record(
+        'scatter_rows', 'src/repro_torch/csrc/rows.cu',
+        'src/repro/kernels/ops.py:275', 0.0, ms, plain,
+        2 * distinct * row + slot_bytes, 0, 2 * k * row, library_ms=lib))
+    del buf, out, want, dup_buf, dup_want, twice
+
+    # -- safa_aggregate_packed_rows (kernel 15) -------------------------------
+    args = (cache0, trained, glob, agg, rows, roles, w)
+    want = ref.safa_aggregate_rows_ref(*args)
+    got = safa_aggregate_packed_rows(*args)
+    again = safa_aggregate_packed_rows(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got[2], want[2]), 'safa_aggregate_packed_rows c2 '
+                                        'differs')
+    err = vec_err(got[:2], want[:2], 'safa_aggregate_packed_rows')
+    check(same(got, again), 'safa_aggregate_packed_rows differs between '
+                            'launches')
+    ms = _time_ms(torch, lambda: safa_aggregate_packed_rows(*args))
+    plain = _time_ms(torch, lambda: ref.safa_aggregate_rows_ref(*args),
+                     warm=2, timed=10)
+    kn = k * n
+    recs.append(_record(
+        'safa_aggregate_packed_rows', 'src/repro_torch/csrc/safa_rows.cu',
+        'src/repro/kernels/safa_aggregate.py:422', err, ms, plain,
+        distinct * row + int((p | u).sum()) * row + k * row + 4 * row
+        + slot_bytes, 4 * kn, 3 * k * row + 4 * row + slot_bytes))
+
+    # -- safa_aggregate_packed_q8_rows (kernel 16) ------------------------------
+    q, sc = ref.quantize_packed_ref(trained)
+    args = (q, sc, base, cache0, glob, agg, rows, roles, w)
+    want = ref.safa_aggregate_q8_rows_ref(*args)
+    got = safa_aggregate_packed_q8_rows(*args)
+    again = safa_aggregate_packed_q8_rows(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got[2], want[2]) and torch.equal(got[3], want[3]),
+          'safa_aggregate_packed_q8_rows c2 or local rows differ')
+    err = vec_err(got[:2], want[:2], 'safa_aggregate_packed_q8_rows')
+    check(same(got, again), 'safa_aggregate_packed_q8_rows differs between '
+                            'launches')
+    ms = _time_ms(torch, lambda: safa_aggregate_packed_q8_rows(*args))
+    plain = _time_ms(torch, lambda: ref.safa_aggregate_q8_rows_ref(*args),
+                     warm=2, timed=10)
+    wire_row = n + 4 * (n // 128)
+    done = int(c.sum())
+    recs.append(_record(
+        'safa_aggregate_packed_q8_rows', 'src/repro_torch/csrc/safa_rows.cu',
+        'src/repro/kernels/safa_aggregate.py:507', err, ms, plain,
+        done * wire_row + (k - done) * row + distinct * row + 2 * k * row
+        + 4 * row + slot_bytes, 5 * kn,
+        k * wire_row + 4 * k * row + 4 * row + slot_bytes))
+    _print_records(recs)
+    return recs
+
+
+def cnn_setup(torch, spec=None):
+    """Task 2's CNN on the card at full width: (EnvSpec, task), on the
+    paper's environment unless ``spec`` names another."""
     from repro_torch.configs import PAPER_TASKS
     from repro_torch.data import make_images, partition
     from repro_torch.data.tasks import cnn_task
     from repro_torch.fedsim import EnvSpec
 
     cfg = PAPER_TASKS['task2_cnn']
-    spec = EnvSpec(m=cfg['m'], crash_prob=0.3,
-                   dataset_size=cfg['dataset_size'],
-                   batch_size=cfg['batch_size'], epochs=cfg['epochs'],
-                   t_lim=cfg['t_lim'], seed=0)
+    if spec is None:
+        spec = EnvSpec(m=cfg['m'], crash_prob=0.3,
+                       dataset_size=cfg['dataset_size'],
+                       batch_size=cfg['batch_size'], epochs=cfg['epochs'],
+                       t_lim=cfg['t_lim'], seed=0)
     t0 = time.perf_counter()
     x, y = make_images(n=spec.dataset_size, seed=0)
     data = partition(x, y, spec.build().partition_sizes, spec.batch_size,
@@ -847,6 +1088,229 @@ def baselines_phase(torch, spec, task, fails: list) -> dict:
     return launches
 
 
+#: every round function of the SAFA and FedAvg/FedCS engines, timed whole
+#: in the sparse phase: a round's server step is the round less its
+#: training
+ROUND_FNS = ('safa_round', 'safa_round_sparse', 'safa_round_sparse_delta',
+             'safa_round_sparse_delta_packed', 'fedavg_round',
+             'fedavg_round_sparse', 'fedavg_round_sparse_delta')
+#: FedCS ``sparse_delta`` against dense after two rounds.  The stateless
+#: form carries the global alone, so its whole algebra is held within
+#: 1e-5 after one round; its second round trains from a global that the
+#: first round's summation order moved by ~1e-7, and a round of training
+#: carries that ~100-fold (the phase's control prints it).
+STATELESS_TOL = 1e-4
+#: the packed sparse_delta round's launches, f32 and int8
+DELTA_PACKED = {'gather_rows': 1, 'safa_aggregate_packed_rows': 1,
+                'scatter_rows': 2}
+DELTA_PACKED_Q8 = {'gather_rows': 1, 'quantize_packed': 1,
+                   'safa_aggregate_packed_q8_rows': 1, 'scatter_rows': 2}
+
+
+def sparse_phase(torch, spec, task, fails: list) -> dict:
+    """The sparse schedules on Task 2's CNN at full width through
+    ``run()``, on the paper's environment and on the quota-bounded one;
+    returns the launch counts of kernels 11, 12, 15 and 16 in the runs
+    that drive them.  Trains with deterministic cuDNN, as the weighted
+    phase does, so that the 1e-5 checks measure the port and not cuDNN's
+    run-to-run noise."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _sparse_runs(torch, spec, task, fails)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _drive_run(torch, task, label, exp, kernels, fails):
+    """One ``run()`` with every launch counter at 0 before it, its local
+    training and its round functions timed per call and the peak device
+    memory reset before it; fails unless each kernel in ``kernels``
+    launched its count per round and no other kernel launched.  Returns
+    the History."""
+    from repro_torch.core import protocol
+    from repro_torch.kernels import backend
+
+    rounds = exp.rounds
+    sched = exp.precompute()
+    k = getattr(sched, 'capacity', exp.env.m)
+    originals = {f: getattr(protocol, f) for f in ROUND_FNS}
+    attr = 'local_train' if exp.exec.schedule == 'dense' \
+        else 'local_train_rows'
+    train_s, round_s = [], []
+    setattr(task, attr, _timed(torch, getattr(task, attr), train_s))
+    for f in ROUND_FNS:
+        setattr(protocol, f, _timed(torch, originals[f], round_s))
+    try:
+        backend.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        hist = exp.compile().run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        counts = {c: v for c, v in backend.LAUNCHES.items() if v}
+    finally:
+        for f in ROUND_FNS:
+            setattr(protocol, f, originals[f])
+        delattr(task, attr)
+    server_s = [r - t for r, t in zip(round_s, train_s)]
+    print(f'{label}: K {k} of m {exp.env.m}; {wall:.2f} s for {rounds} '
+          f'rounds; per round train {[round(v, 4) for v in train_s]} s, '
+          f'server step {[round(v, 4) for v in server_s]} s; launches '
+          f'{counts}; peak device memory {peak / 2**30:.3f} GiB')
+    want = {c: n * rounds for c, n in kernels.items()}
+    if counts != want:
+        fails.append(f'{label}: launches {counts}, want {want}')
+    return hist
+
+
+def _sparse_runs(torch, spec, task, fails: list) -> dict:
+    from repro_torch import api
+
+    rounds = SPARSE_ROUNDS
+    safa = api.SafaSpec(fraction=0.3, lag_tolerance=5)
+    q8 = {'quantize_packed': 1, 'safa_aggregate_packed_q8': 1}
+    wire = {'quantize_packed': 1, 'dequantize_packed': 1}
+    # (label, spec, exec fields, launches per round)
+    paper = [
+        ('safa-sparse-packed', safa,
+         dict(schedule='sparse', use_kernel='packed'),
+         {'safa_aggregate_packed': 1}),
+        ('safa-sparse-int8', safa, dict(schedule='sparse', wire='int8'), q8),
+        ('safa-delta-packed', safa,
+         dict(schedule='sparse_delta', use_kernel='packed'), DELTA_PACKED),
+        ('safa-delta-packed-int8', safa,
+         dict(schedule='sparse_delta', use_kernel='packed', wire='int8'),
+         DELTA_PACKED_Q8),
+        ('safa-delta-plain', safa, dict(schedule='sparse_delta'), {}),
+        ('safa-dense-packed', safa, dict(use_kernel='packed'),
+         {'safa_aggregate_packed': 1}),
+        ('safa-dense-int8', safa, dict(wire='int8'), q8),
+        ('fedavg-sparse', api.FedAvgSpec(fraction=0.3),
+         dict(schedule='sparse'), {}),
+        ('fedavg-delta-int8', api.FedAvgSpec(fraction=0.3),
+         dict(schedule='sparse_delta', wire='int8'), wire),
+        ('fedcs-delta', api.FedCSSpec(fraction=0.3),
+         dict(schedule='sparse_delta'), {}),
+        ('fedcs-dense', api.FedCSSpec(fraction=0.3), {}, {}),
+        ('fedavg-dense', api.FedAvgSpec(fraction=0.3), {}, {}),
+        ('fedavg-dense-int8', api.FedAvgSpec(fraction=0.3),
+         dict(wire='int8'), wire),
+    ]
+    # f32: (run, its reference) within 1e-5
+    # f32: (run, its reference, tolerance after all rounds); every pair is
+    # held within 1e-5 after one round
+    paper_f32 = [('safa-sparse-packed', 'safa-dense-packed', 1e-5),
+                 ('safa-delta-packed', 'safa-delta-plain', 1e-5),
+                 ('safa-delta-plain', 'safa-dense-packed', 1e-5),
+                 ('fedavg-sparse', 'fedavg-dense', 1e-5),
+                 ('fedcs-delta', 'fedcs-dense', STATELESS_TOL)]
+    # int8: (run, the int8 dense run)
+    paper_q8 = [('safa-sparse-int8', 'safa-dense-int8'),
+                ('safa-delta-packed-int8', 'safa-dense-int8'),
+                ('fedavg-delta-int8', 'fedavg-dense-int8')]
+    scale = api.SafaSpec(fraction=QUOTA / SCALE_M,
+                         lag_tolerance=10 * rounds)
+    quota = [
+        ('scale-dense-packed', scale, dict(use_kernel='packed'),
+         {'safa_aggregate_packed': 1}),
+        ('scale-delta-packed', scale,
+         dict(schedule='sparse_delta', use_kernel='packed'), DELTA_PACKED),
+        ('scale-dense-int8', scale, dict(wire='int8'), q8),
+        ('scale-delta-packed-int8', scale,
+         dict(schedule='sparse_delta', use_kernel='packed', wire='int8'),
+         DELTA_PACKED_Q8),
+    ]
+    launches = {}
+
+    def run_all(env_spec, env_task, runs, n_rounds, init):
+        finals = {}
+        for label, sp, ex, kernels in runs:
+            tag = f'sparse[{label}, {n_rounds} round{"s" * (n_rounds > 1)}]'
+            exp = api.Experiment(env_task, env_spec, sp,
+                                 api.ExecSpec(eval_every=n_rounds, **ex),
+                                 rounds=n_rounds)
+            hist = _drive_run(torch, env_task, tag, exp, kernels, fails)
+            _check_losses(tag, [e['loss'] for _, e in hist.evals()], init,
+                          fails)
+            finals[label] = hist.final_global
+            if n_rounds == rounds and label in ('safa-delta-packed',
+                                                'safa-delta-packed-int8'):
+                from repro_torch.kernels import backend
+                for c in kernels:
+                    if c != 'quantize_packed':
+                        launches[c] = backend.LAUNCHES[c]
+        return finals
+
+    def drive(env_spec, env_task, runs, f32_pairs, q8_pairs):
+        init = env_task.evaluate(env_task.init_global(0))['loss']
+        print(f'sparse: m = {env_spec.m}, initial eval loss {init:.6f}; '
+              f'rounds {rounds}')
+        finals = run_all(env_spec, env_task, runs, rounds, init)
+        labels = {x for pair in f32_pairs + q8_pairs for x in pair[:2]}
+        first = run_all(env_spec, env_task,
+                        [r for r in runs if r[0] in labels], 1, init)
+        for run, ref, tol in f32_pairs:
+            one = _max_diff(first[run], first[ref])
+            diff = _max_diff(finals[run], finals[ref])
+            print(f'sparse: {run} vs {ref} final_global max abs diff after '
+                  f'1 round {one:.3e} (tolerance 1e-05), after {rounds} '
+                  f'rounds {diff:.3e} (tolerance {tol:.0e})')
+            if not (one <= 1e-5 and diff <= tol):
+                fails.append(f'sparse: {run} vs {ref} differ by {one:.3e} '
+                             f'after 1 round, {diff:.3e} after {rounds}')
+        # int8 against the int8 dense run.  After one round the two differ
+        # only by the aggregation's summation order (the uploads are the
+        # same bits), and 1e-4 holds.  From the second round on, that
+        # rounding can move a trained value across an int8 rounding edge,
+        # and its upload then moves by a whole quantisation step (its
+        # block's amax / 127, times the client's weight, and the weights
+        # sum to at most 1): the run is held to one step of the model's
+        # largest weight.
+        for run, ref in q8_pairs:
+            one = _max_diff(first[run], first[ref])
+            diff = _max_diff(finals[run], finals[ref])
+            amax = max(v.abs().max().item() for v in finals[ref].values())
+            bound = amax / 127
+            beyond = sum(int(((finals[run][k] - v).abs() > 1e-4).sum())
+                         for k, v in finals[ref].items())
+            print(f'sparse: {run} vs {ref} final_global max abs diff after '
+                  f'1 round {one:.3e} (tolerance 1e-04), after {rounds} '
+                  f'rounds {diff:.3e} ({beyond} values beyond 1e-4; bound '
+                  f'{bound:.3e} = max |w| / 127)')
+            if not (one <= 1e-4 and diff <= bound):
+                fails.append(f'sparse: {run} vs {ref} differ by {one:.3e} '
+                             f'after 1 round, {diff:.3e} after {rounds}')
+        return first
+
+    first = drive(spec, task, paper, paper_f32, paper_q8)
+    # The stateless form's control: FedCS's dense round 1 again, once from
+    # the dense run's round-1 global and once from the sparse_delta run's;
+    # the gap is how far one round of training carries the round-1
+    # summation-order difference, which is all the two runs' second
+    # rounds differ by.
+    starts = [{k: v.cpu().numpy() for k, v in first[label].items()}
+              for label in ('fedcs-dense', 'fedcs-delta')]
+    carried = [api.Experiment(task, spec, api.FedCSSpec(fraction=0.3),
+                              api.ExecSpec(eval_every=1), rounds=1,
+                              init_params=g).compile().run().final_global
+               for g in starts]
+    print(f'sparse: control: FedCS dense round 1 from the dense vs the '
+          f'sparse_delta round-1 global: final_global max abs diff '
+          f'{_max_diff(carried[1], carried[0]):.3e} (from '
+          f'{_max_diff(first["fedcs-delta"], first["fedcs-dense"]):.3e})')
+    del first, starts, carried
+    scale_env, scale_task = cnn_setup(torch, scale_spec())
+    drive(scale_env, scale_task, quota,
+          [('scale-delta-packed', 'scale-dense-packed', 1e-5)],
+          [('scale-delta-packed-int8', 'scale-dense-int8')])
+    del scale_task
+    torch.cuda.empty_cache()
+    return launches
+
+
 def weighted_phase(torch, spec, task, fails: list) -> dict:
     """The staleness-adaptive family on Task 2's CNN at full width through
     the port's entry points: SEAFL packed, int8 + packed and plain, CSAFL
@@ -1063,7 +1527,8 @@ def main() -> int:
     fails = []
     n = ops.wire_spec(_cnn_init(torch.Generator().manual_seed(0))).n_padded
     recs = (kernel_phase(torch, n, fails) + fleet_kernel_phase(torch, n, fails)
-            + merge_kernel_phase(torch, n, fails))
+            + merge_kernel_phase(torch, n, fails)
+            + rows_kernel_phase(torch, n, fails))
     torch.cuda.empty_cache()
     lap('kernels')
     spec, task = cnn_setup(torch)
@@ -1075,6 +1540,8 @@ def main() -> int:
     lap('baselines')
     launches.update(weighted_phase(torch, spec, task, fails))
     lap('weighted')
+    launches.update(sparse_phase(torch, spec, task, fails))
+    lap('sparse')
     for r in recs:
         r['launches'] = launches.get(r['name'], 0)
         del r['bytes'], r['flops'], r['dense_bytes']

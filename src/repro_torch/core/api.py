@@ -22,7 +22,9 @@ The port runs them on the dense schedule: ``engine`` None/'scan'/'loop'
 for ``run()`` and None/'fleet'/'sequential' for ``run_sweep()``,
 ``use_kernel`` False/True/'packed' (SAFA) or False/'packed' (SEAFL,
 CSAFL) and ``wire`` 'f32'/'int8' (SAFA, FedAvg, FedCS, SEAFL, CSAFL);
-``ExecSpec(numeric=False)`` gives the timing records alone.
+``ExecSpec(numeric=False)`` gives the timing records alone.  SAFA,
+FedAvg and FedCS single runs also take the sparse active-set schedules,
+``schedule='sparse'`` and ``'sparse_delta'``.
 ``check_compat`` raises the JAX package's errors for the cells it
 refuses, and ``NotImplementedError``, naming the ROADMAP queue item, for
 every cell not ported yet.
@@ -131,8 +133,18 @@ class ExecSpec:
     sends the uploads over the int8 wire (two kernels per round; SAFA,
     FedAvg, FedCS, SEAFL and CSAFL).  ``numeric=False``
     runs the host event process alone (timing records, no model, no
-    task).  Only ``schedule='dense'`` is ported; the field names the JAX
-    package's sparse schedules so that they are refused by name."""
+    task).
+
+    ``schedule`` picks the schedule's form.  ``'dense'`` replays
+    [rounds, m] masks; ``'sparse'`` (SAFA, FedAvg, FedCS) names each
+    round's K active clients and trains only them, then runs the dense
+    server step, equal to dense; ``'sparse_delta'`` also aggregates from
+    the K rows alone, as deltas on a running aggregate (FedAvg/FedCS carry
+    the global model alone), equal to dense up to summation order.  SAFA's
+    ``'sparse_delta'`` takes ``use_kernel=False`` or ``'packed'`` (the
+    rows kernels, four launches a round, five on the int8 wire).  The
+    sparse schedules run in ``run()`` only: sparse sweeps and
+    ``'sparse_tier'`` are not ported yet and are refused by name."""
     engine: Optional[str] = None
     wire: str = 'f32'
     use_kernel: Any = False
@@ -164,6 +176,11 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f'{what} is not ported to repro_torch yet (ROADMAP queue 1, item '
         f'{item})')
+
+
+def _sparse_sweep(schedule: str) -> NotImplementedError:
+    return _not_ported(f'a sweep on schedule={schedule!r}',
+                       '22 (sparse sweeps)')
 
 
 def _check_env(env) -> None:
@@ -207,8 +224,17 @@ class ProtocolDef:
     #: takes False or 'packed' but never True (the weighted-merge family)
     supports_kernel: Any = False
     #: the schedules besides ``'dense'`` the JAX package runs this
-    #: protocol on; the port refuses them by ROADMAP item (11, 12)
+    #: protocol on (the port refuses 'sparse_tier' by ROADMAP item)
     sparse_forms: tuple = ()
+    #: ``sparse_precompute(env, spec, *, rounds, seed)``: the host event
+    #: process emitting the sparse schedule (``schedule='sparse'`` and
+    #: ``'sparse_delta'``)
+    sparse_precompute: Optional[Callable] = None
+    #: ``prepare_state(st, weights, ex)`` builds the carry a schedule
+    #: needs beyond the dense one (the running aggregate, pack buffers)
+    prepare_state: Optional[Callable] = None
+    #: under ``'sparse_delta'`` the carry is the global model alone
+    delta_stateless: bool = False
     #: leftover ``SweepMember.overrides`` keys are protocol-spec fields
     #: of the member's precompute (the staleness-adaptive family); else
     #: they are refused at sweep resolution
@@ -333,8 +359,8 @@ def check_compat(protocol_spec: ProtocolSpec,
         if ex.schedule == 'sparse_tier':
             raise _not_ported("schedule='sparse_tier'",
                               '12 (lag-tier schedule)')
-        raise _not_ported(f'schedule={ex.schedule!r}',
-                          '11 (sparse schedules)')
+        if ex.engine in ('fleet', 'sequential'):
+            raise _sparse_sweep(ex.schedule)
     if quantize_uploads:
         raise _not_ported('quantize_uploads=True',
                           '17 (per-leaf int8 reference)')
@@ -348,10 +374,16 @@ def check_compat(protocol_spec: ProtocolSpec,
 @dataclasses.dataclass
 class _RunState:
     """The model-state carry between segments: global, local and (SAFA)
-    cache."""
+    cache.  Under ``schedule='sparse_delta'`` it adds ``agg`` (the running
+    Eq. 7 aggregate) or, with ``use_kernel='packed'``, ``packed``: the
+    (global, local, cache, agg) pack buffers with layout ``spec``, which
+    then replace the local, cache and agg trees."""
     global_w: dict
-    local_w: dict
+    local_w: Optional[dict]
     cache: Optional[dict] = None
+    agg: Optional[dict] = None
+    packed: Optional[tuple] = None
+    spec: Any = None
 
 
 def _eval_rounds(rounds: int, eval_every: int):
@@ -381,9 +413,13 @@ def _init_global(task, seed: int, device, init_params: InitParams) -> dict:
 
 
 def _init_state(g: dict, m: int, uses_cache: bool, *,
-                fleet: bool = False) -> _RunState:
+                fleet: bool = False, stateless: bool = False) -> _RunState:
     """The carry at round 0: every client (and, for SAFA, every cache
-    entry) holds the initial global ``g`` (a fleet's: [S, ...] leaves)."""
+    entry) holds the initial global ``g`` (a fleet's: [S, ...] leaves).
+    ``stateless`` (a global-only carry) never forms the [m, ...] stacks."""
+    if stateless:
+        return _RunState(g, None)
+
     def tile():
         return protocol.broadcast_global(g, m, fleet=fleet)
     return _RunState(g, tile(), tile() if uses_cache else None)
@@ -482,30 +518,104 @@ def _safa_precompute(env, sp, *, rounds, seed):
         rounds=rounds)
 
 
+def _safa_sparse_precompute(env, sp, *, rounds, seed):
+    del seed
+    return federation.precompute_safa_schedule(
+        env, fraction=sp.fraction, lag_tolerance=sp.lag_tolerance,
+        rounds=rounds, form='sparse')
+
+
+def _pack_layout(global_w, wire):
+    from repro_torch.kernels import ops as kops
+    return kops.wire_spec(global_w) if wire == 'int8' \
+        else kops.pack_spec(global_w)
+
+
+def _safa_prepare_state(st, weights, ex):
+    """The sparse_delta carry: the running aggregate tree, or, under
+    ``use_kernel='packed'``, the whole state as resident pack buffers
+    (local and cache [m + 1, N], the trailing scratch row taking the
+    sentinel slots)."""
+    if ex.schedule != 'sparse_delta':
+        return
+    agg = protocol.init_aggregate(st.cache, weights)
+    if ex.use_kernel != 'packed':
+        st.agg = agg
+        return
+    from repro_torch.kernels import ops as kops
+    spec = _pack_layout(st.global_w, ex.wire)
+
+    def scratch(tree):
+        buf = kops.pack_stacked(tree, spec)
+        return torch.cat([buf, buf.new_zeros((1, buf.shape[1]))])
+
+    st.packed = (kops.pack_global(st.global_w, spec), scratch(st.local_w),
+                 scratch(st.cache), kops.pack_global(agg, spec))
+    st.spec = spec
+    st.local_w = st.cache = None
+
+
+def _unpack_global_state(st):
+    from repro_torch.kernels import ops as kops
+    st.global_w = kops.unpack_global(st.packed[0], st.spec)
+
+
 def _safa_segment(st, seg, weights, train_fn, ex, ctx):
-    st.global_w, st.local_w, st.cache = protocol.safa_run_scan(
-        st.global_w, st.local_w, st.cache, seg, weights,
-        local_train_fn=train_fn, use_kernel=ex.use_kernel, wire=ex.wire,
-        train_ctx=ctx)
+    if ex.schedule == 'dense':
+        st.global_w, st.local_w, st.cache = protocol.safa_run_scan(
+            st.global_w, st.local_w, st.cache, seg, weights,
+            local_train_fn=train_fn, use_kernel=ex.use_kernel, wire=ex.wire,
+            train_ctx=ctx)
+    elif ex.schedule == 'sparse':
+        st.global_w, st.local_w, st.cache = protocol.safa_run_scan_sparse(
+            st.global_w, st.local_w, st.cache, seg, weights,
+            local_train_fn=train_fn, use_kernel=ex.use_kernel, wire=ex.wire)
+    elif st.packed is not None:
+        st.packed = protocol.safa_run_scan_sparse_delta_packed(
+            *st.packed, seg, weights, local_train_fn=train_fn, spec=st.spec,
+            wire=ex.wire)
+        _unpack_global_state(st)
+    else:
+        st.global_w, st.local_w, st.cache, st.agg = \
+            protocol.safa_run_scan_sparse_delta(
+                st.global_w, st.local_w, st.cache, st.agg, seg, weights,
+                local_train_fn=train_fn, wire=ex.wire)
 
 
 def _safa_loop_round(st, sched, i, weights, train_fn, ex, device):
-    st.global_w, st.local_w, st.cache = protocol.safa_round(
-        st.global_w, st.local_w, st.cache,
-        sync_mask=_put(sched.sync[i], device),
-        completed=_put(sched.committed[i], device),
-        picked=_put(sched.picked[i], device),
-        undrafted=_put(sched.undrafted[i], device),
-        deprecated=_put(sched.deprecated[i], device), weights=weights,
-        local_train_fn=train_fn, train_args=(i + 1,),
-        use_kernel=ex.use_kernel, wire=ex.wire)
+    if ex.schedule == 'dense':
+        st.global_w, st.local_w, st.cache = protocol.safa_round(
+            st.global_w, st.local_w, st.cache,
+            sync_mask=_put(sched.sync[i], device),
+            completed=_put(sched.committed[i], device),
+            picked=_put(sched.picked[i], device),
+            undrafted=_put(sched.undrafted[i], device),
+            deprecated=_put(sched.deprecated[i], device), weights=weights,
+            local_train_fn=train_fn, train_args=(i + 1,),
+            use_kernel=ex.use_kernel, wire=ex.wire)
+        return
+    rows = dict(idx=_put(sched.idx[i], device),
+                roles=_put(sched.roles[i], device), weights=weights,
+                local_train_fn=train_fn, train_args=(i + 1,), wire=ex.wire)
+    if ex.schedule == 'sparse':
+        st.global_w, st.local_w, st.cache = protocol.safa_round_sparse(
+            st.global_w, st.local_w, st.cache, use_kernel=ex.use_kernel,
+            **rows)
+    elif st.packed is not None:
+        st.packed = protocol.safa_round_sparse_delta_packed(
+            *st.packed, spec=st.spec, **rows)
+        _unpack_global_state(st)
+    else:
+        st.global_w, st.local_w, st.cache, st.agg = \
+            protocol.safa_round_sparse_delta(
+                st.global_w, st.local_w, st.cache, st.agg, **rows)
 
 
-def _sync_precompute(fedcs):
+def _sync_precompute(fedcs, form='dense'):
     def precompute(env, sp, *, rounds, seed):
         return federation.precompute_sync_schedule(
             env, fraction=sp.fraction, rounds=rounds, seed=seed, fedcs=fedcs,
-            sampler=getattr(sp, 'sampler', 'choice'))
+            form=form, sampler=getattr(sp, 'sampler', 'choice'))
     return precompute
 
 
@@ -518,16 +628,35 @@ def _sync_fleet_precompute(fedcs):
 
 
 def _fedavg_segment(st, seg, weights, train_fn, ex, ctx):
-    st.global_w, st.local_w = protocol.fedavg_run_scan(
-        st.global_w, st.local_w, seg, weights, local_train_fn=train_fn,
-        wire=ex.wire, train_ctx=ctx)
+    if ex.schedule == 'dense':
+        st.global_w, st.local_w = protocol.fedavg_run_scan(
+            st.global_w, st.local_w, seg, weights, local_train_fn=train_fn,
+            wire=ex.wire, train_ctx=ctx)
+    elif ex.schedule == 'sparse':
+        st.global_w, st.local_w = protocol.fedavg_run_scan_sparse(
+            st.global_w, st.local_w, seg, weights, local_train_fn=train_fn,
+            wire=ex.wire)
+    else:
+        st.global_w = protocol.fedavg_run_scan_sparse_delta(
+            st.global_w, seg, weights, local_train_fn=train_fn, wire=ex.wire)
 
 
 def _fedavg_loop_round(st, sched, i, weights, train_fn, ex, device):
-    st.global_w, st.local_w = protocol.fedavg_round(
-        st.global_w, st.local_w, selected=_put(sched.selected[i], device),
-        completed=_put(sched.completed[i], device), weights=weights,
-        local_train_fn=train_fn, train_args=(i + 1,), wire=ex.wire)
+    if ex.schedule == 'dense':
+        st.global_w, st.local_w = protocol.fedavg_round(
+            st.global_w, st.local_w,
+            selected=_put(sched.selected[i], device),
+            completed=_put(sched.completed[i], device), weights=weights,
+            local_train_fn=train_fn, train_args=(i + 1,), wire=ex.wire)
+        return
+    rows = dict(idx=_put(sched.idx[i], device),
+                roles=_put(sched.roles[i], device), weights=weights,
+                local_train_fn=train_fn, train_args=(i + 1,), wire=ex.wire)
+    if ex.schedule == 'sparse':
+        st.global_w, st.local_w = protocol.fedavg_round_sparse(
+            st.global_w, st.local_w, **rows)
+    else:
+        st.global_w = protocol.fedavg_round_sparse_delta(st.global_w, **rows)
 
 
 def _local_precompute(env, sp, *, rounds, seed):
@@ -628,21 +757,27 @@ register(ProtocolDef(
         federation.precompute_fleet_schedule(members, rounds=rounds),
     segment=_safa_segment, loop_round=_safa_loop_round,
     uses_cache=True, supports_wire=True, supports_kernel=True,
-    sparse_forms=('sparse', 'sparse_delta', 'sparse_tier')))
+    sparse_forms=('sparse', 'sparse_delta', 'sparse_tier'),
+    sparse_precompute=_safa_sparse_precompute,
+    prepare_state=_safa_prepare_state))
 
 register(ProtocolDef(
     name='fedavg', spec_cls=FedAvgSpec,
     precompute=_sync_precompute(fedcs=False),
     fleet_precompute=_sync_fleet_precompute(fedcs=False),
     segment=_fedavg_segment, loop_round=_fedavg_loop_round,
-    supports_wire=True, sparse_forms=('sparse', 'sparse_delta')))
+    supports_wire=True, sparse_forms=('sparse', 'sparse_delta'),
+    sparse_precompute=_sync_precompute(fedcs=False, form='sparse'),
+    delta_stateless=True))
 
 register(ProtocolDef(
     name='fedcs', spec_cls=FedCSSpec,
     precompute=_sync_precompute(fedcs=True),
     fleet_precompute=_sync_fleet_precompute(fedcs=True),
     segment=_fedavg_segment, loop_round=_fedavg_loop_round,
-    supports_wire=True, sparse_forms=('sparse', 'sparse_delta')))
+    supports_wire=True, sparse_forms=('sparse', 'sparse_delta'),
+    sparse_precompute=_sync_precompute(fedcs=True, form='sparse'),
+    delta_stateless=True))
 
 register(ProtocolDef(
     name='local', spec_cls=LocalSpec,
@@ -695,10 +830,14 @@ class Experiment:
         self._sched = None
 
     def precompute(self):
-        """Run the host event state machine once and cache the [rounds, m]
-        schedule; the env rng is consumed exactly once per Experiment."""
+        """Run the host event state machine once and cache the schedule:
+        [rounds, m] masks for ``schedule='dense'``, [rounds, K] (idx,
+        roles) otherwise (the same event stream); the env rng is consumed
+        exactly once per Experiment."""
         if self._sched is None:
-            self._sched = self._pdef.precompute(
+            pre = self._pdef.precompute if self.exec.schedule == 'dense' \
+                else self._pdef.sparse_precompute
+            self._sched = pre(
                 self.env, self.protocol, rounds=self.rounds, seed=self.seed)
         return self._sched
 
@@ -735,6 +874,10 @@ class CompiledRunner:
                     f'unknown engine {e!r} (want "scan" or "loop")')
         return e
 
+    def _stateless(self, ex: ExecSpec) -> bool:
+        """A global-only carry: no [m, ...] local or cache stacks."""
+        return ex.schedule == 'sparse_delta' and self._pdef.delta_stateless
+
     def _finish(self, st: _RunState, weights) -> None:
         if self._pdef.finish_segment is not None:
             self._pdef.finish_segment(st, weights)
@@ -757,10 +900,15 @@ class CompiledRunner:
                              '(or ExecSpec(numeric=False))')
         st = _init_state(_init_global(exp.task, exp.seed, exp.device,
                                       exp.init_params),
-                         exp.env.m, pdef.uses_cache)
+                         exp.env.m, pdef.uses_cache,
+                         stateless=self._stateless(ex))
         weights = torch.as_tensor(exp.env.weights, dtype=torch.float32,
                                   device=exp.device)
-        train_fn = exp.task.local_train
+        if pdef.prepare_state is not None:
+            pdef.prepare_state(st, weights, ex)
+        # sparse schedules train through the rows-train contract
+        train_fn = exp.task.local_train if ex.schedule == 'dense' \
+            else exp.task.local_train_rows
         if engine == 'scan' and self._dev is None:
             self._dev = sched.to_device(exp.device)
         start = 0
@@ -799,6 +947,8 @@ class CompiledRunner:
         exp, pdef = self.exp, self._pdef
         ex = exp.exec
         engine = self._engine(sweep=True)
+        if ex.schedule != 'dense':
+            raise _sparse_sweep(ex.schedule)
         if isinstance(members, SweepSpec):
             tasks = list(members.tasks) if members.tasks is not None \
                 else None

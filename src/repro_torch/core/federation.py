@@ -18,7 +18,7 @@ from typing import Optional
 
 import numpy as np
 
-from repro_torch.core import protocol, selection
+from repro_torch.core import protocol, schedules, selection
 from repro_torch.core.schedules import (FleetSchedule, LocalSchedule,
                                         RoundRecord, SafaSchedule,
                                         SweepMember, SyncFleetSchedule,
@@ -55,6 +55,16 @@ class Task:
 
     def local_train(self, stacked_params: dict, round_idx) -> dict:
         raise NotImplementedError
+
+    def local_train_rows(self, params_rows: dict, rows, round_idx) -> dict:
+        """Sparse-schedule training: train only the K client replicas in
+        ``params_rows`` ([K, ...] leaves), whose client ids are ``rows``
+        ([K] int32 on the task's device; sentinel ids m are garbage rows
+        whose output the engine discards).  Row for row, the same step
+        ``local_train`` runs for those clients."""
+        raise NotImplementedError(
+            f'{type(self).__name__} does not implement local_train_rows; '
+            f'sparse schedules need the rows-train contract')
 
     def evaluate(self, global_params: dict) -> dict:
         raise NotImplementedError
@@ -125,17 +135,23 @@ def _sync_rounds_common(selected, crashed, cfrac, full_tt, *, t_lim,
 
 def precompute_safa_schedule(env: Env, *, fraction: float,
                              lag_tolerance: int, rounds: int,
-                             form: str = 'dense') -> SafaSchedule:
+                             form: str = 'dense'):
     """Run the SAFA timing/event state machine (Eq. 3 version bookkeeping,
     crash draws, CFCFM selection) for all rounds in one numpy host pass
     and return the dense [rounds, m] mask schedule with its records.
     Consumes ``env``'s rng exactly as the JAX package's precompute does,
-    so both packages see the same events from the same ``EnvSpec``."""
-    if form in ('sparse', 'sparse_tier'):
+    so both packages see the same events from the same ``EnvSpec``.
+
+    ``form='sparse'`` returns a ``SparseSchedule`` instead: the same loop
+    (same draws, selection and records), each round storing only its
+    active set's (idx, roles), so host memory is O(m + rounds K); it
+    equals ``precompute(form='dense').to_sparse()``.  The lag-tier form
+    (``'sparse_tier'``) is not ported yet."""
+    if form == 'sparse_tier':
         raise NotImplementedError(
-            f"form={form!r} is not ported yet (ROADMAP queue 1, items 11-12: "
-            f"sparse and lag-tier schedules); use form='dense'")
-    if form != 'dense':
+            "form='sparse_tier' is not ported yet (ROADMAP queue 1, item "
+            "12: lag-tier schedule); use form='dense' or 'sparse'")
+    if form not in ('dense', 'sparse'):
         raise ValueError(f"unknown form {form!r} (want 'dense', 'sparse', "
                          f"or 'sparse_tier')")
     m = env.m
@@ -150,7 +166,8 @@ def precompute_safa_schedule(env: Env, *, fraction: float,
     crashed_all, cfrac_all = env.draw_rounds(rounds)
     masks = {k: np.zeros((rounds, m), bool)
              for k in ('sync', 'committed', 'picked', 'undrafted',
-                       'deprecated')}
+                       'deprecated')} if form == 'dense' else None
+    sparse_rows = []
     records = []
 
     for t in range(1, rounds + 1):
@@ -184,12 +201,17 @@ def precompute_safa_schedule(env: Env, *, fraction: float,
         pending[sel.committed] = 0.0
         v[sel.committed] = t
 
-        i = t - 1
-        masks['sync'][i] = sync
-        masks['committed'][i] = sel.committed
-        masks['picked'][i] = sel.picked
-        masks['undrafted'][i] = sel.undrafted
-        masks['deprecated'][i] = dep
+        if form == 'dense':
+            i = t - 1
+            masks['sync'][i] = sync
+            masks['committed'][i] = sel.committed
+            masks['picked'][i] = sel.picked
+            masks['undrafted'][i] = sel.undrafted
+            masks['deprecated'][i] = dep
+        else:
+            sparse_rows.append(schedules.safa_sparse_row(
+                sync, sel.committed, sel.picked, sel.undrafted, dep,
+                bootstrap=(t == 1)))
 
         records.append(RoundRecord(
             round=t,
@@ -206,6 +228,10 @@ def precompute_safa_schedule(env: Env, *, fraction: float,
         picked_prev = sel.picked.copy()
 
     futility = wasted / max(performed, 1e-9)
+    if form == 'sparse':
+        idx, roles = schedules.pack_sparse_rows(sparse_rows, m)
+        return schedules.SparseSchedule(m=m, idx=idx, roles=roles,
+                                        records=records, futility=futility)
     return SafaSchedule(records=records, futility=futility, **masks)
 
 
@@ -322,7 +348,7 @@ def precompute_fleet_schedule(members, *, rounds: int) -> FleetSchedule:
 
 def precompute_sync_schedule(env: Env, *, fraction: float, rounds: int,
                              seed: int, fedcs: bool, form: str = 'dense',
-                             sampler: str = 'choice') -> SyncSchedule:
+                             sampler: str = 'choice'):
     """Host pass for the synchronous baselines (selection + crash draws).
 
     ``sampler`` picks the FedAvg selection stream: 'choice' is the legacy
@@ -331,12 +357,10 @@ def precompute_sync_schedule(env: Env, *, fraction: float, rounds: int,
     bulk-uniform stream scales to large m.  FedCS selection is
     deterministic and ignores it.  Consumes ``env``'s rng and the
     selection rng (``seed + 1``) exactly as the JAX package's precompute
-    does.  Only ``form='dense'`` is ported."""
-    if form == 'sparse':
-        raise NotImplementedError(
-            "form='sparse' is not ported yet (ROADMAP queue 1, item 11: "
-            "sparse schedules); use form='dense'")
-    if form != 'dense':
+    does.  ``form='sparse'`` returns a ``SparseSyncSchedule`` (the same
+    loop, compact per-round storage), equal to the dense precompute's
+    ``.to_sparse()``."""
+    if form not in ('dense', 'sparse'):
         raise ValueError(f"unknown form {form!r} (want 'dense' or 'sparse')")
     m = env.m
     rng = np.random.default_rng(seed + 1)
@@ -352,8 +376,10 @@ def precompute_sync_schedule(env: Env, *, fraction: float, rounds: int,
     elif sampler not in ('choice', 'topk'):
         raise ValueError(
             f"unknown sampler {sampler!r} (want 'choice' or 'topk')")
-    selected_s = np.zeros((rounds, m), bool)
-    completed_s = np.zeros((rounds, m), bool)
+    dense = form == 'dense'
+    selected_s = np.zeros((rounds, m), bool) if dense else None
+    completed_s = np.zeros((rounds, m), bool) if dense else None
+    sparse_rows = []
     records = []
 
     for t in range(1, rounds + 1):
@@ -379,8 +405,11 @@ def precompute_sync_schedule(env: Env, *, fraction: float, rounds: int,
                                        0.0) * work))
         wasted += float(np.sum((sel & crashed) * cfrac * work))
 
-        selected_s[t - 1] = sel
-        completed_s[t - 1] = ~crashed
+        if dense:
+            selected_s[t - 1] = sel
+            completed_s[t - 1] = ~crashed
+        else:
+            sparse_rows.append(schedules.sync_sparse_row(sel, ~crashed))
         records.append(RoundRecord(
             round=t, round_len=round_len, t_dist=t_dist,
             eur=float(completed.sum()) / m,
@@ -389,6 +418,11 @@ def precompute_sync_schedule(env: Env, *, fraction: float, rounds: int,
             n_crashed=int(crashed.sum())))
 
     futility = wasted / max(performed, 1e-9)
+    if not dense:
+        idx, roles = schedules.pack_sparse_rows(sparse_rows, m)
+        return schedules.SparseSyncSchedule(m=m, idx=idx, roles=roles,
+                                            records=records,
+                                            futility=futility)
     return SyncSchedule(selected=selected_s, completed=completed_s,
                         records=records, futility=futility)
 

@@ -25,6 +25,11 @@ members at a time, the work of the JAX package's ``*_run_fleet``.  The
 functions on masks (``classify_versions``) work on numpy arrays and on
 tensors alike: the host event process in ``core.federation`` calls them
 on numpy.
+
+The sparse active-set schedules (the last section) have engines of their
+own for SAFA and FedAvg/FedCS (``*_run_scan_sparse``,
+``*_run_scan_sparse_delta``, ``safa_run_scan_sparse_delta_packed``),
+which take a run's segment only.
 """
 from __future__ import annotations
 
@@ -539,3 +544,346 @@ def weighted_round(global_w, local_w, *, committed, wrow, local_train_fn,
     trained = masked_select(committed, trained, local_w)
     return weighted_server_step(trained, global_w, committed=committed,
                                 wrow=wrow, use_kernel=use_kernel, wire=wire)
+
+
+# ---------------------------------------------------------------------------
+# Sparse active-set schedules: train and aggregate only the K active rows
+# ---------------------------------------------------------------------------
+#
+# A sparse schedule (``schedules.SparseSchedule``/``SparseSyncSchedule``)
+# names each round's active clients, [k, K] int32 indices padded with the
+# sentinel m, and a uint8 role bitmask per slot.  Two execution modes
+# consume it:
+#
+#   * 'sparse' (exact): train only the K active rows, scatter them into the
+#     dense stacks, then run the dense server step (``safa_server_step``/
+#     ``fedavg_server_step``) unchanged, kernels included.  Local training,
+#     the dominant cost, drops from m replicas to K; the carried state
+#     stays [m, N].
+#   * 'sparse_delta': keep a running aggregate ``agg = sum_k w_k cache_k``
+#     and update it from the K active rows only, O(K N) per round; for the
+#     stateless protocols (FedAvg/FedCS) no [m, N] buffer exists at all.
+#     Equal to dense up to float summation order.
+#
+# Sentinel slots (idx == m) carry no role and no weight.  The JAX package
+# leans on jit's out-of-range rules there (gathers clamp, scatters with
+# mode='drop' drop); torch indexing would raise or read past the end, so
+# the helpers below clamp gathers and redirect scatters explicitly.
+
+# SAFA per-slot role bits (a slot may carry several: picked implies
+# committed, deprecated clients are also synced, ...)
+ROLE_SYNC = 1
+ROLE_COMMITTED = 2
+ROLE_PICKED = 4
+ROLE_UNDRAFTED = 8
+ROLE_DEPRECATED = 16
+
+# synchronous-protocol (FedAvg/FedCS) role bits
+SROLE_SELECTED = 1
+SROLE_COMPLETED = 2
+
+
+class SparseRoundSchedule(NamedTuple):
+    """SAFA sparse per-round schedule: ``idx`` [k, K] int32 active-set row
+    indices (sentinel m pads unused slots), ``roles`` [k, K] uint8 ROLE_*
+    bitmasks, ``round_idx`` [k]."""
+    idx: Any
+    roles: Any
+    round_idx: Any
+    segment = _segment
+    fleet_segment = _fleet_segment
+
+
+class SparseSyncSchedule(NamedTuple):
+    """FedAvg/FedCS sparse per-round schedule: ``idx`` [k, K] int32
+    selected row indices (sentinel m), ``roles`` [k, K] uint8 SROLE_*
+    bitmasks, ``round_idx`` [k]."""
+    idx: Any
+    roles: Any
+    round_idx: Any
+    segment = _segment
+    fleet_segment = _fleet_segment
+
+
+def has_role(roles, bit):
+    """Per-slot bool mask for one ROLE_*/SROLE_* bit."""
+    return (roles & bit) != 0
+
+
+def scatter_masks(idx, roles, m: int, bits):
+    """Dense [m] bool masks from one round's (idx, roles), one per bit in
+    ``bits``, equal to the dense precompute's masks.  Sentinel slots
+    (idx == m) write into a scratch entry that is cut off."""
+    out = []
+    for b in bits:
+        mask = torch.zeros(m + 1, dtype=torch.bool, device=idx.device)
+        mask[idx.long()] = has_role(roles, b)
+        out.append(mask[:m])
+    return tuple(out)
+
+
+def _clamp_rows(idx, m: int):
+    """Gather indices with the sentinel m clamped to the last real row, as
+    jit clamps them in the JAX package; gathered sentinel rows are
+    garbage by contract and the role bits mask them."""
+    return idx.clamp(max=m - 1).long()
+
+
+def tree_gather(tree: dict, idx) -> dict:
+    """Rows ``idx`` of every [m, ...] leaf (sentinels clamped)."""
+    return {k: a[_clamp_rows(idx, a.shape[0])] for k, a in tree.items()}
+
+
+def tree_scatter(tree: dict, idx, rows: dict) -> dict:
+    """``tree`` with its rows ``idx`` replaced by ``rows`` [K, ...], in a
+    new tree (the input may be a broadcast view); sentinel slots
+    (idx == m) land in a scratch row that is cut off, as the JAX
+    package's ``mode='drop'`` drops them."""
+    out = {}
+    for k, a in tree.items():
+        buf = torch.cat([a, a[:1]])               # [m + 1, ...]
+        buf[idx.long()] = rows[k].to(a.dtype)
+        out[k] = buf[:a.shape[0]]
+    return out
+
+
+def _slot_weights(idx, weights):
+    """Aggregation weight per slot, 0 at sentinel slots."""
+    m = weights.shape[0]
+    return torch.where(idx < m, weights[_clamp_rows(idx, m)],
+                       0.0).float()
+
+
+def init_aggregate(cache: dict, weights) -> dict:
+    """The running aggregate carried by the sparse_delta engines:
+    ``agg = sum_k w_k cache_k`` as f32 global-shaped leaves, computed once
+    at run start from the dense cache."""
+    def red(leaf):
+        return torch.sum(leaf.float() * _bmask(weights, leaf).float(), dim=0)
+    return {k: red(v) for k, v in cache.items()}
+
+
+def _delta(a, new, old, w):
+    """a + sum_slots w (new - old), in f32."""
+    return a + torch.sum((new.float() - old.float()) * _bmask(w, new), dim=0)
+
+
+def safa_round_sparse(global_w, local_w, cache, *, idx, roles, weights,
+                      local_train_fn, train_args=(), use_kernel=False,
+                      wire: str = 'f32'):
+    """One SAFA round from a sparse schedule, equal to ``safa_round`` on
+    the dense masks that (idx, roles) encode.  Only the K active rows are
+    trained (``local_train_fn(base_rows, rows, *train_args)``, the
+    rows-train contract of ``Task.local_train_rows``); the trained rows
+    are scattered over the dense base stack and the dense server step
+    runs unchanged.  Returns (new_global, new_local, new_cache)."""
+    check_wire(wire)
+    m = weights.shape[0]
+    sync_mask, completed, picked, undrafted, deprecated = scatter_masks(
+        idx, roles, m, (ROLE_SYNC, ROLE_COMMITTED, ROLE_PICKED,
+                        ROLE_UNDRAFTED, ROLE_DEPRECATED))
+    base = distribute(global_w, local_w, sync_mask)
+    trained_rows = local_train_fn(tree_gather(base, idx), idx, *train_args)
+    trained = tree_scatter(base, idx, trained_rows)
+    return safa_server_step(
+        base, trained, cache, global_w, completed=completed, picked=picked,
+        undrafted=undrafted, deprecated=deprecated, weights=weights,
+        use_kernel=use_kernel, wire=wire)
+
+
+def safa_round_sparse_delta(global_w, local_w, cache, agg, *, idx, roles,
+                            weights, local_train_fn, train_args=(),
+                            wire: str = 'f32'):
+    """One SAFA round as deltas on the carried running aggregate
+    ``agg = sum_k w_k cache_k``:
+
+        new_global = agg + sum_slots w (c1 - c_old)      (Eq. 6 + 7)
+        new_agg    = new_global + sum_slots w (c2 - c1)  (Eq. 8)
+
+    Only the active cache and local rows are gathered and trained, and
+    only they change.  Equal to the dense round up to float summation
+    order.  Returns (new_global, new_local, new_cache, new_agg)."""
+    check_wire(wire)
+    k = idx.shape[0]
+    sync_r = has_role(roles, ROLE_SYNC)
+    com_r = has_role(roles, ROLE_COMMITTED)
+    pick_r = has_role(roles, ROLE_PICKED)
+    und_r = has_role(roles, ROLE_UNDRAFTED)
+    dep_r = has_role(roles, ROLE_DEPRECATED)
+    g_rows = broadcast_global(global_w, k)
+    base_rows = masked_select(sync_r, g_rows, tree_gather(local_w, idx))
+    trained_rows = local_train_fn(base_rows, idx, *train_args)
+    if wire == 'int8':
+        from repro_torch.kernels import ops as kops
+        trained_rows = kops.wire_roundtrip_packed(trained_rows, like=global_w)
+    trained_rows = masked_select(com_r, trained_rows, base_rows)
+    c_rows = tree_gather(cache, idx)
+    w_rows = _slot_weights(idx, weights)
+    # Eq. 6 on the active rows only
+    c1_rows = masked_select(dep_r & ~pick_r, g_rows, c_rows)
+    c1_rows = masked_select(pick_r, trained_rows, c1_rows)
+    # Eq. 7: the weighted sum moves by the rows that changed
+    agg1 = {n: _delta(a, c1_rows[n], c_rows[n], w_rows)
+            for n, a in agg.items()}
+    new_global = {n: agg1[n].to(g.dtype) for n, g in global_w.items()}
+    # Eq. 8: undrafted arrivals enter the cache for the next round
+    c2_rows = masked_select(und_r, trained_rows, c1_rows)
+    new_agg = {n: _delta(a, c2_rows[n], c1_rows[n], w_rows)
+               for n, a in agg1.items()}
+    return (new_global, tree_scatter(local_w, idx, trained_rows),
+            tree_scatter(cache, idx, c2_rows), new_agg)
+
+
+def fedavg_round_sparse(global_w, local_w, *, idx, roles, weights,
+                        local_train_fn, train_args=(), wire: str = 'f32'):
+    """FedAvg/FedCS round from a sparse schedule, equal to
+    ``fedavg_round``: train the selected rows only, scatter, then run the
+    dense server step.  Returns (new_global, new_local)."""
+    check_wire(wire)
+    m = weights.shape[0]
+    selected, completed = scatter_masks(idx, roles, m,
+                                        (SROLE_SELECTED, SROLE_COMPLETED))
+    base = distribute(global_w, local_w, selected)
+    trained_rows = local_train_fn(tree_gather(base, idx), idx, *train_args)
+    trained = tree_scatter(base, idx, trained_rows)
+    return fedavg_server_step(base, trained, global_w, selected=selected,
+                              completed=completed, weights=weights, wire=wire)
+
+
+def fedavg_round_sparse_delta(global_w, *, idx, roles, weights,
+                              local_train_fn, train_args=(),
+                              wire: str = 'f32'):
+    """Stateless FedAvg/FedCS round: selected clients always sync to the
+    global model and a client's local model never feeds back into the
+    aggregate (its next selection overwrites it), so no [m, N] local
+    stack exists: the global model is the whole carry.  Equal to the dense
+    round up to float summation order.  Returns new_global."""
+    check_wire(wire)
+    k = idx.shape[0]
+    com_r = has_role(roles, SROLE_COMPLETED) & (idx < weights.shape[0])
+    base_rows = broadcast_global(global_w, k)
+    trained_rows = local_train_fn(base_rows, idx, *train_args)
+    if wire == 'int8':
+        from repro_torch.kernels import ops as kops
+        trained_rows = kops.wire_roundtrip_packed(trained_rows, like=global_w)
+    w_rows = torch.where(com_r, _slot_weights(idx, weights), 0.0)
+    eff_w = w_rows / torch.clamp_min(torch.sum(w_rows), 1e-12)
+    any_ok = torch.sum(com_r) > 0
+
+    def red(t, g):
+        agg = torch.sum(t.float() * _bmask(eff_w, t), dim=0)
+        return torch.where(any_ok, agg, g.float()).to(g.dtype)
+    return {n: red(trained_rows[n], g) for n, g in global_w.items()}
+
+
+def safa_run_scan_sparse(global_w, local_w, cache,
+                         schedule: SparseRoundSchedule, weights, *,
+                         local_train_fn, use_kernel=False, wire='f32'):
+    """Sparse-schedule counterpart of ``safa_run_scan`` (a run's segment
+    only): equal to the dense engine on the masks the schedule encodes,
+    local training over the K active rows.  ``local_train_fn`` follows the
+    rows-train contract.  Returns (new_global, new_local, new_cache)."""
+    for r, args in _rounds(schedule):
+        global_w, local_w, cache = safa_round_sparse(
+            global_w, local_w, cache, idx=r.idx, roles=r.roles,
+            weights=weights, local_train_fn=local_train_fn, train_args=args,
+            use_kernel=use_kernel, wire=wire)
+    return global_w, local_w, cache
+
+
+def safa_run_scan_sparse_delta(global_w, local_w, cache, agg,
+                               schedule: SparseRoundSchedule, weights, *,
+                               local_train_fn, wire='f32'):
+    """O(K N)-per-round SAFA engine over a run's segment: carries (global,
+    local, cache, agg) with ``agg = init_aggregate(cache, weights)`` at
+    run start.  Returns (new_global, new_local, new_cache, new_agg)."""
+    for r, args in _rounds(schedule):
+        global_w, local_w, cache, agg = safa_round_sparse_delta(
+            global_w, local_w, cache, agg, idx=r.idx, roles=r.roles,
+            weights=weights, local_train_fn=local_train_fn, train_args=args,
+            wire=wire)
+    return global_w, local_w, cache, agg
+
+
+def fedavg_run_scan_sparse(global_w, local_w, schedule: SparseSyncSchedule,
+                           weights, *, local_train_fn, wire='f32'):
+    """Sparse-schedule counterpart of ``fedavg_run_scan`` (a run's segment;
+    equal to the dense engine, training the selected rows only).
+    Returns (new_global, new_local)."""
+    for r, args in _rounds(schedule):
+        global_w, local_w = fedavg_round_sparse(
+            global_w, local_w, idx=r.idx, roles=r.roles, weights=weights,
+            local_train_fn=local_train_fn, train_args=args, wire=wire)
+    return global_w, local_w
+
+
+def fedavg_run_scan_sparse_delta(global_w, schedule: SparseSyncSchedule,
+                                 weights, *, local_train_fn, wire='f32'):
+    """Stateless FedAvg/FedCS engine over a run's segment: the global model
+    is the whole carry, so device memory is O(N + K N), whatever m.
+    Returns new_global."""
+    for r, args in _rounds(schedule):
+        global_w = fedavg_round_sparse_delta(
+            global_w, idx=r.idx, roles=r.roles, weights=weights,
+            local_train_fn=local_train_fn, train_args=args, wire=wire)
+    return global_w
+
+
+# -- packed sparse-delta engine: rows kernels on resident pack buffers ------
+
+def safa_round_sparse_delta_packed(gbuf, lbuf, cbuf, abuf, *, idx, roles,
+                                   weights, local_train_fn, train_args=(),
+                                   spec, wire: str = 'f32'):
+    """One O(K N) SAFA round on pack buffers, the aggregation fused.
+
+    gbuf [N] f32 global pack; lbuf/cbuf [m+1, N] local and cache packs
+    (the trailing scratch row absorbs the sentinel slots); abuf [N] f32
+    running aggregate.  The active rows go ``gather_rows`` (kernel 11) ->
+    unpack -> rows-train -> repack -> one ``safa_aggregate_packed_rows``
+    launch (kernel 15: Eq. 6-8 and both delta sums) -> two
+    ``scatter_rows`` launches (kernel 12) that write the cache and local
+    rows back into ``cbuf`` and ``lbuf`` in place: the carried buffers are
+    updated, not copied.  Under ``wire='int8'`` the repacked rows are
+    block-quantised (``quantize_packed``, kernel 2) and the q8 rows kernel
+    (kernel 16) dequantises them in registers; ``spec`` is then the
+    QBLOCK-aligned ``wire_spec``.  Four launches a round on f32, five on
+    int8.  Equal to ``safa_round_sparse_delta`` up to summation order.
+    Returns (gbuf', lbuf, cbuf, abuf')."""
+    check_wire(wire)
+    from repro_torch.kernels import ops as kops
+    w_rows = _slot_weights(idx, weights)
+    l_rows = kops.gather_rows(lbuf, idx)
+    base_rows = torch.where(has_role(roles, ROLE_SYNC)[:, None], gbuf[None],
+                            l_rows)
+    trained = kops.pack_stacked(
+        local_train_fn(kops.unpack_stacked(base_rows, spec), idx,
+                       *train_args), spec)
+    if wire == 'int8':
+        q, scales = kops.quantize_packed(trained)
+        ng, na, c2_rows, local_rows = kops.safa_aggregate_packed_q8_rows(
+            q, scales, base_rows, cbuf, gbuf, abuf, idx, roles, w_rows)
+    else:
+        local_rows = torch.where(has_role(roles, ROLE_COMMITTED)[:, None],
+                                 trained, base_rows)
+        ng, na, c2_rows = kops.safa_aggregate_packed_rows(
+            cbuf, local_rows, gbuf, abuf, idx, roles, w_rows)
+    kops.scatter_rows(cbuf, idx, c2_rows)
+    kops.scatter_rows(lbuf, idx, local_rows)
+    return ng, lbuf, cbuf, na
+
+
+def safa_run_scan_sparse_delta_packed(gbuf, lbuf, cbuf, abuf,
+                                      schedule: SparseRoundSchedule,
+                                      weights, *, local_train_fn, spec,
+                                      wire='f32'):
+    """Packed-buffer counterpart of ``safa_run_scan_sparse_delta``: the
+    carry is (global [N], local [m+1, N], cache [m+1, N], agg [N]) pack
+    buffers, the local and cache buffers updated in place; ``spec`` is
+    the pack layout (``ops.wire_spec`` under ``wire='int8'``,
+    ``ops.pack_spec`` otherwise).  Returns (gbuf, lbuf, cbuf, abuf)."""
+    for r, args in _rounds(schedule):
+        gbuf, lbuf, cbuf, abuf = safa_round_sparse_delta_packed(
+            gbuf, lbuf, cbuf, abuf, idx=r.idx, roles=r.roles,
+            weights=weights, local_train_fn=local_train_fn, train_args=args,
+            spec=spec, wire=wire)
+    return gbuf, lbuf, cbuf, abuf

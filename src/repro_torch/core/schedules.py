@@ -1,7 +1,8 @@
 """Spec, schedule and result containers for the federation layer: the
 protocol-spec base class, per-round records, run histories, sweep
-members, and the precomputed dense mask schedules of every protocol (one
-run's, and a fleet's stacked member-major) that the engines replay.  The
+members, the precomputed dense mask schedules of every protocol (one
+run's, and a fleet's stacked member-major) and the sparse active-set
+schedules of SAFA, FedAvg and FedCS that the engines replay.  The
 state machines that produce the schedules live in
 ``repro_torch.core.federation`` (the FedAsync and weighted-merge
 family's in ``repro_torch.core.agg_schemes``); the engines that consume
@@ -103,6 +104,18 @@ class SafaSchedule:
             deprecated=put(self.deprecated),
             round_idx=_round_idx(self.rounds, device))
 
+    def to_sparse(self, capacity: Optional[int] = None) -> 'SparseSchedule':
+        """Compact [rounds, K] form of the same event stream (see the
+        sparse-schedule section below)."""
+        m = self.sync.shape[1]
+        rows = [safa_sparse_row(self.sync[t], self.committed[t],
+                                self.picked[t], self.undrafted[t],
+                                self.deprecated[t], bootstrap=(t == 0))
+                for t in range(self.rounds)]
+        idx, roles = pack_sparse_rows(rows, m, capacity)
+        return SparseSchedule(m=m, idx=idx, roles=roles,
+                              records=self.records, futility=self.futility)
+
 
 def _round_idx(rounds: int, device) -> torch.Tensor:
     """[rounds] round indices 1..rounds for ``to_device``."""
@@ -128,6 +141,17 @@ class SyncSchedule:
             selected=torch.as_tensor(self.selected, device=device),
             completed=torch.as_tensor(self.completed, device=device),
             round_idx=_round_idx(self.rounds, device))
+
+    def to_sparse(self, capacity: Optional[int] = None
+                  ) -> 'SparseSyncSchedule':
+        """Compact [rounds, K] form of the same event stream."""
+        m = self.selected.shape[1]
+        rows = [sync_sparse_row(self.selected[t], self.completed[t])
+                for t in range(self.rounds)]
+        idx, roles = pack_sparse_rows(rows, m, capacity)
+        return SparseSyncSchedule(m=m, idx=idx, roles=roles,
+                                  records=self.records,
+                                  futility=self.futility)
 
 
 @dataclasses.dataclass
@@ -201,6 +225,160 @@ class WeightedSchedule:
             wrow=torch.as_tensor(self.wrow, dtype=torch.float32,
                                  device=device),
             round_idx=_round_idx(self.rounds, device))
+
+
+# ---------------------------------------------------------------------------
+# Sparse (active-set) schedules: [rounds, K] index + role tensors
+# ---------------------------------------------------------------------------
+#
+# A dense schedule stores five [rounds, m] masks; at large m that is the
+# population, not the event process.  The sparse form stores only each
+# round's active set, the clients whose state the round can touch (SAFA:
+# sync | committed | deprecated; the synchronous protocols: selected), as
+# a [rounds, K] int32 index tensor padded with the sentinel index m, and a
+# [rounds, K] uint8 role bitmask per slot (``protocol.ROLE_*``/
+# ``SROLE_*``).  Every dense mask is a subset of the active set, so the
+# dense masks are exactly reconstructible and both forms replay one
+# event stream.
+
+
+def safa_sparse_row(sync, committed, picked, undrafted, deprecated, *,
+                    bootstrap: bool = False):
+    """One round's compact (idx, roles) from its dense [m] bool masks.
+
+    ``bootstrap=True`` marks round 1, where every client holds the current
+    version and the dense sync mask covers the whole population.  A
+    sync-only client's transition there, local := global, is the identity
+    because every engine starts from local = cache = broadcast(global), so
+    those clients are left out and the active set stays quota-bounded.
+    Clients holding any other role keep their sync bit."""
+    role = (sync * protocol.ROLE_SYNC
+            + committed * protocol.ROLE_COMMITTED
+            + picked * protocol.ROLE_PICKED
+            + undrafted * protocol.ROLE_UNDRAFTED
+            + deprecated * protocol.ROLE_DEPRECATED).astype(np.uint8)
+    if bootstrap:
+        role = np.where(role == protocol.ROLE_SYNC, 0, role).astype(np.uint8)
+    active = np.flatnonzero(role)
+    return active.astype(np.int32), role[active]
+
+
+def sync_sparse_row(selected, completed):
+    """One round's compact (idx, roles) for a synchronous protocol.  The
+    active set is the selected set; the survivor bit is stored per slot
+    (the dense ``completed`` mask outside the selection never reaches the
+    numeric round, which intersects the two)."""
+    role = (selected * protocol.SROLE_SELECTED
+            + (selected & completed) * protocol.SROLE_COMPLETED
+            ).astype(np.uint8)
+    active = np.flatnonzero(role)
+    return active.astype(np.int32), role[active]
+
+
+def pack_sparse_rows(rows, m: int, capacity: Optional[int] = None):
+    """Pad per-round (idx, roles) pairs to [rounds, capacity] arrays.
+
+    ``capacity`` defaults to the largest active set; an explicit capacity
+    below some round's active set is an error naming the round, since
+    truncating would drop events."""
+    need = max([len(i) for i, _ in rows] or [0])
+    cap = max(need, 1) if capacity is None else capacity
+    idx = np.full((len(rows), cap), m, np.int32)
+    roles = np.zeros((len(rows), cap), np.uint8)
+    for t, (i, r) in enumerate(rows):
+        if len(i) > cap:
+            raise ValueError(
+                f'sparse schedule capacity {cap} < active-set size '
+                f'{len(i)} at round {t}: raise capacity (or the t_lim/'
+                f'lag_tolerance knobs bounding the active set)')
+        idx[t, :len(i)] = i
+        roles[t, :len(i)] = r
+    return idx, roles
+
+
+@dataclasses.dataclass
+class SparseSchedule:
+    """Compact SAFA event process: [rounds, K] active-set indices and role
+    bitmasks, with the same host-side ``records``/``futility`` as the
+    dense schedule."""
+    m: int
+    idx: np.ndarray             # [rounds, K] int32, sentinel == m
+    roles: np.ndarray           # [rounds, K] uint8 of protocol.ROLE_* bits
+    records: list
+    futility: float
+
+    @property
+    def rounds(self) -> int:
+        return self.idx.shape[0]
+
+    @property
+    def capacity(self) -> int:
+        return self.idx.shape[1]
+
+    @property
+    def nbytes(self) -> int:
+        return self.idx.nbytes + self.roles.nbytes
+
+    def to_device(self, device) -> protocol.SparseRoundSchedule:
+        """One host->device hop for the whole run."""
+        return protocol.SparseRoundSchedule(
+            idx=torch.as_tensor(self.idx, device=device),
+            roles=torch.as_tensor(self.roles, device=device),
+            round_idx=_round_idx(self.rounds, device))
+
+    def to_dense(self) -> SafaSchedule:
+        """The dense [rounds, m] masks, exact except that round 1's sync
+        mask holds only the active clients: the population-wide bootstrap
+        sync is left out at emission (``safa_sparse_row``), as it changes
+        no state.  Engine results are the same either way."""
+        bits = {'sync': protocol.ROLE_SYNC,
+                'committed': protocol.ROLE_COMMITTED,
+                'picked': protocol.ROLE_PICKED,
+                'undrafted': protocol.ROLE_UNDRAFTED,
+                'deprecated': protocol.ROLE_DEPRECATED}
+        masks = {k: np.zeros((self.rounds, self.m), bool) for k in bits}
+        for t in range(self.rounds):
+            valid = self.idx[t] < self.m
+            i, r = self.idx[t][valid], self.roles[t][valid]
+            for k, b in bits.items():
+                masks[k][t, i] = (r & b) != 0
+        return SafaSchedule(records=self.records, futility=self.futility,
+                            **masks)
+
+
+@dataclasses.dataclass
+class SparseSyncSchedule:
+    """Compact FedAvg/FedCS event process ([rounds, K] indices and
+    SROLE_* bitmasks over the selected set)."""
+    m: int
+    idx: np.ndarray
+    roles: np.ndarray
+    records: list
+    futility: float
+
+    rounds = SparseSchedule.rounds
+    capacity = SparseSchedule.capacity
+    nbytes = SparseSchedule.nbytes
+
+    def to_device(self, device) -> protocol.SparseSyncSchedule:
+        return protocol.SparseSyncSchedule(
+            idx=torch.as_tensor(self.idx, device=device),
+            roles=torch.as_tensor(self.roles, device=device),
+            round_idx=_round_idx(self.rounds, device))
+
+    def to_dense(self) -> SyncSchedule:
+        """The dense [rounds, m] masks.  ``completed`` is exact on the
+        selected set only, all the numeric round reads (it intersects the
+        two); off the selection it reads False."""
+        selected = np.zeros((self.rounds, self.m), bool)
+        completed = np.zeros((self.rounds, self.m), bool)
+        for t in range(self.rounds):
+            valid = self.idx[t] < self.m
+            i, r = self.idx[t][valid], self.roles[t][valid]
+            selected[t, i] = (r & protocol.SROLE_SELECTED) != 0
+            completed[t, i] = (r & protocol.SROLE_COMPLETED) != 0
+        return SyncSchedule(selected=selected, completed=completed,
+                            records=self.records, futility=self.futility)
 
 
 # ---------------------------------------------------------------------------

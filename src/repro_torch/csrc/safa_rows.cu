@@ -1,0 +1,295 @@
+// SAFA's Eq. 6-8 on the K active rows of a sparse schedule, as deltas on
+// the running aggregate, for Hopper (sm_90a).
+//
+// Replaces two Pallas TPU kernels of the JAX package:
+//   * src/repro/kernels/safa_aggregate.py:_rows_kernel
+//     (safa_aggregate_packed_rows) -> safa_aggregate_rows_f32 below;
+//   * src/repro/kernels/safa_aggregate.py:_q8_rows_kernel
+//     (safa_aggregate_packed_q8_rows) -> safa_aggregate_q8_rows_f32 below.
+//
+// Math, per slot j (cache row c0 = cache[rows[j]], role bits f_j, weight
+// w_j) and column:
+//   c1 = picked ? trained : (deprecated ? global : c0)          (Eq. 6)
+//   c2 = undrafted ? trained : c1                               (Eq. 8)
+//   new_global = agg + sum_j w_j (c1 - c0)                      (Eq. 7)
+//   new_agg    = agg + sum_j w_j (c2 - c0)
+// with agg = sum_k w_k cache_k the running Eq. 7 sum the engine carries,
+// and c2 written for every slot (the engine scatters it back into the
+// cache).  The int8 form first forms trained = q * scales[j, col / 128]
+// in registers where the slot committed, and its base row elsewhere, and
+// writes that trained row too (the slot's new local model).  A row index
+// outside [0, R) reads row R - 1, the buffer's scratch row, where the
+// schedule's sentinel slots (role 0, weight 0) point.
+//
+// Bound: device-memory bytes.  Per slot and column 4 floating-point
+// operations against 12 or more bytes.  The bytes the roles need: the
+// cache row of every slot (its c2 is c0 where no role changes it, and c0
+// enters both deltas), the trained row only where the slot is picked or
+// undrafted (the int8 form: q and scales where it committed, its base row
+// elsewhere, since the local row is written for every slot), c2 (and the
+// local row) written for every slot, global and agg read once and the two
+// new vectors written once.
+//
+// Design: the TPU grid runs (column tile, slot) with the slot innermost,
+// carrying the two sums in output blocks that the inner axis revisits.  On
+// Hopper the slot axis is a loop inside the block, kernel 1's layout
+// (safa_aggregate.cu): a block owns 128 adjacent columns, each of its 32
+// lanes 4 of them (16-byte loads), each of its 8 warps every 8th slot,
+// with the two delta sums in f32 registers.  The warps' partial sums are
+// added in warp order in shared memory and then to agg, so every launch
+// gives the same bits.  The slots' rows, roles and weights are staged in
+// shared memory in chunks of 256, so any K works.  A thread issues every
+// load of kGroup of its slots before their math and stores.  The outputs
+// are fresh buffers and the cache is only read (the engine scatters c2
+// back afterwards), so every pointer is __restrict__.  Offsets are 64-bit.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kLanes = 32;       // threads across columns (4 floats each)
+constexpr int kSlices = 8;       // warps across slots
+constexpr int kThreads = kLanes * kSlices;
+constexpr int kChunk = 256;      // slots staged in shared memory at a time
+constexpr int kQBlock = 128;     // values per int8 scale (comm_quant.QBLOCK)
+constexpr int kVec = 4;          // floats per thread (one 16-byte load)
+constexpr int kGroup = 4;        // slots whose loads go together
+
+// SAFA role bits (core.protocol.ROLE_*)
+constexpr uint8_t kCommitted = 2, kPicked = 4, kUndrafted = 8,
+                  kDeprecated = 16;
+
+__device__ __forceinline__ long long fix_row(int r, int n_rows) {
+  return (r >= 0 && r < n_rows) ? r : n_rows - 1;
+}
+
+// acc += w * (a - b), per component
+__device__ __forceinline__ void add_delta(float4& acc, float4 a, float4 b,
+                                          float w) {
+  acc.x = fmaf(w, a.x - b.x, acc.x);
+  acc.y = fmaf(w, a.y - b.y, acc.y);
+  acc.z = fmaf(w, a.z - b.z, acc.z);
+  acc.w = fmaf(w, a.w - b.w, acc.w);
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// Shared state of a block: the staged slots and the warps' partial sums.
+struct Stage {
+  long long src[kChunk];         // cache row offset of each slot (floats4)
+  uint8_t role[kChunk];
+  float w[kChunk];
+  float4 dg[kSlices][kLanes];
+  float4 da[kSlices][kLanes];
+};
+
+__device__ __forceinline__ void stage_slots(Stage& s, int k0, int kn,
+                                            const int* rows,
+                                            const uint8_t* roles,
+                                            const float* w_rows, int n_rows,
+                                            long long n4) {
+  const int tid = threadIdx.y * kLanes + threadIdx.x;
+  for (int i = tid; i < kn; i += kThreads) {
+    s.src[i] = fix_row(rows[k0 + i], n_rows) * n4;
+    s.role[i] = roles[k0 + i];
+    s.w[i] = w_rows[k0 + i];
+  }
+}
+
+// Add the warps' partial sums in warp order, then to agg; write both.
+__device__ __forceinline__ void finish(Stage& s, float4 dg, float4 da,
+                                       bool active, const float4* agg,
+                                       float4* new_global, float4* new_agg,
+                                       long long col) {
+  s.dg[threadIdx.y][threadIdx.x] = dg;
+  s.da[threadIdx.y][threadIdx.x] = da;
+  __syncthreads();
+  if (threadIdx.y != 0 || !active) return;
+  float4 sg = s.dg[0][threadIdx.x], sa = s.da[0][threadIdx.x];
+  for (int y = 1; y < kSlices; ++y) {
+    sg = add4(sg, s.dg[y][threadIdx.x]);
+    sa = add4(sa, s.da[y][threadIdx.x]);
+  }
+  const float4 a = agg[col];
+  new_global[col] = add4(a, sg);
+  new_agg[col] = add4(a, sa);
+}
+
+__global__ void __launch_bounds__(kThreads)
+safa_rows_kernel(const float* __restrict__ cache,
+                 const float* __restrict__ trained,
+                 const float* __restrict__ global,
+                 const float* __restrict__ agg,
+                 const int* __restrict__ rows,
+                 const uint8_t* __restrict__ roles,
+                 const float* __restrict__ w_rows,
+                 float* __restrict__ new_global, float* __restrict__ new_agg,
+                 float* __restrict__ c2, int n_rows, int k, long long n4) {
+  __shared__ Stage s;
+  const long long col = (long long)blockIdx.x * kLanes + threadIdx.x;
+  const bool active = col < n4;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 g =
+      active ? reinterpret_cast<const float4*>(global)[col] : zero;
+  const float4* c4 = reinterpret_cast<const float4*>(cache);
+  const float4* t4 = reinterpret_cast<const float4*>(trained);
+  float4* o4 = reinterpret_cast<float4*>(c2);
+  float4 dg = zero, da = zero;
+  for (int k0 = 0; k0 < k; k0 += kChunk) {
+    const int kn = min(kChunk, k - k0);
+    __syncthreads();   // the previous chunk's readers are done
+    stage_slots(s, k0, kn, rows, roles, w_rows, n_rows, n4);
+    __syncthreads();
+    if (!active) continue;
+    for (int i0 = threadIdx.y; i0 < kn; i0 += kSlices * kGroup) {
+      float4 c[kGroup], t[kGroup];
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const int i = i0 + u * kSlices;
+        if (i >= kn) continue;
+        c[u] = c4[s.src[i] + col];
+        t[u] = (s.role[i] & (kPicked | kUndrafted))
+                   ? t4[(long long)(k0 + i) * n4 + col] : zero;
+      }
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const int i = i0 + u * kSlices;
+        if (i >= kn) continue;
+        const uint8_t f = s.role[i];
+        const float4 c1 = (f & kPicked) ? t[u]
+                          : (f & kDeprecated) ? g : c[u];
+        const float4 cc = (f & kUndrafted) ? t[u] : c1;
+        o4[(long long)(k0 + i) * n4 + col] = cc;
+        add_delta(dg, c1, c[u], s.w[i]);
+        add_delta(da, cc, c[u], s.w[i]);
+      }
+    }
+  }
+  finish(s, dg, da, active, reinterpret_cast<const float4*>(agg),
+         reinterpret_cast<float4*>(new_global),
+         reinterpret_cast<float4*>(new_agg), col);
+}
+
+__global__ void __launch_bounds__(kThreads)
+safa_q8_rows_kernel(const int8_t* __restrict__ q,
+                    const float* __restrict__ scales,
+                    const float* __restrict__ base,
+                    const float* __restrict__ cache,
+                    const float* __restrict__ global,
+                    const float* __restrict__ agg,
+                    const int* __restrict__ rows,
+                    const uint8_t* __restrict__ roles,
+                    const float* __restrict__ w_rows,
+                    float* __restrict__ new_global,
+                    float* __restrict__ new_agg, float* __restrict__ c2,
+                    float* __restrict__ local, int n_rows, int k,
+                    long long n4) {
+  __shared__ Stage s;
+  const long long col = (long long)blockIdx.x * kLanes + threadIdx.x;
+  const bool active = col < n4;
+  const long long n_scales = n4 / (kQBlock / kVec);   // scales per row
+  const long long sblk = col / (kQBlock / kVec);      // this thread's block
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 g =
+      active ? reinterpret_cast<const float4*>(global)[col] : zero;
+  const char4* q4 = reinterpret_cast<const char4*>(q);
+  const float4* b4 = reinterpret_cast<const float4*>(base);
+  const float4* c4 = reinterpret_cast<const float4*>(cache);
+  float4* o4 = reinterpret_cast<float4*>(c2);
+  float4* l4 = reinterpret_cast<float4*>(local);
+  float4 dg = zero, da = zero;
+  for (int k0 = 0; k0 < k; k0 += kChunk) {
+    const int kn = min(kChunk, k - k0);
+    __syncthreads();
+    stage_slots(s, k0, kn, rows, roles, w_rows, n_rows, n4);
+    __syncthreads();
+    if (!active) continue;
+    for (int i0 = threadIdx.y; i0 < kn; i0 += kSlices * kGroup) {
+      char4 qv[kGroup];
+      float sc[kGroup];
+      float4 b[kGroup], c[kGroup];
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const int i = i0 + u * kSlices;
+        if (i >= kn) continue;
+        const long long j = k0 + i;
+        const bool done = s.role[i] & kCommitted;
+        qv[u] = done ? q4[j * n4 + col] : make_char4(0, 0, 0, 0);
+        sc[u] = done ? scales[j * n_scales + sblk] : 0.f;
+        b[u] = done ? zero : b4[j * n4 + col];
+        c[u] = c4[s.src[i] + col];
+      }
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const int i = i0 + u * kSlices;
+        if (i >= kn) continue;
+        const long long off = (long long)(k0 + i) * n4 + col;
+        const uint8_t f = s.role[i];
+        const float x = sc[u];
+        const float4 t = (f & kCommitted)
+            ? make_float4((float)qv[u].x * x, (float)qv[u].y * x,
+                          (float)qv[u].z * x, (float)qv[u].w * x)
+            : b[u];
+        const float4 c1 = (f & kPicked) ? t : (f & kDeprecated) ? g : c[u];
+        const float4 cc = (f & kUndrafted) ? t : c1;
+        l4[off] = t;
+        o4[off] = cc;
+        add_delta(dg, c1, c[u], s.w[i]);
+        add_delta(da, cc, c[u], s.w[i]);
+      }
+    }
+  }
+  finish(s, dg, da, active, reinterpret_cast<const float4*>(agg),
+         reinterpret_cast<float4*>(new_global),
+         reinterpret_cast<float4*>(new_agg), col);
+}
+
+inline unsigned int blocks_for(long long n4) {
+  return (unsigned int)((n4 + kLanes - 1) / kLanes);
+}
+
+}  // namespace
+
+extern "C" {
+
+// cache: [r, n] f32; trained: [k, n] f32; global/agg: [n] f32; rows: [k]
+// int32; roles: [k] uint8 of ROLE_* bits; w: [k] f32.  Writes new_global
+// and new_agg ([n] f32) and c2 ([k, n] f32), all fresh buffers.  n must be
+// a multiple of 4.  Returns the launch's cudaError_t.
+int safa_aggregate_rows_f32(const float* cache, const float* trained,
+                            const float* global, const float* agg,
+                            const int* rows, const uint8_t* roles,
+                            const float* w, float* new_global,
+                            float* new_agg, float* c2, int r, int k,
+                            long long n, cudaStream_t stream) {
+  const long long n4 = n / kVec;
+  if (n4 == 0) return (int)cudaSuccess;
+  safa_rows_kernel<<<blocks_for(n4), dim3(kLanes, kSlices), 0, stream>>>(
+      cache, trained, global, agg, rows, roles, w, new_global, new_agg, c2,
+      r, k, n4);
+  return (int)cudaGetLastError();
+}
+
+// The int8 form: q: [k, n] int8; scales: [k, n / 128] f32; base: [k, n]
+// f32; the rest as above, and local ([k, n] f32, fresh) receives each
+// slot's trained row.  n must be a multiple of 128.
+int safa_aggregate_q8_rows_f32(const int8_t* q, const float* scales,
+                               const float* base, const float* cache,
+                               const float* global, const float* agg,
+                               const int* rows, const uint8_t* roles,
+                               const float* w, float* new_global,
+                               float* new_agg, float* c2, float* local,
+                               int r, int k, long long n,
+                               cudaStream_t stream) {
+  const long long n4 = n / kVec;
+  if (n4 == 0) return (int)cudaSuccess;
+  safa_q8_rows_kernel<<<blocks_for(n4), dim3(kLanes, kSlices), 0,
+                        stream>>>(
+      q, scales, base, cache, global, agg, rows, roles, w, new_global,
+      new_agg, c2, local, r, k, n4);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

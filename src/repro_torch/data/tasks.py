@@ -77,15 +77,30 @@ class SupervisedTask(Task):
         return {k: v.to(self.device) for k, v in self.init_fn(gen).items()}
 
     # -- client_update (Algorithm 2), batched over clients --------------------
-    def local_train(self, stacked_params: dict, round_idx) -> dict:
-        del round_idx  # full-pass SGD; order fixed as in the paper
-        params = dict(stacked_params)
+    def _train(self, params: dict, x, y) -> dict:
+        """E epochs of SGD, replica k on client data x[k], y[k]."""
+        params = dict(params)
         with fp32_math():
             for _ in range(self.epochs):
-                for j in range(self._x.shape[1]):
-                    g = self._grads(params, self._x[:, j], self._y[:, j])
+                for j in range(x.shape[1]):
+                    g = self._grads(params, x[:, j], y[:, j])
                     params, _ = self.opt.update(g, (), params)
         return params
+
+    def local_train(self, stacked_params: dict, round_idx) -> dict:
+        del round_idx  # full-pass SGD; order fixed as in the paper
+        return self._train(stacked_params, self._x, self._y)
+
+    def local_train_rows(self, params_rows: dict, rows, round_idx) -> dict:
+        """The sparse schedules' rows-train contract: train only the K
+        replicas in ``params_rows`` ([K, ...] leaves), replica k on client
+        ``rows[k]``'s data, the same step ``local_train`` runs over all m.
+        Sentinel rows (``rows == m``) are clamped to the last client's
+        data, as jit clamps the JAX package's gather; the engines discard
+        their output through the role bits."""
+        del round_idx
+        r = rows.clamp(max=self._x.shape[0] - 1).long()
+        return self._train(params_rows, self._x[r], self._y[r])
 
     def local_train_fleet(self, fleet_params: dict, round_idx) -> dict:
         """``local_train`` for a fleet of S runs sharing this task:

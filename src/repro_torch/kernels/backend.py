@@ -38,7 +38,10 @@ LAUNCHES = {'safa_aggregate': 0, 'safa_aggregate_packed': 0,
             'safa_aggregate_fleet': 0, 'safa_aggregate_packed_fleet': 0,
             'quantize_packed_fleet': 0, 'safa_aggregate_packed_q8_fleet': 0,
             'dequantize_packed': 0, 'dequantize_packed_fleet': 0,
-            'weighted_merge_packed': 0, 'weighted_merge_packed_fleet': 0}
+            'weighted_merge_packed': 0, 'weighted_merge_packed_fleet': 0,
+            'gather_rows': 0, 'scatter_rows': 0,
+            'safa_aggregate_packed_rows': 0,
+            'safa_aggregate_packed_q8_rows': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -59,6 +62,12 @@ _SIGNATURES = {
     'dequantize_packed_fleet_f32': (_P, _P, _P, _I, _I, _L, _P),
     'weighted_merge_f32': (_P, _P, _P, _P, _I, _L, _P),
     'weighted_merge_fleet_f32': (_P, _P, _P, _P, _I, _I, _L, _P),
+    'gather_rows_f32': (_P, _P, _P, _I, _I, _L, _P),
+    'scatter_rows_f32': (_P, _P, _P, _I, _I, _L, _P),
+    'safa_aggregate_rows_f32': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                _I, _L, _P),
+    'safa_aggregate_q8_rows_f32': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _P, _P, _I, _I, _L, _P),
 }
 
 _lib = None

@@ -23,6 +23,12 @@ Each has a fleet form (``*_fleet``) for S independent servers in one
 launch: every operand gains a leading member axis ([S, m, N] rows, [S, N]
 globals, [S, m] masks and weights), and member s's results are bit for
 bit the single-run launch's on member s's slices.
+
+The sparse schedules' ``sparse_delta`` engine aggregates the K active rows
+alone (``csrc/safa_rows.cu``): ``safa_aggregate_packed_rows`` and its int8
+form ``safa_aggregate_packed_q8_rows`` read the K cache rows by index and
+return the new global, the new running aggregate and the K new cache rows
+(and the int8 form the K local rows), for the engine to scatter back.
 """
 from __future__ import annotations
 
@@ -215,3 +221,95 @@ def safa_aggregate_packed_q8_fleet(q, scales, base, cache, global_prev,
     return _q8('safa_aggregate_packed_q8_fleet', True, q, scales, base,
                cache, global_prev, picked, undrafted, deprecated, completed,
                weights)
+
+
+# ---------------------------------------------------------------------------
+# The sparse schedules' rows forms: Eq. 6-8 on K indexed cache rows
+# ---------------------------------------------------------------------------
+
+def _check_rows_operands(cache, rows, roles, w_rows, global_prev, agg):
+    """Shapes (r, k, n) of a rows launch, with the operands every rows
+    kernel shares checked; raises on a bad rank or width."""
+    if cache.ndim != 2 or rows.ndim != 1:
+        raise ValueError(f'expected cache [R, N] and rows [K], got shapes '
+                         f'{tuple(cache.shape)} and {tuple(rows.shape)}')
+    (r, n), k = cache.shape, rows.shape[0]
+    _check_packed(n)
+    dev = cache.device
+    backend.check_operand(cache, 'cache', torch.float32, (r, n), dev)
+    backend.check_operand(rows, 'rows', torch.int32, (k,), dev)
+    backend.check_operand(roles, 'roles', torch.uint8, (k,), dev)
+    backend.check_operand(w_rows, 'w_rows', torch.float32, (k,), dev)
+    backend.check_operand(global_prev, 'global_prev', torch.float32, (n,),
+                          dev)
+    backend.check_operand(agg, 'agg', torch.float32, (n,), dev)
+    return r, k, n
+
+
+def safa_aggregate_packed_rows(cache, trained_rows, global_prev, agg, rows,
+                               roles, w_rows):
+    """Eq. 6-8 on the K active rows, one launch.
+
+    cache: [R, N] f32 pack buffer (R = m + 1 with the trailing scratch row
+    the sentinel slots read); trained_rows: [K, N] f32 (the committed
+    slots' uploads, base rows elsewhere); global_prev, agg: [N] f32 (agg =
+    the running Eq. 7 sum); rows: [K] int32; roles: [K] uint8 of
+    ``protocol.ROLE_*`` bits; w_rows: [K] f32 (0 at sentinel slots).
+    Returns (new_global [N], new_agg [N], c2 [K, N]), new_global = agg +
+    sum w (c1 - c0) and new_agg = agg + sum w (c2 - c0); the caller
+    scatters c2 back into the cache."""
+    if not backend.is_cuda(cache, trained_rows, global_prev, agg):
+        _check_packed(cache.shape[-1])
+        return ref.safa_aggregate_rows_ref(cache, trained_rows, global_prev,
+                                           agg, rows, roles, w_rows)
+    r, k, n = _check_rows_operands(cache, rows, roles, w_rows, global_prev,
+                                   agg)
+    dev = cache.device
+    backend.check_operand(trained_rows, 'trained_rows', torch.float32,
+                          (k, n), dev)
+    new_global = torch.empty(n, dtype=torch.float32, device=dev)
+    new_agg = torch.empty(n, dtype=torch.float32, device=dev)
+    c2 = torch.empty((k, n), dtype=torch.float32, device=dev)
+    backend.call('safa_aggregate_rows_f32', dev, cache.data_ptr(),
+                 trained_rows.data_ptr(), global_prev.data_ptr(),
+                 agg.data_ptr(), rows.data_ptr(), roles.data_ptr(),
+                 w_rows.data_ptr(), new_global.data_ptr(),
+                 new_agg.data_ptr(), c2.data_ptr(), r, k, n)
+    backend.LAUNCHES['safa_aggregate_packed_rows'] += 1
+    return new_global, new_agg, c2
+
+
+def safa_aggregate_packed_q8_rows(q_rows, scales_rows, base_rows, cache,
+                                  global_prev, agg, rows, roles, w_rows):
+    """The int8 wire's form of ``safa_aggregate_packed_rows``: the K
+    slots' uploads arrive as q_rows [K, N] int8 and scales_rows
+    [K, N / QBLOCK] f32 and are dequantised in registers; slots that did
+    not commit (no ``ROLE_COMMITTED`` bit) take base_rows [K, N] instead.
+    Returns (new_global [N], new_agg [N], c2 [K, N], local [K, N]), local
+    being each slot's trained row (its new local model)."""
+    if not backend.is_cuda(q_rows, scales_rows, base_rows, cache,
+                           global_prev, agg):
+        _check_packed(cache.shape[-1])
+        return ref.safa_aggregate_q8_rows_ref(q_rows, scales_rows,
+                                              base_rows, cache, global_prev,
+                                              agg, rows, roles, w_rows)
+    r, k, n = _check_rows_operands(cache, rows, roles, w_rows, global_prev,
+                                   agg)
+    dev = cache.device
+    backend.check_operand(q_rows, 'q_rows', torch.int8, (k, n), dev)
+    backend.check_operand(scales_rows, 'scales_rows', torch.float32,
+                          (k, n // QBLOCK), dev)
+    backend.check_operand(base_rows, 'base_rows', torch.float32, (k, n),
+                          dev)
+    new_global = torch.empty(n, dtype=torch.float32, device=dev)
+    new_agg = torch.empty(n, dtype=torch.float32, device=dev)
+    c2 = torch.empty((k, n), dtype=torch.float32, device=dev)
+    local = torch.empty((k, n), dtype=torch.float32, device=dev)
+    backend.call('safa_aggregate_q8_rows_f32', dev, q_rows.data_ptr(),
+                 scales_rows.data_ptr(), base_rows.data_ptr(),
+                 cache.data_ptr(), global_prev.data_ptr(), agg.data_ptr(),
+                 rows.data_ptr(), roles.data_ptr(), w_rows.data_ptr(),
+                 new_global.data_ptr(), new_agg.data_ptr(), c2.data_ptr(),
+                 local.data_ptr(), r, k, n)
+    backend.LAUNCHES['safa_aggregate_packed_q8_rows'] += 1
+    return new_global, new_agg, c2, local

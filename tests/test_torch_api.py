@@ -163,21 +163,22 @@ def test_own_init_trains(quickstart):
     assert all(v == 0 for v in backend.LAUNCHES.values())
 
 
-@pytest.mark.parametrize('spec,ex', [
-    (tapi.SafaSpec(), tapi.ExecSpec(schedule='sparse')),
-    (tapi.SafaSpec(), tapi.ExecSpec(schedule='sparse_delta')),
-    (tapi.SafaSpec(), tapi.ExecSpec(schedule='sparse_tier')),
-    (tapi.SafaSpec(), tapi.ExecSpec(engine='fleet', schedule='sparse')),
-    (tapi.SafaSpec(quantize_uploads=True), tapi.ExecSpec()),
-    (tapi.FedAvgSpec(), tapi.ExecSpec(schedule='sparse')),
+@pytest.mark.parametrize('spec,ex,item', [
+    (tapi.SafaSpec(), tapi.ExecSpec(engine='sequential', schedule='sparse'),
+     '22'),
+    (tapi.SafaSpec(), tapi.ExecSpec(engine='fleet', schedule='sparse_delta'),
+     '22'),
+    (tapi.SafaSpec(), tapi.ExecSpec(schedule='sparse_tier'), '12'),
+    (tapi.SafaSpec(), tapi.ExecSpec(engine='fleet', schedule='sparse'), '22'),
+    (tapi.SafaSpec(quantize_uploads=True), tapi.ExecSpec(), '17'),
+    (tapi.FedAvgSpec(), tapi.ExecSpec(engine='fleet', schedule='sparse'),
+     '22'),
 ], ids=['sparse', 'sparse_delta', 'sparse_tier', 'fleet', 'quantize_uploads',
         'fedavg'])
-def test_unported_cells_raise(spec, ex):
-    with pytest.raises(NotImplementedError, match='ROADMAP queue 1, item'):
+def test_unported_cells_raise(spec, ex, item):
+    with pytest.raises(NotImplementedError,
+                       match=f'ROADMAP queue 1, item {item} '):
         tapi.check_compat(spec, ex)
-    if isinstance(spec, tapi.FedAvgSpec):
-        with pytest.raises(NotImplementedError, match='item 11'):
-            tapi.check_compat(spec, ex)
 
 
 def test_invalid_cells_raise_value_error():

@@ -8,8 +8,10 @@ installed:
 
 Tolerances: caches, locals, q, scales and dequantised values are
 selects, one multiply or one IEEE division, so they match exactly;
-new_global (of Eq. 6-8 and of the weighted merge) is a sum taken in
-another order, held to rtol 1e-5 / atol 1e-6.  A fleet kernel runs the single-run kernel's code on each member's
+new_global (of Eq. 6-8 and of the weighted merge) and the rows kernels'
+new_agg are sums taken in another order, held to rtol 1e-5 / atol 1e-6;
+gathered and scattered rows and the rows kernels' c2 and local rows are
+copies and selects, equal exactly.  A fleet kernel runs the single-run kernel's code on each member's
 slices, so it must equal the single-run kernel bit for bit on every
 member.
 """
@@ -24,10 +26,12 @@ from repro_torch.kernels.comm_quant import (dequantize_packed,
                                             dequantize_packed_fleet,
                                             quantize_packed,
                                             quantize_packed_fleet)
+from repro_torch.kernels.rows import gather_rows, scatter_rows
 from repro_torch.kernels.safa_aggregate import (
     safa_aggregate, safa_aggregate_fleet, safa_aggregate_packed,
     safa_aggregate_packed_fleet, safa_aggregate_packed_q8,
-    safa_aggregate_packed_q8_fleet)
+    safa_aggregate_packed_q8_fleet, safa_aggregate_packed_q8_rows,
+    safa_aggregate_packed_rows)
 from repro_torch.kernels.weighted_merge import (weighted_merge_packed,
                                                 weighted_merge_packed_fleet)
 
@@ -493,3 +497,190 @@ def test_weighted_run_and_sweep_on_the_card(dev, cell):
         for k, v in q.final_global.items():
             torch.testing.assert_close(f.final_global[k], v, rtol=0,
                                        atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The sparse schedules: row gather/scatter (kernels 11, 12) and the rows
+# aggregations (kernels 15, 16)
+# ---------------------------------------------------------------------------
+
+#: (R, K, N): R = m + 1 buffer rows with the scratch row last; K slots.
+#: N = 6144 is no multiple of the gather's 4096-float block, and m = 300
+#: with K = 300 takes more slots than one 256-slot chunk
+ROWS_SHAPES = [(14, 7, 4096), (1001, 124, 2048), (301, 300, 6144)]
+
+
+def _rows_case(r, k, n, dev, seed):
+    """Seeded rows operands: distinct sorted rows then sentinel slots (r -
+    1), as a sparse schedule emits them, every role combination among the
+    real slots, and weights that are data shares as the env's are (summing
+    to 1 over the real slots, 0 at the sentinels)."""
+    rng = np.random.default_rng(seed)
+    real = max(1, k - 3)
+    rows = np.full(k, r - 1, np.int32)
+    rows[:real] = np.sort(rng.choice(r - 1, real, replace=False))
+    roles = np.zeros(k, np.uint8)
+    roles[:real] = rng.integers(0, 32, real)
+    w = np.zeros(k)
+    w[:real] = rng.dirichlet(np.ones(real))
+    t = {'rows': torch.as_tensor(rows, device=dev),
+         'roles': torch.as_tensor(roles, device=dev),
+         'w': torch.as_tensor(w, dtype=torch.float32, device=dev)}
+    for name, shape in (('cache', (r, n)), ('trained', (k, n)),
+                        ('base', (k, n)), ('global_prev', (n,)),
+                        ('agg', (n,))):
+        t[name] = torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                                  device=dev)
+    return t
+
+
+@pytest.mark.parametrize('r,k,n', ROWS_SHAPES)
+def test_gather_rows_matches_plain(dev, r, k, n):
+    t = _rows_case(r, k, n, dev, 0)
+    rows = t['rows'].clone()
+    rows[0] = rows[1]                         # a duplicate source row
+    rows[-1] = -5                             # out of range: the scratch row
+    got = gather_rows(t['cache'], rows)
+    again = gather_rows(t['cache'], rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.gather_rows_ref(t['cache'], rows))
+    assert torch.equal(got, again)
+    assert torch.equal(got[-1], t['cache'][-1])
+    assert backend.LAUNCHES['gather_rows'] == 2
+
+
+@pytest.mark.parametrize('r,k,n', ROWS_SHAPES)
+def test_scatter_rows_matches_plain(dev, r, k, n):
+    """In place, the last slot winning on duplicate rows, the same bits on
+    every launch."""
+    t = _rows_case(r, k, n, dev, 1)
+    rows = t['rows'].clone()
+    rows[1] = rows[0]                         # slot 1 overwrites slot 0
+    rows[-2] = r + 3                          # out of range: the scratch row
+    vals = t['trained']
+    want = ref.scatter_rows_ref(t['cache'].clone(), rows, vals)
+    outs = []
+    for _ in range(2):
+        buf = t['cache'].clone()
+        out = scatter_rows(buf, rows, vals)
+        torch.cuda.synchronize()
+        assert out is buf
+        outs.append(out)
+    assert torch.equal(outs[0], want) and torch.equal(outs[1], want)
+    assert torch.equal(outs[0][rows[0].long()], vals[1])
+    assert torch.equal(outs[0][-1], vals[-1])  # the last sentinel slot
+    assert backend.LAUNCHES['scatter_rows'] == 2
+
+
+@pytest.mark.parametrize('r,k,n', ROWS_SHAPES)
+def test_rows_aggregate_matches_plain(dev, r, k, n):
+    t = _rows_case(r, k, n, dev, 2)
+    t['rows'][-1] = r + 3                     # a sentinel out of range
+    args = (t['cache'], t['trained'], t['global_prev'], t['agg'], t['rows'],
+            t['roles'], t['w'])
+    want = ref.safa_aggregate_rows_ref(*args)
+    got = safa_aggregate_packed_rows(*args)
+    again = safa_aggregate_packed_rows(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[2], want[2])
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert backend.LAUNCHES['safa_aggregate_packed_rows'] == 2
+
+
+@pytest.mark.parametrize('r,k,n', ROWS_SHAPES)
+def test_q8_rows_aggregate_matches_plain(dev, r, k, n):
+    t = _rows_case(r, k, n, dev, 3)
+    t['rows'][-1] = -1                        # a sentinel out of range
+    q, s = ref.quantize_packed_ref(t['trained'])
+    args = (q, s, t['base'], t['cache'], t['global_prev'], t['agg'],
+            t['rows'], t['roles'], t['w'])
+    want = ref.safa_aggregate_q8_rows_ref(*args)
+    got = safa_aggregate_packed_q8_rows(*args)
+    again = safa_aggregate_packed_q8_rows(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert backend.LAUNCHES['safa_aggregate_packed_q8_rows'] == 2
+
+
+def test_rows_kernels_refuse_bad_operands(dev):
+    t = _rows_case(14, 7, 2048, dev, 4)
+    with pytest.raises(TypeError, match='rows'):
+        gather_rows(t['cache'], t['rows'].long())
+    with pytest.raises(TypeError, match='roles'):
+        safa_aggregate_packed_rows(t['cache'], t['trained'],
+                                   t['global_prev'], t['agg'], t['rows'],
+                                   t['roles'].int(), t['w'])
+    with pytest.raises(ValueError, match='w_rows'):
+        safa_aggregate_packed_rows(t['cache'], t['trained'],
+                                   t['global_prev'], t['agg'], t['rows'],
+                                   t['roles'], t['w'].cpu())
+    assert all(v == 0 for v in backend.LAUNCHES.values())
+
+
+#: sparse cell -> (protocol name, exec fields, launches per round)
+SPARSE_CELLS = {
+    'safa-sparse-packed': ('safa', dict(schedule='sparse',
+                                        use_kernel='packed'),
+                           {'safa_aggregate_packed': 1}),
+    'safa-sparse-int8': ('safa', dict(schedule='sparse', wire='int8'),
+                         {'quantize_packed': 1,
+                          'safa_aggregate_packed_q8': 1}),
+    'safa-delta': ('safa', dict(schedule='sparse_delta'), {}),
+    'safa-delta-packed': ('safa', dict(schedule='sparse_delta',
+                                       use_kernel='packed'),
+                          {'gather_rows': 1, 'safa_aggregate_packed_rows': 1,
+                           'scatter_rows': 2}),
+    'safa-delta-packed-int8': ('safa', dict(schedule='sparse_delta',
+                                            use_kernel='packed',
+                                            wire='int8'),
+                               {'gather_rows': 1, 'quantize_packed': 1,
+                                'safa_aggregate_packed_q8_rows': 1,
+                                'scatter_rows': 2}),
+    'fedavg-sparse': ('fedavg', dict(schedule='sparse'), {}),
+    'fedavg-delta-int8': ('fedavg', dict(schedule='sparse_delta',
+                                         wire='int8'),
+                          {'quantize_packed': 1, 'dequantize_packed': 1}),
+    'fedcs-delta': ('fedcs', dict(schedule='sparse_delta'), {}),
+}
+
+
+@pytest.mark.parametrize('cell', sorted(SPARSE_CELLS))
+def test_sparse_run_on_the_card(dev, cell):
+    """Sparse single runs on the card through ``run()`` (scan and loop):
+    each kernel launches as often per round as the cell says; scan equals
+    loop bit for bit; the run ends within atol 1e-5 of the same cell's
+    dense run (1e-4 on the int8 wire: the dense int8 run quantises the
+    same uploads)."""
+    from repro_torch import api
+    from repro_torch.fedsim import EnvSpec
+    spec = EnvSpec(m=24, crash_prob=0.3, dataset_size=480, batch_size=10,
+                   epochs=1, t_lim=200.0, seed=3)
+    task = _regression(spec)
+    name, ex, per_round = SPARSE_CELLS[cell]
+    rounds = 6
+    runs = {}
+    for engine in ('scan', 'loop'):
+        backend.reset_launches()
+        runs[engine] = api.Experiment(
+            task, spec, api.spec(name, fraction=0.3),
+            api.ExecSpec(engine=engine, eval_every=3, **ex),
+            rounds=rounds).compile().run()
+        torch.cuda.synchronize()
+        assert {k: v for k, v in backend.LAUNCHES.items() if v} == \
+            {k: n * rounds for k, n in per_round.items()}
+    for k, v in runs['scan'].final_global.items():
+        assert v.is_cuda and torch.equal(v, runs['loop'].final_global[k])
+    assert all(np.isfinite([e['loss'] for _, e in runs['scan'].evals()]))
+    dense = api.Experiment(task, spec, api.spec(name, fraction=0.3),
+                           api.ExecSpec(eval_every=3, **dict(
+                               ex, schedule='dense')),
+                           rounds=rounds).compile().run()
+    atol = 1e-4 if ex.get('wire') == 'int8' else 1e-5
+    for k, v in dense.final_global.items():
+        torch.testing.assert_close(runs['scan'].final_global[k], v, rtol=0,
+                                   atol=atol)

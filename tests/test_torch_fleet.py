@@ -584,7 +584,10 @@ def test_unported_sweep_cells_raise(reg, case):
         if case == 'checkpoint':
             _runner(tt).run_sweep(members, checkpoint='sweep.npz')
         elif case == 'sparse':
-            _runner(tt, schedule='sparse').run_sweep(members)
+            # sparse single runs are ported; sparse sweeps are item 22
+            with pytest.raises(NotImplementedError, match='item 22 '):
+                _runner(tt, schedule='sparse').run_sweep(members)
+            _runner(tt, schedule='sparse_delta').run_sweep(members)
         elif case == 'sparse_tier':
             _runner(tt, schedule='sparse_tier').run_sweep(members)
         elif case == 'comm_wire':

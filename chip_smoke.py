@@ -28,7 +28,13 @@ Phases, each of which must pass:
              rtol 1e-5 /
              atol 1e-6, every kernel the same bits on two launches; the
              gather and scatter beside ``torch.index_select`` and
-             ``index_copy_``.
+             ``index_copy_``.  Their fleet forms (kernels 13, 14, 17
+             and 18) run at S = 4 members of that shape, each member the
+             round-2 rows and roles of its own m = 1000 schedule (env
+             seeds 0-3), padded to the fleet's widest K: against their
+             plain versions and, member by member, bit for bit against
+             the single-run kernels; the gather and scatter beside
+             ``index_select``/``index_copy_`` on the [S * R, N] view.
 3. main    — the paper's Task 2 CNN at full width (m = 100, 24 batches of
              40, 5 epochs) through ``Experiment(...).compile().run()``,
              with ``use_kernel='packed'`` and with ``wire='int8'``; each
@@ -92,6 +98,26 @@ Phases, each of which must pass:
              aggregation's summation order into a whole step).  Each run
              prints its K, its train and server-step seconds per round and
              its peak device memory.
+8. sparse sweeps — ``run_sweep`` on the sparse schedules, the same task
+             at full width, 2 rounds, deterministic cuDNN, every member's
+             global kept after each round.  On the paper's environment
+             (the fleet phase's four members): SAFA ``sparse_delta``
+             packed, f32 and int8 (a fleet round: ``gather_rows_fleet``
+             once, ``safa_aggregate_packed_rows_fleet`` or, after
+             ``quantize_packed_fleet``, the q8 form once,
+             ``scatter_rows_fleet`` twice), SAFA ``sparse`` packed,
+             FedAvg ``sparse_delta`` int8 and FedCS ``sparse``, each on
+             the fleet and the sequential engine, and their dense fleets.
+             Each fleet is held to its sequential run and to its dense
+             fleet: f32 within 1e-5 after one round and after two
+             (FedCS within 1e-4 after two, as the sparse phase holds its
+             stateless pair), int8 within 1e-4 after one round and one
+             quantisation step after two.  On the quota-bounded
+             environment (four members, env seeds 0-3, m = 1000): SAFA
+             ``sparse_delta`` packed, f32 and int8, fleet against
+             sequential (a dense fleet would not fit on the card).  Each
+             run prints its members' K, seconds per fleet round (or
+             member-round) and its peak device memory.
 
 The line before the last is a JSON object of kernel records; the last
 line is ``{"ok": true, "device": {...}}``.  Without a visible card, or
@@ -576,12 +602,12 @@ def merge_kernel_phase(torch, n: int, fails: list) -> list:
     return recs
 
 
-def scale_spec():
+def scale_spec(seed=0):
     """The quota-bounded environment of the JAX package's
     ``benchmarks/scale.py`` (``make_scale_env``) with the Task 2 data,
     batch and epochs: m = 1000, crash 0, communication negligible, t_lim
-    pinned at the 2.5 x quota-th fastest client, so that SAFA's active set
-    stays near 2.5 x quota whatever m."""
+    pinned at the 2.5 x quota-th fastest client of the env of ``seed``,
+    so that SAFA's active set stays near 2.5 x quota whatever m."""
     import numpy as np
 
     from repro_torch.configs import PAPER_TASKS
@@ -590,20 +616,47 @@ def scale_spec():
     spec = EnvSpec(m=SCALE_M, crash_prob=0.0,
                    dataset_size=cfg['dataset_size'],
                    batch_size=cfg['batch_size'], epochs=cfg['epochs'],
-                   t_lim=1e9, seed=0, model_size_mb=1e-3)
+                   t_lim=1e9, seed=seed, model_size_mb=1e-3)
     env = spec.build()
     base = env.t_updown + env.full_train_time()
     k = min(SCALE_M - 1, int(round(2.5 * QUOTA)))
     return spec.replace(t_lim=float(np.partition(base, k)[k]))
 
 
-def scale_schedule(rounds):
-    """SAFA's sparse schedule on ``scale_spec()`` (lag tolerance 10 x
+def scale_schedule(rounds, seed=0):
+    """SAFA's sparse schedule on ``scale_spec(seed)`` (lag tolerance 10 x
     rounds, as the JAX package's scale benchmark sets it)."""
     from repro_torch.core import federation
     return federation.precompute_safa_schedule(
-        scale_spec().build(), fraction=QUOTA / SCALE_M,
+        scale_spec(seed).build(), fraction=QUOTA / SCALE_M,
         lag_tolerance=10 * rounds, rounds=rounds, form='sparse')
+
+
+def rows_bytes(h_rows, h_roles, n):
+    """Bytes (these roles' need, and every slot's) and operations one
+    launch of each rows kernel moves for one member's slots ``h_rows``,
+    ``h_roles`` (numpy [K]) at width n: name -> (bytes, flops,
+    dense_bytes).  A fleet launch moves the sum over its members."""
+    import numpy as np
+
+    from repro_torch.core import protocol
+    k = len(h_rows)
+    row, kn = 4 * n, k * n
+    distinct = len(np.unique(h_rows))
+    p = (h_roles & protocol.ROLE_PICKED) != 0
+    u = (h_roles & protocol.ROLE_UNDRAFTED) != 0
+    done = int(((h_roles & protocol.ROLE_COMMITTED) != 0).sum())
+    slot_bytes = 9 * k                      # rows, roles, weights
+    wire_row = n + 4 * (n // 128)
+    return {
+        'gather': (distinct * row + k * row + slot_bytes, 0, 2 * k * row),
+        'scatter': (2 * distinct * row + slot_bytes, 0, 2 * k * row),
+        'rows': (distinct * row + int((p | u).sum()) * row + k * row
+                 + 4 * row + slot_bytes, 4 * kn,
+                 3 * k * row + 4 * row + slot_bytes),
+        'q8_rows': (done * wire_row + (k - done) * row + distinct * row
+                    + 2 * k * row + 4 * row + slot_bytes, 5 * kn,
+                    k * wire_row + 4 * k * row + 4 * row + slot_bytes)}
 
 
 def rows_kernel_phase(torch, n: int, fails: list) -> list:
@@ -659,15 +712,10 @@ def rows_kernel_phase(torch, n: int, fails: list) -> list:
     def same(a, b):
         return all(torch.equal(x, y) for x, y in zip(a, b))
 
-    row = 4 * n
     real = h_rows < m
-    distinct = len(np.unique(h_rows))
+    need = rows_bytes(h_rows, h_roles, n)
     print(f'rows: K = {k} slots ({int(real.sum())} real) of R = {r} rows at '
           f'N = {n}; roles of round 2 of the m = {m} schedule')
-    p = (h_roles & protocol.ROLE_PICKED) != 0
-    u = (h_roles & protocol.ROLE_UNDRAFTED) != 0
-    c = (h_roles & protocol.ROLE_COMMITTED) != 0
-    slot_bytes = 9 * k                      # rows, roles, weights
 
     # -- gather_rows (kernel 11) -------------------------------------------
     got = gather_rows(cache0, rows)
@@ -692,8 +740,7 @@ def rows_kernel_phase(torch, n: int, fails: list) -> list:
           'torch.index_select (the yardstick) differs')
     recs.append(_record(
         'gather_rows', 'src/repro_torch/csrc/rows.cu',
-        'src/repro/kernels/ops.py:270', 0.0, ms, plain,
-        distinct * row + k * row + slot_bytes, 0, 2 * k * row,
+        'src/repro/kernels/ops.py:270', 0.0, ms, plain, *need['gather'],
         library_ms=lib))
 
     # -- scatter_rows (kernel 12), in place, last slot wins ------------------
@@ -726,8 +773,8 @@ def rows_kernel_phase(torch, n: int, fails: list) -> list:
     check(torch.equal(buf, want), 'index_copy_ (the yardstick) differs')
     recs.append(_record(
         'scatter_rows', 'src/repro_torch/csrc/rows.cu',
-        'src/repro/kernels/ops.py:275', 0.0, ms, plain,
-        2 * distinct * row + slot_bytes, 0, 2 * k * row, library_ms=lib))
+        'src/repro/kernels/ops.py:275', 0.0, ms, plain, *need['scatter'],
+        library_ms=lib))
     del buf, out, want, dup_buf, dup_want, twice
 
     # -- safa_aggregate_packed_rows (kernel 15) -------------------------------
@@ -744,12 +791,10 @@ def rows_kernel_phase(torch, n: int, fails: list) -> list:
     ms = _time_ms(torch, lambda: safa_aggregate_packed_rows(*args))
     plain = _time_ms(torch, lambda: ref.safa_aggregate_rows_ref(*args),
                      warm=2, timed=10)
-    kn = k * n
     recs.append(_record(
         'safa_aggregate_packed_rows', 'src/repro_torch/csrc/safa_rows.cu',
         'src/repro/kernels/safa_aggregate.py:422', err, ms, plain,
-        distinct * row + int((p | u).sum()) * row + k * row + 4 * row
-        + slot_bytes, 4 * kn, 3 * k * row + 4 * row + slot_bytes))
+        *need['rows']))
 
     # -- safa_aggregate_packed_q8_rows (kernel 16) ------------------------------
     q, sc = ref.quantize_packed_ref(trained)
@@ -766,14 +811,227 @@ def rows_kernel_phase(torch, n: int, fails: list) -> list:
     ms = _time_ms(torch, lambda: safa_aggregate_packed_q8_rows(*args))
     plain = _time_ms(torch, lambda: ref.safa_aggregate_q8_rows_ref(*args),
                      warm=2, timed=10)
-    wire_row = n + 4 * (n // 128)
-    done = int(c.sum())
     recs.append(_record(
         'safa_aggregate_packed_q8_rows', 'src/repro_torch/csrc/safa_rows.cu',
         'src/repro/kernels/safa_aggregate.py:507', err, ms, plain,
-        done * wire_row + (k - done) * row + distinct * row + 2 * k * row
-        + 4 * row + slot_bytes, 5 * kn,
-        k * wire_row + 4 * k * row + 4 * row + slot_bytes))
+        *need['q8_rows']))
+    _print_records(recs)
+    return recs
+
+
+def rows_fleet_kernel_phase(torch, n: int, fails: list) -> list:
+    """Kernels 13, 14, 17 and 18 (the fleet forms of 11, 12, 15, 16) at
+    S = 4 members of the quota-bounded shape: R = 1001 buffer rows, each
+    member the rows and roles of round 2 of its own m = 1000 schedule
+    (``scale_spec(s)``, env seeds 0-3, each with its own t_lim pin),
+    padded to the fleet's widest K with sentinel slots as a sparse fleet
+    schedule pads them; against the plain versions, bit for bit against
+    the single-run kernel on every member's slices, each twice."""
+    import numpy as np
+
+    from repro_torch.core import protocol
+    from repro_torch.core.schedules import SparseFleetSchedule
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rows import (gather_rows, gather_rows_fleet,
+                                          scatter_rows, scatter_rows_fleet)
+    from repro_torch.kernels.safa_aggregate import (
+        safa_aggregate_packed_q8_rows, safa_aggregate_packed_q8_rows_fleet,
+        safa_aggregate_packed_rows, safa_aggregate_packed_rows_fleet)
+    dev = torch.device('cuda')
+    fleet = SparseFleetSchedule.from_members(
+        [scale_schedule(3, seed=s) for s in range(S)])
+    m = fleet.m
+    r = m + 1
+    h_rows, h_roles = fleet.idx[:, 1], fleet.roles[:, 1]   # round 2
+    k = h_rows.shape[1]
+    rows = torch.as_tensor(h_rows, device=dev)
+    roles = torch.as_tensor(h_roles, device=dev)
+    weights = torch.as_tensor(
+        np.stack([scale_spec(s).build().weights for s in range(S)]),
+        dtype=torch.float32, device=dev)
+    w = protocol._slot_weights(rows, weights)
+    # every member's round-2 rows with a duplicate real row (slot 1 repeats
+    # slot 0's) and two rows outside [0, R) that must land in the member's
+    # own scratch row R - 1
+    h_dup = h_rows.copy()
+    h_dup[:, 1] = h_dup[:, 0]
+    h_dup[:, 2], h_dup[:, 3] = r + 7, -1
+    dup_rows = torch.as_tensor(h_dup, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    cache0, trained, base, glob, agg = (normal(S, r, n), normal(S, k, n),
+                                        normal(S, k, n), normal(S, n),
+                                        normal(S, n))
+    recs = []
+
+    def check(cond, what):
+        if not cond:
+            fails.append(what)
+            print(f'FAIL rows fleet kernels: {what}')
+
+    def vec_err(got, want, what):
+        err = max((g - w_).abs().max().item() for g, w_ in zip(got, want))
+        check(all(torch.allclose(g, w_, rtol=1e-5, atol=1e-6)
+                  for g, w_ in zip(got, want)),
+              f'{what} new_global/new_agg beyond rtol 1e-5 / atol 1e-6 '
+              f'(max abs err {err:.3e})')
+        return err
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def per_member(name, got, single):
+        """Member s of the fleet launch against the single-run kernel on
+        member s's slices, bit for bit."""
+        for i in range(S):
+            check(same([g[i] for g in got], single(i)),
+                  f'{name} member {i} differs from the single-run kernel')
+
+    def need(kind):
+        per = [rows_bytes(h_rows[i], h_roles[i], n)[kind] for i in range(S)]
+        return tuple(sum(x[j] for x in per) for j in range(3))
+
+    caps = fleet.capacities.tolist()
+    print(f'rows fleet: S = {S} members, K = {k} slots (members\' own K '
+          f'{caps}; round 2: {(h_rows < m).sum(axis=1).tolist()} real) of '
+          f'R = {r} rows at N = {n}')
+    flat = (rows.long() + r * torch.arange(S, device=dev)[:, None]) \
+        .reshape(-1)
+    view = cache0.view(S * r, n)
+
+    # -- gather_rows_fleet (kernel 13) ---------------------------------------
+    got = gather_rows_fleet(cache0, rows)
+    again = gather_rows_fleet(cache0, rows)
+    dup = gather_rows_fleet(cache0, dup_rows)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref.gather_rows_ref(cache0, rows)),
+          'gather_rows_fleet differs from its plain version')
+    check(torch.equal(dup, ref.gather_rows_ref(cache0, dup_rows)),
+          'gather_rows_fleet (duplicate and out-of-range rows) differs from '
+          'its plain version')
+    check(all(torch.equal(dup[i, 2], cache0[i, r - 1])
+              and torch.equal(dup[i, 3], cache0[i, r - 1])
+              for i in range(S)),
+          'gather_rows_fleet: an out-of-range row does not read the '
+          'member\'s scratch row')
+    check(torch.equal(got, again), 'gather_rows_fleet differs between '
+                                   'launches')
+    per_member('gather_rows_fleet', (got,),
+               lambda i: (gather_rows(cache0[i], rows[i]),))
+    per_member('gather_rows_fleet (duplicate rows)', (dup,),
+               lambda i: (gather_rows(cache0[i], dup_rows[i]),))
+    ms = _time_ms(torch, lambda: gather_rows_fleet(cache0, rows))
+    plain = _time_ms(torch, lambda: ref.gather_rows_ref(cache0, rows),
+                     warm=2, timed=10)
+    lib = _time_ms(torch, lambda: torch.index_select(view, 0, flat))
+    check(torch.equal(torch.index_select(view, 0, flat).view(S, k, n), got),
+          'torch.index_select (the yardstick) differs')
+    recs.append(_record(
+        'gather_rows_fleet', 'src/repro_torch/csrc/rows.cu',
+        'src/repro/kernels/ops.py:332', 0.0, ms, plain, *need('gather'),
+        library_ms=lib))
+    del got, again, dup
+
+    # -- scatter_rows_fleet (kernel 14), in place, last slot wins ------------
+    buf = cache0.clone()
+    ptr = buf.data_ptr()
+    out = scatter_rows_fleet(buf, rows, trained)
+    want = ref.scatter_rows_ref(cache0.clone(), rows, trained)
+    torch.cuda.synchronize()
+    check(out.data_ptr() == ptr, 'scatter_rows_fleet not in place')
+    check(torch.equal(out, want), 'scatter_rows_fleet differs from its '
+                                  'plain version')
+    del want
+    per_member('scatter_rows_fleet', (out,),
+               lambda i: (scatter_rows(cache0[i].clone(), rows[i],
+                                       trained[i]),))
+    dup_buf = scatter_rows_fleet(cache0.clone(), dup_rows, trained)
+    dup_want = ref.scatter_rows_ref(cache0.clone(), dup_rows, trained)
+    torch.cuda.synchronize()
+    check(torch.equal(dup_buf, dup_want), 'scatter_rows_fleet (duplicate '
+                                          'rows) differs from its plain '
+                                          'version')
+    del dup_want
+    check(all(torch.equal(dup_buf[i, int(h_dup[i, 0])], trained[i, 1])
+              for i in range(S)),
+          'scatter_rows_fleet: the last slot does not win its row')
+    last_out = [int(np.flatnonzero((h_dup[i] < 0) | (h_dup[i] >= r - 1))[-1])
+                for i in range(S)]
+    check(all(torch.equal(dup_buf[i, r - 1], trained[i, last_out[i]])
+              for i in range(S)),
+          'scatter_rows_fleet: an out-of-range row does not land in the '
+          'member\'s scratch row')
+    per_member('scatter_rows_fleet (duplicate rows)', (dup_buf,),
+               lambda i: (scatter_rows(cache0[i].clone(), dup_rows[i],
+                                       trained[i]),))
+    twice = scatter_rows_fleet(cache0.clone(), dup_rows, trained)
+    torch.cuda.synchronize()
+    check(torch.equal(dup_buf, twice), 'scatter_rows_fleet differs between '
+                                       'launches')
+    del dup_buf, twice
+    ms = _time_ms(torch, lambda: scatter_rows_fleet(buf, rows, trained))
+    plain = _time_ms(torch, lambda: ref.scatter_rows_ref(buf, rows, trained),
+                     warm=2, timed=10)
+    lib = _time_ms(torch, lambda: buf.view(S * r, n).index_copy_(
+        0, flat, trained.view(S * k, n)))
+    # index_copy_ leaves a row that several slots share to any of them:
+    # only the sentinel slots share one, each member's scratch row
+    check(torch.equal(buf[:, :r - 1], out[:, :r - 1]),
+          'index_copy_ (the yardstick) differs')
+    recs.append(_record(
+        'scatter_rows_fleet', 'src/repro_torch/csrc/rows.cu',
+        'src/repro/kernels/ops.py:337', 0.0, ms, plain, *need('scatter'),
+        library_ms=lib))
+    del buf, out
+
+    # -- safa_aggregate_packed_rows_fleet (kernel 17) ------------------------
+    args = (cache0, trained, glob, agg, rows, roles, w)
+    want = ref.safa_aggregate_rows_ref(*args)
+    got = safa_aggregate_packed_rows_fleet(*args)
+    again = safa_aggregate_packed_rows_fleet(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got[2], want[2]), 'safa_aggregate_packed_rows_fleet '
+                                        'c2 differs')
+    err = vec_err(got[:2], want[:2], 'safa_aggregate_packed_rows_fleet')
+    check(same(got, again), 'safa_aggregate_packed_rows_fleet differs '
+                            'between launches')
+    per_member('safa_aggregate_packed_rows_fleet', got,
+               lambda i: safa_aggregate_packed_rows(*(a[i] for a in args)))
+    ms = _time_ms(torch, lambda: safa_aggregate_packed_rows_fleet(*args))
+    plain = _time_ms(torch, lambda: ref.safa_aggregate_rows_ref(*args),
+                     warm=2, timed=10)
+    recs.append(_record(
+        'safa_aggregate_packed_rows_fleet',
+        'src/repro_torch/csrc/safa_rows.cu',
+        'src/repro/kernels/safa_aggregate.py:600', err, ms, plain,
+        *need('rows')))
+    del want, got, again
+
+    # -- safa_aggregate_packed_q8_rows_fleet (kernel 18) ---------------------
+    q, sc = ref.quantize_packed_ref(trained)
+    args = (q, sc, base, cache0, glob, agg, rows, roles, w)
+    want = ref.safa_aggregate_q8_rows_ref(*args)
+    got = safa_aggregate_packed_q8_rows_fleet(*args)
+    again = safa_aggregate_packed_q8_rows_fleet(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got[2], want[2]) and torch.equal(got[3], want[3]),
+          'safa_aggregate_packed_q8_rows_fleet c2 or local rows differ')
+    err = vec_err(got[:2], want[:2], 'safa_aggregate_packed_q8_rows_fleet')
+    check(same(got, again), 'safa_aggregate_packed_q8_rows_fleet differs '
+                            'between launches')
+    per_member('safa_aggregate_packed_q8_rows_fleet', got,
+               lambda i: safa_aggregate_packed_q8_rows(
+                   *(a[i] for a in args)))
+    ms = _time_ms(torch, lambda: safa_aggregate_packed_q8_rows_fleet(*args))
+    plain = _time_ms(torch, lambda: ref.safa_aggregate_q8_rows_ref(*args),
+                     warm=2, timed=10)
+    recs.append(_record(
+        'safa_aggregate_packed_q8_rows_fleet',
+        'src/repro_torch/csrc/safa_rows.cu',
+        'src/repro/kernels/safa_aggregate.py:678', err, ms, plain,
+        *need('q8_rows')))
     _print_records(recs)
     return recs
 
@@ -878,7 +1136,8 @@ def main_path_phase(torch, spec, task, fails: list) -> dict:
     print(f'main: packed vs plain final_global max abs diff {diff:.3e}')
     if not diff <= 1e-4:
         fails.append(f'packed vs plain final_global differ by {diff:.3e}')
-    profile_train(torch, 'profile', lambda: task.local_train(
+    one = one_epoch(task)
+    profile_train(torch, 'profile (one epoch)', lambda: one.local_train(
         protocol.broadcast_global(task.init_global(0), spec.m), 0))
     return launches
 
@@ -961,8 +1220,11 @@ def fleet_path_phase(torch, spec, task, fails: list) -> dict:
         fails.append(f'fleet: packed vs plain final_global differ by '
                      f'{diffs}')
     g = api.init_fleet_global(task, list(range(S)))
-    profile_train(torch, 'fleet profile', lambda: task.local_train_fleet(
-        protocol.broadcast_global(g, spec.m, fleet=True), None))
+    one = one_epoch(task)
+    profile_train(torch, 'fleet profile (one epoch)',
+                  lambda: one.local_train_fleet(
+                      protocol.broadcast_global(g, spec.m, fleet=True),
+                      None))
     return launches
 
 
@@ -1311,6 +1573,242 @@ def _sparse_runs(torch, spec, task, fails: list) -> dict:
     return launches
 
 
+def sparse_sweep_phase(torch, spec, task, fails: list) -> dict:
+    """Sparse sweeps of Task 2's CNN at full width through ``run_sweep``,
+    on the fleet and the sequential engine, on the paper's environment
+    (m = 100) and on the quota-bounded one (m = 1000); returns the launch
+    counts of kernels 13, 14, 17 and 18 in the fleet runs that drive
+    them.  Trains with deterministic cuDNN, as the sparse phase does."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _sparse_sweeps(torch, spec, task, fails)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _fleet_forms(kernels: dict) -> dict:
+    """A single run's launches per round -> a fleet's per fleet round: the
+    fleet form of every kernel, as often."""
+    return {k + '_fleet': v for k, v in kernels.items()}
+
+
+def _capacities(exp, members) -> list:
+    """Every member's own active-set width K on ``exp``'s sparse
+    schedule (host precompute only)."""
+    import dataclasses
+
+    from repro_torch import api
+    built = [dataclasses.replace(
+        mem, env=mem.env.replace(**(mem.overrides or {})).build(),
+        overrides=None) for mem in members]
+    pdef = api.PROTOCOLS[type(exp.protocol)]
+    fleet = pdef.fleet_precompute(built, exp.protocol,
+                                  rounds=exp.rounds).to_sparse()
+    return fleet.capacities.tolist()
+
+
+def _drive_sweep(torch, task, label, exp, members, kernels, fails):
+    """One ``run_sweep`` of ``exp`` (which evaluates every round) with
+    every launch counter at 0 before it, its local training and its round
+    functions timed per call, the peak device memory reset before it, and
+    every member's global model kept at each eval.  Fails unless each
+    kernel in ``kernels`` launched its count per round (per member-round
+    on the sequential engine) and no other kernel launched.  Returns
+    (histories, globals[t][s] after round t + 1, launch counts)."""
+    from repro_torch.core import protocol
+    from repro_torch.kernels import backend
+
+    ex = exp.exec
+    fleet = ex.engine == 'fleet'
+    attr = ('local_train' + ('_rows' if ex.schedule != 'dense' else '')
+            + ('_fleet' if fleet else ''))
+    rounds, size = exp.rounds, len(members)
+    caps = _capacities(exp, members) if ex.schedule != 'dense' else None
+    originals = {f: getattr(protocol, f) for f in ROUND_FNS}
+    train_s, round_s, seen = [], [], []
+    evaluate = task.evaluate
+
+    def keep(g):
+        seen.append({k: v.clone() for k, v in g.items()})
+        return evaluate(g)
+    setattr(task, attr, _timed(torch, getattr(task, attr), train_s))
+    task.evaluate = keep
+    for f in ROUND_FNS:
+        setattr(protocol, f, _timed(torch, originals[f], round_s))
+    try:
+        backend.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        hists = exp.compile().run_sweep(members)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        counts = {c: v for c, v in backend.LAUNCHES.items() if v}
+    finally:
+        for f in ROUND_FNS:
+            setattr(protocol, f, originals[f])
+        delattr(task, attr)
+        del task.evaluate
+    server_s = [r - t for r, t in zip(round_s, train_s)]
+    per = 'fleet round' if fleet else 'member-round'
+    print(f'{label}: K {caps} of m {members[0].env.m}; {wall:.2f} s for '
+          f'{rounds} rounds of {size} members; per {per} train '
+          f'{[round(v, 4) for v in train_s]} s, server step '
+          f'{[round(v, 4) for v in server_s]} s; launches {counts}; peak '
+          f'device memory {peak / 2**30:.3f} GiB')
+    want = {c: n * rounds * (1 if fleet else size)
+            for c, n in kernels.items()}
+    if counts != want:
+        fails.append(f'{label}: launches {counts}, want {want}')
+    if fleet:
+        kept = [seen[t * size:(t + 1) * size] for t in range(rounds)]
+    else:
+        kept = [[seen[i * rounds + t] for i in range(size)]
+                for t in range(rounds)]
+    return hists, kept, counts
+
+
+def _sparse_sweeps(torch, spec, task, fails: list) -> dict:
+    from repro_torch import api
+
+    rounds = SPARSE_ROUNDS
+    safa = api.SafaSpec()
+    q8 = {'quantize_packed': 1, 'safa_aggregate_packed_q8': 1}
+    wire = {'quantize_packed': 1, 'dequantize_packed': 1}
+    # (label, spec, exec fields, a single run's launches per round): the
+    # sparse cells run on both engines, their dense references as fleets
+    sparse = [
+        ('safa-delta-packed', safa,
+         dict(schedule='sparse_delta', use_kernel='packed'), DELTA_PACKED),
+        ('safa-delta-packed-int8', safa,
+         dict(schedule='sparse_delta', use_kernel='packed', wire='int8'),
+         DELTA_PACKED_Q8),
+        ('safa-sparse-packed', safa,
+         dict(schedule='sparse', use_kernel='packed'),
+         {'safa_aggregate_packed': 1}),
+        ('fedavg-delta-int8', api.FedAvgSpec(),
+         dict(schedule='sparse_delta', wire='int8'), wire),
+        ('fedcs-sparse', api.FedCSSpec(), dict(schedule='sparse'), {}),
+    ]
+    dense = [
+        ('safa-dense-packed', safa, dict(use_kernel='packed'),
+         {'safa_aggregate_packed': 1}),
+        ('safa-dense-int8', safa, dict(wire='int8'), q8),
+        ('fedavg-dense-int8', api.FedAvgSpec(), dict(wire='int8'), wire),
+        ('fedcs-dense', api.FedCSSpec(), {}, {}),
+    ]
+    # f32: (fleet run, its reference, tolerance after all rounds); every
+    # pair is held within 1e-5 after one round.  'sequential' is the same
+    # cell on the sequential engine.
+    paper_f32 = [('safa-delta-packed', 'sequential', 1e-5),
+                 ('safa-delta-packed', 'safa-dense-packed', 1e-5),
+                 ('safa-sparse-packed', 'sequential', 1e-5),
+                 ('safa-sparse-packed', 'safa-dense-packed', 1e-5),
+                 ('fedcs-sparse', 'sequential', STATELESS_TOL),
+                 ('fedcs-sparse', 'fedcs-dense', STATELESS_TOL)]
+    paper_q8 = [('safa-delta-packed-int8', 'sequential'),
+                ('safa-delta-packed-int8', 'safa-dense-int8'),
+                ('fedavg-delta-int8', 'sequential'),
+                ('fedavg-delta-int8', 'fedavg-dense-int8')]
+    launches = {}
+
+    def sweep(env_task, members, init, runs, engines):
+        kept = {}
+        for label, sp, ex, kernels in runs:
+            for engine in engines:
+                tag = f'sparse sweep[{label}, {engine}]'
+                exp = api.Experiment(env_task, None, sp, api.ExecSpec(
+                    engine=engine, eval_every=1, **ex), rounds=rounds)
+                hists, kept[label, engine], counts = _drive_sweep(
+                    torch, env_task, tag, exp, members,
+                    _fleet_forms(kernels) if engine == 'fleet' else kernels,
+                    fails)
+                for i, h in enumerate(hists):
+                    _check_losses(f'{tag} member {i}',
+                                  [e['loss'] for _, e in h.evals()],
+                                  init[i], fails)
+                if engine == 'fleet' and label in ('safa-delta-packed',
+                                                   'safa-delta-packed-int8'):
+                    for c in _fleet_forms(kernels):
+                        if c != 'quantize_packed_fleet':
+                            launches[c] = counts.get(c, 0)
+        return kept
+
+    def diff(a, b, t):
+        return max(_max_diff(x, y) for x, y in zip(a[t], b[t]))
+
+    def compare(kept, f32_pairs, q8_pairs):
+        def ref_of(run, ref):
+            return kept[run, 'sequential'] if ref == 'sequential' \
+                else kept[ref, 'fleet']
+        for run, ref, tol in f32_pairs:
+            a, b = kept[run, 'fleet'], ref_of(run, ref)
+            one, last = diff(a, b, 0), diff(a, b, rounds - 1)
+            print(f'sparse sweep: {run} fleet vs {ref} final_global max abs '
+                  f'diff over members after 1 round {one:.3e} (tolerance '
+                  f'1e-05), after {rounds} rounds {last:.3e} (tolerance '
+                  f'{tol:.0e})')
+            if not (one <= 1e-5 and last <= tol):
+                fails.append(f'sparse sweep: {run} fleet vs {ref} differ by '
+                             f'{one:.3e} after 1 round, {last:.3e} after '
+                             f'{rounds}')
+        # int8 as the sparse phase holds it: 1e-4 after one round, one
+        # quantisation step of the largest weight after the last
+        for run, ref in q8_pairs:
+            a, b = kept[run, 'fleet'], ref_of(run, ref)
+            one, last = diff(a, b, 0), diff(a, b, rounds - 1)
+            bound = max(v.abs().max().item() for g in b[-1]
+                        for v in g.values()) / 127
+            print(f'sparse sweep: {run} fleet vs {ref} final_global max abs '
+                  f'diff over members after 1 round {one:.3e} (tolerance '
+                  f'1e-04), after {rounds} rounds {last:.3e} (bound '
+                  f'{bound:.3e} = max |w| / 127)')
+            if not (one <= 1e-4 and last <= bound):
+                fails.append(f'sparse sweep: {run} fleet vs {ref} differ by '
+                             f'{one:.3e} after 1 round, {last:.3e} after '
+                             f'{rounds}')
+
+    # (a) the paper's environment, the fleet phase's four members
+    members = [api.SweepMember(env=spec, fraction=0.3, lag_tolerance=5,
+                               seed=i, overrides={'crash_prob': cr})
+               for i, cr in enumerate(FLEET_CRASH)]
+    init = [task.evaluate(task.init_global(i))['loss'] for i in range(S)]
+    print(f'sparse sweep: m = {spec.m}, {S} members, crash rates '
+          f'{FLEET_CRASH}, initial eval losses {init}; rounds {rounds}')
+    kept = sweep(task, members, init, sparse, ('fleet', 'sequential'))
+    kept.update(sweep(task, members, init, dense, ('fleet',)))
+    compare(kept, paper_f32, paper_q8)
+    del kept
+    torch.cuda.empty_cache()
+
+    # (b) the quota-bounded environment at m = 1000: four scale_spec()
+    # members, SAFA sparse_delta packed; a dense fleet would not fit
+    scale_env, scale_task = cnn_setup(torch, scale_spec())
+    scale = api.SafaSpec(fraction=QUOTA / SCALE_M, lag_tolerance=10 * rounds)
+    members = [api.SweepMember(env=scale_spec(i), fraction=QUOTA / SCALE_M,
+                               lag_tolerance=10 * rounds, seed=i)
+               for i in range(S)]
+    init = [scale_task.evaluate(scale_task.init_global(i))['loss']
+            for i in range(S)]
+    print(f'sparse sweep: m = {scale_env.m}, {S} members (env seeds 0-{S - 1}'
+          f'), initial eval losses {init}; rounds {rounds}')
+    kept = sweep(scale_task, members, init,
+                 [('scale-delta-packed', scale,
+                   dict(schedule='sparse_delta', use_kernel='packed'),
+                   DELTA_PACKED),
+                  ('scale-delta-packed-int8', scale,
+                   dict(schedule='sparse_delta', use_kernel='packed',
+                        wire='int8'), DELTA_PACKED_Q8)],
+                 ('fleet', 'sequential'))
+    compare(kept, [('scale-delta-packed', 'sequential', 1e-5)],
+            [('scale-delta-packed-int8', 'sequential')])
+    del kept, scale_task
+    torch.cuda.empty_cache()
+    return launches
+
+
 def weighted_phase(torch, spec, task, fails: list) -> dict:
     """The staleness-adaptive family on Task 2's CNN at full width through
     the port's entry points: SEAFL packed, int8 + packed and plain, CSAFL
@@ -1455,6 +1953,17 @@ def _weighted_runs(torch, spec, task, fails: list) -> dict:
     return launches
 
 
+def one_epoch(task):
+    """A shallow copy of ``task`` that trains one epoch of its five: the
+    profiles' window.  A whole fleet train call launches ~350,000 device
+    kernels, and reading them back from the profiler took minutes of the
+    script's time limit; one epoch is the same steps, a fifth as many."""
+    import copy
+    one = copy.copy(task)
+    one.epochs = 1
+    return one
+
+
 def profile_train(torch, label, train, top=6):
     """Where one round's local training spends the device: torch.profiler
     over one ``train()`` call.  Device kernels are deduplicated by
@@ -1528,7 +2037,8 @@ def main() -> int:
     n = ops.wire_spec(_cnn_init(torch.Generator().manual_seed(0))).n_padded
     recs = (kernel_phase(torch, n, fails) + fleet_kernel_phase(torch, n, fails)
             + merge_kernel_phase(torch, n, fails)
-            + rows_kernel_phase(torch, n, fails))
+            + rows_kernel_phase(torch, n, fails)
+            + rows_fleet_kernel_phase(torch, n, fails))
     torch.cuda.empty_cache()
     lap('kernels')
     spec, task = cnn_setup(torch)
@@ -1542,6 +2052,8 @@ def main() -> int:
     lap('weighted')
     launches.update(sparse_phase(torch, spec, task, fails))
     lap('sparse')
+    launches.update(sparse_sweep_phase(torch, spec, task, fails))
+    lap('sparse sweeps')
     for r in recs:
         r['launches'] = launches.get(r['name'], 0)
         del r['bytes'], r['flops'], r['dense_bytes']

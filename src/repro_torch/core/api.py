@@ -23,8 +23,8 @@ for ``run()`` and None/'fleet'/'sequential' for ``run_sweep()``,
 ``use_kernel`` False/True/'packed' (SAFA) or False/'packed' (SEAFL,
 CSAFL) and ``wire`` 'f32'/'int8' (SAFA, FedAvg, FedCS, SEAFL, CSAFL);
 ``ExecSpec(numeric=False)`` gives the timing records alone.  SAFA,
-FedAvg and FedCS single runs also take the sparse active-set schedules,
-``schedule='sparse'`` and ``'sparse_delta'``.
+FedAvg and FedCS runs and sweeps also take the sparse active-set
+schedules, ``schedule='sparse'`` and ``'sparse_delta'``.
 ``check_compat`` raises the JAX package's errors for the cells it
 refuses, and ``NotImplementedError``, naming the ROADMAP queue item, for
 every cell not ported yet.
@@ -142,9 +142,12 @@ class ExecSpec:
     the K rows alone, as deltas on a running aggregate (FedAvg/FedCS carry
     the global model alone), equal to dense up to summation order.  SAFA's
     ``'sparse_delta'`` takes ``use_kernel=False`` or ``'packed'`` (the
-    rows kernels, four launches a round, five on the int8 wire).  The
-    sparse schedules run in ``run()`` only: sparse sweeps and
-    ``'sparse_tier'`` are not ported yet and are refused by name."""
+    rows kernels, four launches a round, five on the int8 wire; a
+    fleet's round launches their fleet forms, once each for all S
+    members).  A sparse sweep replays the fleet-major sparse form of the
+    same event streams, every member re-padded to the fleet's widest
+    active set.  ``'sparse_tier'`` is not ported yet and is refused by
+    name."""
     engine: Optional[str] = None
     wire: str = 'f32'
     use_kernel: Any = False
@@ -176,11 +179,6 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f'{what} is not ported to repro_torch yet (ROADMAP queue 1, item '
         f'{item})')
-
-
-def _sparse_sweep(schedule: str) -> NotImplementedError:
-    return _not_ported(f'a sweep on schedule={schedule!r}',
-                       '22 (sparse sweeps)')
 
 
 def _check_env(env) -> None:
@@ -359,8 +357,6 @@ def check_compat(protocol_spec: ProtocolSpec,
         if ex.schedule == 'sparse_tier':
             raise _not_ported("schedule='sparse_tier'",
                               '12 (lag-tier schedule)')
-        if ex.engine in ('fleet', 'sequential'):
-            raise _sparse_sweep(ex.schedule)
     if quantize_uploads:
         raise _not_ported('quantize_uploads=True',
                           '17 (per-leaf int8 reference)')
@@ -535,7 +531,8 @@ def _safa_prepare_state(st, weights, ex):
     """The sparse_delta carry: the running aggregate tree, or, under
     ``use_kernel='packed'``, the whole state as resident pack buffers
     (local and cache [m + 1, N], the trailing scratch row taking the
-    sentinel slots)."""
+    sentinel slots).  A fleet's ([S, m] weights) are [S, m + 1, N], a
+    scratch row per member, and [S, N]; its layout is one member's."""
     if ex.schedule != 'sparse_delta':
         return
     agg = protocol.init_aggregate(st.cache, weights)
@@ -543,21 +540,29 @@ def _safa_prepare_state(st, weights, ex):
         st.agg = agg
         return
     from repro_torch.kernels import ops as kops
-    spec = _pack_layout(st.global_w, ex.wire)
+    fleet = weights.ndim == 2
+    spec = _pack_layout(_member(st.global_w, 0) if fleet else st.global_w,
+                        ex.wire)
+    pack_g = kops.pack_stacked if fleet else kops.pack_global
+    pack_m = kops.pack_fleet if fleet else kops.pack_stacked
 
     def scratch(tree):
-        buf = kops.pack_stacked(tree, spec)
-        return torch.cat([buf, buf.new_zeros((1, buf.shape[1]))])
+        buf = pack_m(tree, spec)
+        row = buf.new_zeros(buf.shape[:-2] + (1, buf.shape[-1]))
+        return torch.cat([buf, row], dim=-2)
 
-    st.packed = (kops.pack_global(st.global_w, spec), scratch(st.local_w),
-                 scratch(st.cache), kops.pack_global(agg, spec))
+    st.packed = (pack_g(st.global_w, spec), scratch(st.local_w),
+                 scratch(st.cache), pack_g(agg, spec))
     st.spec = spec
     st.local_w = st.cache = None
 
 
 def _unpack_global_state(st):
+    """The global model dict of the packed carry (a fleet's: [S, ...])."""
     from repro_torch.kernels import ops as kops
-    st.global_w = kops.unpack_global(st.packed[0], st.spec)
+    unpack = kops.unpack_stacked if st.packed[0].ndim == 2 \
+        else kops.unpack_global
+    st.global_w = unpack(st.packed[0], st.spec)
 
 
 def _safa_segment(st, seg, weights, train_fn, ex, ctx):
@@ -935,20 +940,20 @@ class CompiledRunner:
 
         ``members`` is a list of ``SweepMember`` or a ``SweepSpec``, whose
         ``tasks`` (one per member) may hold different client partitions
-        (padded stacking).  Each member carries its own env and seed; the
-        experiment's own are not used.  ``engine='fleet'`` (the default)
-        runs every member in one round body: one train call for all S * m
-        client replicas and one launch of each server kernel per round.
+        (padded stacking; dense schedules only).  Each member carries its
+        own env and seed; the experiment's own are not used.
+        ``engine='fleet'`` (the default) runs every member in one round
+        body: one train call for all S * m client replicas (S * K on a
+        sparse schedule) and one launch of each server kernel per round.
         ``engine='sequential'`` runs the same precomputed schedules member
-        by member through the scan engine."""
+        by member through the scan engine (a sparse member at its own
+        active-set width)."""
         if checkpoint is not None:
             raise _not_ported('run_sweep(checkpoint=)',
                               '7 (checkpoint and resume)')
         exp, pdef = self.exp, self._pdef
         ex = exp.exec
         engine = self._engine(sweep=True)
-        if ex.schedule != 'dense':
-            raise _sparse_sweep(ex.schedule)
         if isinstance(members, SweepSpec):
             tasks = list(members.tasks) if members.tasks is not None \
                 else None
@@ -968,9 +973,18 @@ class CompiledRunner:
             shared_task = exp.task
         for t in tasks or (shared_task,):
             _check_task_device(t, exp.device)
+        if ex.schedule != 'dense' and tasks is not None:
+            raise ValueError(
+                'sparse schedules need the rows-train contract, which the '
+                'padded per-member task stack does not implement; use a '
+                'shared task (or schedule="dense")')
 
         fleet = pdef.fleet_precompute(members, exp.protocol,
                                       rounds=exp.rounds)
+        if ex.schedule != 'dense':
+            # the fleet-major sparse form of the same event streams, every
+            # member re-padded to the fleet's widest active set
+            fleet = fleet.to_sparse()
         hists = [History(pdef.name, records=_fresh_records(fleet.records[s]),
                          futility=float(fleet.futility[s]))
                  for s in range(fleet.size)]
@@ -984,18 +998,23 @@ class CompiledRunner:
             return tasks[s] if tasks is not None else shared_task
 
         evals = _eval_rounds(exp.rounds, ex.eval_every)
+        stateless = self._stateless(ex)
         if engine == 'sequential':
             for s, (mem, hist) in enumerate(zip(members, hists)):
                 st = _init_state(_init_global(task_of(s), mem.seed,
                                               exp.device, exp.init_params),
-                                 m, pdef.uses_cache)
+                                 m, pdef.uses_cache, stateless=stateless)
                 dev = fleet.member(s).to_device(exp.device)
                 w_s = torch.as_tensor(mem.env.weights, dtype=torch.float32,
                                       device=exp.device)
+                if pdef.prepare_state is not None:
+                    pdef.prepare_state(st, w_s, ex)
+                train_fn = task_of(s).local_train if ex.schedule == 'dense' \
+                    else task_of(s).local_train_rows
                 start = 0
                 for stop in evals:
                     pdef.segment(st, dev.segment(start, stop), w_s,
-                                 task_of(s).local_train, ex, None)
+                                 train_fn, ex, None)
                     self._finish(st, w_s)
                     _record_eval(hist, hist.records[stop - 1], task_of(s),
                                  st.global_w)
@@ -1013,13 +1032,19 @@ class CompiledRunner:
                      for s, mem in enumerate(members)]
             g = {k: torch.stack([i[k] for i in inits]) for k in inits[0]}
         else:
-            ctx, train_fn = None, shared_task.local_train_fleet
+            ctx = None
+            train_fn = shared_task.local_train_fleet \
+                if ex.schedule == 'dense' \
+                else shared_task.local_train_rows_fleet
             g = init_fleet_global(shared_task, [mem.seed for mem in members],
                                   init_params=exp.init_params)
-        st = _init_state(g, m, pdef.uses_cache, fleet=True)
+        st = _init_state(g, m, pdef.uses_cache, fleet=True,
+                         stateless=stateless)
         weights = torch.as_tensor(
             np.stack([mem.env.weights for mem in members]),
             dtype=torch.float32, device=exp.device)
+        if pdef.prepare_state is not None:
+            pdef.prepare_state(st, weights, ex)
         dev = fleet.to_device(exp.device)
         start = 0
         for stop in evals:

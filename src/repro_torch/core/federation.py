@@ -45,7 +45,10 @@ class Task:
 
     A task that a fleet sweep shares also implements
     ``local_train_fleet(fleet_params, round_idx)``: every member's client
-    replicas ([S, m, ...] leaves) in one call, round_idx [S]."""
+    replicas ([S, m, ...] leaves) in one call, round_idx [S]; and, for a
+    sweep on a sparse schedule, ``local_train_rows_fleet(params_rows,
+    rows, round_idx)``: [S, K, ...] replicas of the clients ``rows``
+    [S, K]."""
 
     #: the device the task's data lives on and its params are made on
     device = None
@@ -65,6 +68,15 @@ class Task:
         raise NotImplementedError(
             f'{type(self).__name__} does not implement local_train_rows; '
             f'sparse schedules need the rows-train contract')
+
+    def local_train_rows_fleet(self, params_rows: dict, rows,
+                               round_idx) -> dict:
+        """``local_train_rows`` for a fleet: [S, K, ...] replicas, member
+        s's replica k on client ``rows[s, k]``'s data."""
+        raise NotImplementedError(
+            f'{type(self).__name__} does not implement '
+            f'local_train_rows_fleet; sparse sweeps need the rows-train '
+            f'contract for a fleet')
 
     def evaluate(self, global_params: dict) -> dict:
         raise NotImplementedError

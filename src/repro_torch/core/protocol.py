@@ -28,8 +28,11 @@ on numpy.
 
 The sparse active-set schedules (the last section) have engines of their
 own for SAFA and FedAvg/FedCS (``*_run_scan_sparse``,
-``*_run_scan_sparse_delta``, ``safa_run_scan_sparse_delta_packed``),
-which take a run's segment only.
+``*_run_scan_sparse_delta``, ``safa_run_scan_sparse_delta_packed``).
+They too take a run's segment ([k, K] slot indices) or a fleet's
+([S, k, K], every member re-padded to the fleet's widest active set), and
+read the member axis from the indices: ``idx.ndim`` is 1 in a run's
+round, 2 in a fleet's.
 """
 from __future__ import annotations
 
@@ -569,6 +572,12 @@ def weighted_round(global_w, local_w, *, committed, wrow, local_train_fn,
 # leans on jit's out-of-range rules there (gathers clamp, scatters with
 # mode='drop' drop); torch indexing would raise or read past the end, so
 # the helpers below clamp gathers and redirect scatters explicitly.
+#
+# A fleet's round carries [S, K] slots, [S, m] weights and [S, m, ...]
+# stacks: the helpers gather and scatter at (member, row) and reduce over
+# the slot axis, so one round body serves a run and a fleet, and member
+# s's numbers are those of its own run.  The JAX package vmaps the
+# single-run round instead.
 
 # SAFA per-slot role bits (a slot may carry several: picked implies
 # committed, deprecated clients are also synced, ...)
@@ -586,7 +595,7 @@ SROLE_COMPLETED = 2
 class SparseRoundSchedule(NamedTuple):
     """SAFA sparse per-round schedule: ``idx`` [k, K] int32 active-set row
     indices (sentinel m pads unused slots), ``roles`` [k, K] uint8 ROLE_*
-    bitmasks, ``round_idx`` [k]."""
+    bitmasks, ``round_idx`` [k]; a fleet's [S, k, K] and [S, k]."""
     idx: Any
     roles: Any
     round_idx: Any
@@ -597,7 +606,7 @@ class SparseRoundSchedule(NamedTuple):
 class SparseSyncSchedule(NamedTuple):
     """FedAvg/FedCS sparse per-round schedule: ``idx`` [k, K] int32
     selected row indices (sentinel m), ``roles`` [k, K] uint8 SROLE_*
-    bitmasks, ``round_idx`` [k]."""
+    bitmasks, ``round_idx`` [k]; a fleet's [S, k, K] and [S, k]."""
     idx: Any
     roles: Any
     round_idx: Any
@@ -610,15 +619,27 @@ def has_role(roles, bit):
     return (roles & bit) != 0
 
 
+def _at(idx):
+    """The member index for advanced indexing at a round's slots: () for a
+    run's [K] slots, (arange(S)[:, None],) for a fleet's [S, K]."""
+    if idx.ndim == 1:
+        return ()
+    return (torch.arange(idx.shape[0], device=idx.device)[:, None],)
+
+
 def scatter_masks(idx, roles, m: int, bits):
-    """Dense [m] bool masks from one round's (idx, roles), one per bit in
-    ``bits``, equal to the dense precompute's masks.  Sentinel slots
-    (idx == m) write into a scratch entry that is cut off."""
+    """Dense [(S,) m] bool masks from one round's (idx, roles), one per
+    bit in ``bits``, equal to the dense precompute's masks.  Sentinel
+    slots (idx == m) write into a scratch entry that is cut off (a
+    fleet's masks are then copied out contiguous, as the kernels take
+    them)."""
+    lead = tuple(idx.shape[:-1])
     out = []
     for b in bits:
-        mask = torch.zeros(m + 1, dtype=torch.bool, device=idx.device)
-        mask[idx.long()] = has_role(roles, b)
-        out.append(mask[:m])
+        mask = torch.zeros(lead + (m + 1,), dtype=torch.bool,
+                           device=idx.device)
+        mask[_at(idx) + (idx.long(),)] = has_role(roles, b)
+        out.append(mask[..., :m].contiguous())
     return tuple(out)
 
 
@@ -630,42 +651,52 @@ def _clamp_rows(idx, m: int):
 
 
 def tree_gather(tree: dict, idx) -> dict:
-    """Rows ``idx`` of every [m, ...] leaf (sentinels clamped)."""
-    return {k: a[_clamp_rows(idx, a.shape[0])] for k, a in tree.items()}
+    """Rows ``idx`` of every [(S,) m, ...] leaf (sentinels clamped):
+    [(S,) K, ...] leaves."""
+    axis = idx.ndim - 1                 # the clients axis
+    return {k: a[_at(idx) + (_clamp_rows(idx, a.shape[axis]),)]
+            for k, a in tree.items()}
 
 
 def tree_scatter(tree: dict, idx, rows: dict) -> dict:
-    """``tree`` with its rows ``idx`` replaced by ``rows`` [K, ...], in a
-    new tree (the input may be a broadcast view); sentinel slots
-    (idx == m) land in a scratch row that is cut off, as the JAX
-    package's ``mode='drop'`` drops them."""
+    """``tree`` with its rows ``idx`` replaced by ``rows`` [(S,) K, ...],
+    in a new tree (the input may be a broadcast view); sentinel slots
+    (idx == m) land in a scratch row, one per member, that is cut off, as
+    the JAX package's ``mode='drop'`` drops them."""
+    axis = idx.ndim - 1
     out = {}
     for k, a in tree.items():
-        buf = torch.cat([a, a[:1]])               # [m + 1, ...]
-        buf[idx.long()] = rows[k].to(a.dtype)
-        out[k] = buf[:a.shape[0]]
+        m = a.shape[axis]
+        buf = torch.cat([a, a.narrow(axis, 0, 1)], dim=axis)  # [(S,) m+1,..]
+        buf[_at(idx) + (idx.long(),)] = rows[k].to(a.dtype)
+        out[k] = buf.narrow(axis, 0, m)
     return out
 
 
 def _slot_weights(idx, weights):
-    """Aggregation weight per slot, 0 at sentinel slots."""
-    m = weights.shape[0]
-    return torch.where(idx < m, weights[_clamp_rows(idx, m)],
+    """Aggregation weight per slot, 0 at sentinel slots ([(S,) K] from
+    [(S,) m] weights)."""
+    m = weights.shape[-1]
+    return torch.where(idx < m, weights[_at(idx) + (_clamp_rows(idx, m),)],
                        0.0).float()
 
 
 def init_aggregate(cache: dict, weights) -> dict:
     """The running aggregate carried by the sparse_delta engines:
-    ``agg = sum_k w_k cache_k`` as f32 global-shaped leaves, computed once
-    at run start from the dense cache."""
+    ``agg = sum_k w_k cache_k`` as f32 global-shaped leaves ([(S,) ...]),
+    computed once at run start from the dense cache."""
+    axis = weights.ndim - 1             # the clients axis
+
     def red(leaf):
-        return torch.sum(leaf.float() * _bmask(weights, leaf).float(), dim=0)
+        return torch.sum(leaf.float() * _bmask(weights, leaf).float(),
+                         dim=axis)
     return {k: red(v) for k, v in cache.items()}
 
 
 def _delta(a, new, old, w):
-    """a + sum_slots w (new - old), in f32."""
-    return a + torch.sum((new.float() - old.float()) * _bmask(w, new), dim=0)
+    """a + sum_slots w (new - old), in f32 (w: [(S,) K] slot weights)."""
+    return a + torch.sum((new.float() - old.float()) * _bmask(w, new),
+                         dim=w.ndim - 1)
 
 
 def safa_round_sparse(global_w, local_w, cache, *, idx, roles, weights,
@@ -676,9 +707,12 @@ def safa_round_sparse(global_w, local_w, cache, *, idx, roles, weights,
     trained (``local_train_fn(base_rows, rows, *train_args)``, the
     rows-train contract of ``Task.local_train_rows``); the trained rows
     are scattered over the dense base stack and the dense server step
-    runs unchanged.  Returns (new_global, new_local, new_cache)."""
+    runs unchanged; on a fleet's round ([S, K] slots) the rows-train
+    contract takes [S, K, ...] replicas and [S, K] rows
+    (``Task.local_train_rows_fleet``).
+    Returns (new_global, new_local, new_cache)."""
     check_wire(wire)
-    m = weights.shape[0]
+    m = weights.shape[-1]
     sync_mask, completed, picked, undrafted, deprecated = scatter_masks(
         idx, roles, m, (ROLE_SYNC, ROLE_COMMITTED, ROLE_PICKED,
                         ROLE_UNDRAFTED, ROLE_DEPRECATED))
@@ -704,18 +738,17 @@ def safa_round_sparse_delta(global_w, local_w, cache, agg, *, idx, roles,
     only they change.  Equal to the dense round up to float summation
     order.  Returns (new_global, new_local, new_cache, new_agg)."""
     check_wire(wire)
-    k = idx.shape[0]
+    fleet = idx.ndim == 2
     sync_r = has_role(roles, ROLE_SYNC)
     com_r = has_role(roles, ROLE_COMMITTED)
     pick_r = has_role(roles, ROLE_PICKED)
     und_r = has_role(roles, ROLE_UNDRAFTED)
     dep_r = has_role(roles, ROLE_DEPRECATED)
-    g_rows = broadcast_global(global_w, k)
+    g_rows = broadcast_global(global_w, idx.shape[-1], fleet=fleet)
     base_rows = masked_select(sync_r, g_rows, tree_gather(local_w, idx))
     trained_rows = local_train_fn(base_rows, idx, *train_args)
     if wire == 'int8':
-        from repro_torch.kernels import ops as kops
-        trained_rows = kops.wire_roundtrip_packed(trained_rows, like=global_w)
+        trained_rows = _wire_roundtrip(trained_rows, global_w, fleet)
     trained_rows = masked_select(com_r, trained_rows, base_rows)
     c_rows = tree_gather(cache, idx)
     w_rows = _slot_weights(idx, weights)
@@ -740,7 +773,7 @@ def fedavg_round_sparse(global_w, local_w, *, idx, roles, weights,
     ``fedavg_round``: train the selected rows only, scatter, then run the
     dense server step.  Returns (new_global, new_local)."""
     check_wire(wire)
-    m = weights.shape[0]
+    m = weights.shape[-1]
     selected, completed = scatter_masks(idx, roles, m,
                                         (SROLE_SELECTED, SROLE_COMPLETED))
     base = distribute(global_w, local_w, selected)
@@ -757,32 +790,45 @@ def fedavg_round_sparse_delta(global_w, *, idx, roles, weights,
     global model and a client's local model never feeds back into the
     aggregate (its next selection overwrites it), so no [m, N] local
     stack exists: the global model is the whole carry.  Equal to the dense
-    round up to float summation order.  Returns new_global."""
+    round up to float summation order; on a fleet's round, each member's
+    weights are normalised over its own slots.  Returns new_global."""
     check_wire(wire)
-    k = idx.shape[0]
-    com_r = has_role(roles, SROLE_COMPLETED) & (idx < weights.shape[0])
-    base_rows = broadcast_global(global_w, k)
+    fleet = idx.ndim == 2
+    axis = idx.ndim - 1                 # the slot axis
+    com_r = has_role(roles, SROLE_COMPLETED) & (idx < weights.shape[-1])
+    base_rows = broadcast_global(global_w, idx.shape[-1], fleet=fleet)
     trained_rows = local_train_fn(base_rows, idx, *train_args)
     if wire == 'int8':
-        from repro_torch.kernels import ops as kops
-        trained_rows = kops.wire_roundtrip_packed(trained_rows, like=global_w)
+        trained_rows = _wire_roundtrip(trained_rows, global_w, fleet)
     w_rows = torch.where(com_r, _slot_weights(idx, weights), 0.0)
-    eff_w = w_rows / torch.clamp_min(torch.sum(w_rows), 1e-12)
-    any_ok = torch.sum(com_r) > 0
+    eff_w = w_rows / torch.clamp_min(
+        torch.sum(w_rows, dim=axis, keepdim=True), 1e-12)
+    any_ok = torch.sum(com_r, dim=axis) > 0
 
     def red(t, g):
-        agg = torch.sum(t.float() * _bmask(eff_w, t), dim=0)
-        return torch.where(any_ok, agg, g.float()).to(g.dtype)
+        agg = torch.sum(t.float() * _bmask(eff_w, t), dim=axis)
+        return torch.where(_bmask(any_ok, agg), agg,
+                           g.float()).to(g.dtype)
     return {n: red(trained_rows[n], g) for n, g in global_w.items()}
+
+
+def _wire_roundtrip(rows: dict, global_w: dict, fleet: bool) -> dict:
+    """The K slots' uploads ([(S,) K, ...] leaves) through the packed int8
+    wire: two launches, for the whole fleet on a fleet."""
+    from repro_torch.kernels import ops as kops
+    if fleet:
+        return kops.wire_roundtrip_packed_fleet(rows, global_w)
+    return kops.wire_roundtrip_packed(rows, like=global_w)
 
 
 def safa_run_scan_sparse(global_w, local_w, cache,
                          schedule: SparseRoundSchedule, weights, *,
                          local_train_fn, use_kernel=False, wire='f32'):
-    """Sparse-schedule counterpart of ``safa_run_scan`` (a run's segment
-    only): equal to the dense engine on the masks the schedule encodes,
-    local training over the K active rows.  ``local_train_fn`` follows the
-    rows-train contract.  Returns (new_global, new_local, new_cache)."""
+    """Sparse-schedule counterpart of ``safa_run_scan``, for a run's
+    segment or a fleet's: equal to the dense engine on the masks the
+    schedule encodes, local training over the K active rows (a fleet's:
+    one call over all S * K).  ``local_train_fn`` follows the rows-train
+    contract.  Returns (new_global, new_local, new_cache)."""
     for r, args in _rounds(schedule):
         global_w, local_w, cache = safa_round_sparse(
             global_w, local_w, cache, idx=r.idx, roles=r.roles,
@@ -794,9 +840,10 @@ def safa_run_scan_sparse(global_w, local_w, cache,
 def safa_run_scan_sparse_delta(global_w, local_w, cache, agg,
                                schedule: SparseRoundSchedule, weights, *,
                                local_train_fn, wire='f32'):
-    """O(K N)-per-round SAFA engine over a run's segment: carries (global,
-    local, cache, agg) with ``agg = init_aggregate(cache, weights)`` at
-    run start.  Returns (new_global, new_local, new_cache, new_agg)."""
+    """O(K N)-per-round SAFA engine over a run's segment or a fleet's:
+    carries (global, local, cache, agg) with ``agg = init_aggregate(cache,
+    weights)`` at run start.  Returns (new_global, new_local, new_cache,
+    new_agg)."""
     for r, args in _rounds(schedule):
         global_w, local_w, cache, agg = safa_round_sparse_delta(
             global_w, local_w, cache, agg, idx=r.idx, roles=r.roles,
@@ -807,9 +854,9 @@ def safa_run_scan_sparse_delta(global_w, local_w, cache, agg,
 
 def fedavg_run_scan_sparse(global_w, local_w, schedule: SparseSyncSchedule,
                            weights, *, local_train_fn, wire='f32'):
-    """Sparse-schedule counterpart of ``fedavg_run_scan`` (a run's segment;
-    equal to the dense engine, training the selected rows only).
-    Returns (new_global, new_local)."""
+    """Sparse-schedule counterpart of ``fedavg_run_scan`` (a run's segment
+    or a fleet's; equal to the dense engine, training the selected rows
+    only).  Returns (new_global, new_local)."""
     for r, args in _rounds(schedule):
         global_w, local_w = fedavg_round_sparse(
             global_w, local_w, idx=r.idx, roles=r.roles, weights=weights,
@@ -819,9 +866,9 @@ def fedavg_run_scan_sparse(global_w, local_w, schedule: SparseSyncSchedule,
 
 def fedavg_run_scan_sparse_delta(global_w, schedule: SparseSyncSchedule,
                                  weights, *, local_train_fn, wire='f32'):
-    """Stateless FedAvg/FedCS engine over a run's segment: the global model
-    is the whole carry, so device memory is O(N + K N), whatever m.
-    Returns new_global."""
+    """Stateless FedAvg/FedCS engine over a run's segment or a fleet's: the
+    global model is the whole carry, so device memory is O(N + K N) a
+    member, whatever m.  Returns new_global."""
     for r, args in _rounds(schedule):
         global_w = fedavg_round_sparse_delta(
             global_w, idx=r.idx, roles=r.roles, weights=weights,
@@ -848,27 +895,46 @@ def safa_round_sparse_delta_packed(gbuf, lbuf, cbuf, abuf, *, idx, roles,
     (kernel 16) dequantises them in registers; ``spec`` is then the
     QBLOCK-aligned ``wire_spec``.  Four launches a round on f32, five on
     int8.  Equal to ``safa_round_sparse_delta`` up to summation order.
+
+    A fleet's round ([S, K] slots) carries gbuf/abuf [S, N] and lbuf/cbuf
+    [S, m+1, N], each member with its own scratch row, and launches the
+    fleet forms once each for all S members: ``gather_rows_fleet``
+    (kernel 13), ``safa_aggregate_packed_rows_fleet`` or its int8 form
+    after ``quantize_packed_fleet`` (kernels 17, 18, 8) and
+    ``scatter_rows_fleet`` twice (kernel 14).
     Returns (gbuf', lbuf, cbuf, abuf')."""
     check_wire(wire)
     from repro_torch.kernels import ops as kops
+    fleet = idx.ndim == 2
+    if fleet:
+        gather, scatter = kops.gather_rows_fleet, kops.scatter_rows_fleet
+        quantize = kops.quantize_packed_fleet
+        rows_agg = kops.safa_aggregate_packed_rows_fleet
+        q8_rows_agg = kops.safa_aggregate_packed_q8_rows_fleet
+        pack, unpack = kops.pack_fleet, kops.unpack_fleet
+    else:
+        gather, scatter = kops.gather_rows, kops.scatter_rows
+        quantize = kops.quantize_packed
+        rows_agg = kops.safa_aggregate_packed_rows
+        q8_rows_agg = kops.safa_aggregate_packed_q8_rows
+        pack, unpack = kops.pack_stacked, kops.unpack_stacked
     w_rows = _slot_weights(idx, weights)
-    l_rows = kops.gather_rows(lbuf, idx)
-    base_rows = torch.where(has_role(roles, ROLE_SYNC)[:, None], gbuf[None],
-                            l_rows)
-    trained = kops.pack_stacked(
-        local_train_fn(kops.unpack_stacked(base_rows, spec), idx,
-                       *train_args), spec)
+    l_rows = gather(lbuf, idx)
+    base_rows = torch.where(has_role(roles, ROLE_SYNC)[..., None],
+                            gbuf[..., None, :], l_rows)
+    trained = pack(local_train_fn(unpack(base_rows, spec), idx, *train_args),
+                   spec)
     if wire == 'int8':
-        q, scales = kops.quantize_packed(trained)
-        ng, na, c2_rows, local_rows = kops.safa_aggregate_packed_q8_rows(
+        q, scales = quantize(trained)
+        ng, na, c2_rows, local_rows = q8_rows_agg(
             q, scales, base_rows, cbuf, gbuf, abuf, idx, roles, w_rows)
     else:
-        local_rows = torch.where(has_role(roles, ROLE_COMMITTED)[:, None],
-                                 trained, base_rows)
-        ng, na, c2_rows = kops.safa_aggregate_packed_rows(
-            cbuf, local_rows, gbuf, abuf, idx, roles, w_rows)
-    kops.scatter_rows(cbuf, idx, c2_rows)
-    kops.scatter_rows(lbuf, idx, local_rows)
+        local_rows = torch.where(
+            has_role(roles, ROLE_COMMITTED)[..., None], trained, base_rows)
+        ng, na, c2_rows = rows_agg(cbuf, local_rows, gbuf, abuf, idx, roles,
+                                   w_rows)
+    scatter(cbuf, idx, c2_rows)
+    scatter(lbuf, idx, local_rows)
     return ng, lbuf, cbuf, na
 
 
@@ -878,9 +944,10 @@ def safa_run_scan_sparse_delta_packed(gbuf, lbuf, cbuf, abuf,
                                       wire='f32'):
     """Packed-buffer counterpart of ``safa_run_scan_sparse_delta``: the
     carry is (global [N], local [m+1, N], cache [m+1, N], agg [N]) pack
-    buffers, the local and cache buffers updated in place; ``spec`` is
-    the pack layout (``ops.wire_spec`` under ``wire='int8'``,
-    ``ops.pack_spec`` otherwise).  Returns (gbuf, lbuf, cbuf, abuf)."""
+    buffers (a fleet's: [S, N] and [S, m+1, N]), the local and cache
+    buffers updated in place; ``spec`` is one member's pack layout
+    (``ops.wire_spec`` under ``wire='int8'``, ``ops.pack_spec``
+    otherwise).  Returns (gbuf, lbuf, cbuf, abuf)."""
     for r, args in _rounds(schedule):
         gbuf, lbuf, cbuf, abuf = safa_round_sparse_delta_packed(
             gbuf, lbuf, cbuf, abuf, idx=r.idx, roles=r.roles,

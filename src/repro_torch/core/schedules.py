@@ -2,7 +2,8 @@
 protocol-spec base class, per-round records, run histories, sweep
 members, the precomputed dense mask schedules of every protocol (one
 run's, and a fleet's stacked member-major) and the sparse active-set
-schedules of SAFA, FedAvg and FedCS that the engines replay.  The
+schedules of SAFA, FedAvg and FedCS (a run's, and a fleet's re-padded to
+its widest member) that the engines replay.  The
 state machines that produce the schedules live in
 ``repro_torch.core.federation`` (the FedAsync and weighted-merge
 family's in ``repro_torch.core.agg_schemes``); the engines that consume
@@ -451,6 +452,14 @@ class FleetSchedule(_FleetStack):
             deprecated=put(self.deprecated),
             round_idx=self._round_idx(device))
 
+    def to_sparse(self, capacity: Optional[int] = None
+                  ) -> 'SparseFleetSchedule':
+        """Compact [S, rounds, K] form of the same event streams (K = the
+        fleet-wide largest active set unless ``capacity`` is given)."""
+        return SparseFleetSchedule.from_members(
+            [self.member(s).to_sparse() for s in range(self.size)],
+            capacity=capacity)
+
 
 @dataclasses.dataclass
 class SyncFleetSchedule(_FleetStack):
@@ -468,6 +477,12 @@ class SyncFleetSchedule(_FleetStack):
             selected=torch.as_tensor(self.selected, device=device),
             completed=torch.as_tensor(self.completed, device=device),
             round_idx=self._round_idx(device))
+
+    def to_sparse(self, capacity: Optional[int] = None
+                  ) -> 'SparseSyncFleetSchedule':
+        return SparseSyncFleetSchedule.from_members(
+            [self.member(s).to_sparse() for s in range(self.size)],
+            capacity=capacity)
 
 
 @dataclasses.dataclass
@@ -530,3 +545,107 @@ class WeightedFleetSchedule(_FleetStack):
             wrow=torch.as_tensor(self.wrow, dtype=torch.float32,
                                  device=device),
             round_idx=self._round_idx(device))
+
+
+# ---------------------------------------------------------------------------
+# Sparse fleet stacking: [S, rounds, K] index and role arrays
+# ---------------------------------------------------------------------------
+
+class _SparseFleetStack:
+    """Fleet-major stacking of sparse schedules.  Members may have grown
+    different capacities; stacking re-pads every member to the fleet's
+    largest (or an explicit capacity) so the arrays batch, while
+    ``capacities`` keeps each member's own active-set width, so that
+    ``member(s)`` hands back the ragged (unpadded) member schedule, as its
+    own precompute made it.  Padded slots are sentinel no-ops (idx == m,
+    roles == 0)."""
+    _MEMBER_CLS = None
+    _SCHEDULE_CLS = None
+
+    @classmethod
+    def from_members(cls, members: list, capacity: Optional[int] = None):
+        if len({(s.m, s.rounds) for s in members}) != 1:
+            raise ValueError('fleet members must share (m, rounds)')
+        m = members[0].m
+        need = max(s.capacity for s in members)
+        cap = need if capacity is None else capacity
+        if cap < need:
+            raise ValueError(
+                f'sparse fleet capacity {cap} < member active-set max {need}')
+
+        def pad(a, fill):
+            out = np.full(a.shape[:-1] + (cap,), fill, a.dtype)
+            out[..., :a.shape[-1]] = a
+            return out
+
+        return cls(m=m,
+                   idx=np.stack([pad(s.idx, m) for s in members]),
+                   roles=np.stack([pad(s.roles, 0) for s in members]),
+                   records=[s.records for s in members],
+                   futility=np.array([s.futility for s in members]),
+                   capacities=np.array([s.capacity for s in members],
+                                       np.int32))
+
+    @property
+    def size(self) -> int:
+        return self.idx.shape[0]
+
+    @property
+    def rounds(self) -> int:
+        return self.idx.shape[1]
+
+    @property
+    def capacity(self) -> int:
+        return self.idx.shape[2]
+
+    @property
+    def nbytes(self) -> int:
+        return self.idx.nbytes + self.roles.nbytes
+
+    def member(self, s: int):
+        """Member s's schedule at its own capacity (a ragged slice, equal
+        to the member's own precompute)."""
+        cap = (int(self.capacities[s]) if self.capacities is not None
+               else self.capacity)
+        return self._MEMBER_CLS(m=self.m, idx=self.idx[s, :, :cap],
+                                roles=self.roles[s, :, :cap],
+                                records=self.records[s],
+                                futility=float(self.futility[s]))
+
+    def to_device(self, device):
+        """One host->device hop for the whole fleet: [S, rounds, K] idx and
+        roles and [S, rounds] round indices (``fleet_segment`` cuts it
+        into eval segments)."""
+        return self._SCHEDULE_CLS(
+            idx=torch.as_tensor(self.idx, device=device),
+            roles=torch.as_tensor(self.roles, device=device),
+            round_idx=_round_idx(self.rounds, device).expand(self.size,
+                                                             self.rounds))
+
+
+@dataclasses.dataclass
+class SparseFleetSchedule(_SparseFleetStack):
+    """S compact SAFA event processes, fleet-major ([S, rounds, K])."""
+    m: int
+    idx: np.ndarray
+    roles: np.ndarray
+    records: list
+    futility: np.ndarray
+    capacities: Optional[np.ndarray] = None     # [S] per-member widths
+
+    _MEMBER_CLS = SparseSchedule
+    _SCHEDULE_CLS = protocol.SparseRoundSchedule
+
+
+@dataclasses.dataclass
+class SparseSyncFleetSchedule(_SparseFleetStack):
+    """S compact FedAvg/FedCS event processes ([S, rounds, K])."""
+    m: int
+    idx: np.ndarray
+    roles: np.ndarray
+    records: list
+    futility: np.ndarray
+    capacities: Optional[np.ndarray] = None     # [S] per-member widths
+
+    _MEMBER_CLS = SparseSyncSchedule
+    _SCHEDULE_CLS = protocol.SparseSyncSchedule

@@ -1,11 +1,26 @@
 // SAFA's Eq. 6-8 on the K active rows of a sparse schedule, as deltas on
 // the running aggregate, for Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of the JAX package:
+// Replaces four Pallas TPU kernels of the JAX package:
 //   * src/repro/kernels/safa_aggregate.py:_rows_kernel
 //     (safa_aggregate_packed_rows) -> safa_aggregate_rows_f32 below;
 //   * src/repro/kernels/safa_aggregate.py:_q8_rows_kernel
-//     (safa_aggregate_packed_q8_rows) -> safa_aggregate_q8_rows_f32 below.
+//     (safa_aggregate_packed_q8_rows) -> safa_aggregate_q8_rows_f32 below;
+//   * src/repro/kernels/safa_aggregate.py:_rows_fleet_kernel
+//     (safa_aggregate_packed_rows_fleet) -> safa_aggregate_rows_fleet_f32;
+//   * src/repro/kernels/safa_aggregate.py:_q8_rows_fleet_kernel
+//     (safa_aggregate_packed_q8_rows_fleet)
+//     -> safa_aggregate_q8_rows_fleet_f32 below.
+//
+// The fleet forms run S independent servers in one launch: every operand
+// gains a leading member axis (cache [S, R, N], trained and the outputs'
+// rows [S, K, N], global/agg [S, N], rows/roles/weights [S, K]) and the
+// grid a second dimension, blockIdx.y = s.  A block of member s runs
+// exactly the single-run code on member s's slices (its slots staged from
+// offset s * K, a row index outside [0, R) read from member s's row
+// R - 1), so member s gets the single-run launch's bits; a single run is
+// the fleet of one (gridDim.y = 1).  Padded slots (role 0, weight 0, the
+// scratch row) add exact zeros to the sums: fmaf(0, d, acc) is acc.
 //
 // Math, per slot j (cache row c0 = cache[rows[j]], role bits f_j, weight
 // w_j) and column:
@@ -62,6 +77,17 @@ constexpr uint8_t kCommitted = 2, kPicked = 4, kUndrafted = 8,
 __device__ __forceinline__ long long fix_row(int r, int n_rows) {
   return (r >= 0 && r < n_rows) ? r : n_rows - 1;
 }
+
+// Where fleet member s = blockIdx.y starts in each operand, in floats or
+// elements: its [R, n] cache, its [K, n] slot rows, its [n] vectors and
+// its [K] slots.  64-bit, as every offset here.
+struct Member {
+  long long cache, rows, vec, slots;
+  __device__ Member(int n_rows, int k, long long n)
+      : cache((long long)blockIdx.y * n_rows * n),
+        rows((long long)blockIdx.y * k * n), vec((long long)blockIdx.y * n),
+        slots((long long)blockIdx.y * k) {}
+};
 
 // acc += w * (a - b), per component
 __device__ __forceinline__ void add_delta(float4& acc, float4 a, float4 b,
@@ -128,6 +154,17 @@ safa_rows_kernel(const float* __restrict__ cache,
                  float* __restrict__ new_global, float* __restrict__ new_agg,
                  float* __restrict__ c2, int n_rows, int k, long long n4) {
   __shared__ Stage s;
+  const Member mb(n_rows, k, n4 * kVec);
+  cache += mb.cache;
+  trained += mb.rows;
+  c2 += mb.rows;
+  global += mb.vec;
+  agg += mb.vec;
+  new_global += mb.vec;
+  new_agg += mb.vec;
+  rows += mb.slots;
+  roles += mb.slots;
+  w_rows += mb.slots;
   const long long col = (long long)blockIdx.x * kLanes + threadIdx.x;
   const bool active = col < n4;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -187,6 +224,20 @@ safa_q8_rows_kernel(const int8_t* __restrict__ q,
                     float* __restrict__ local, int n_rows, int k,
                     long long n4) {
   __shared__ Stage s;
+  const Member mb(n_rows, k, n4 * kVec);
+  q += mb.rows;
+  scales += mb.rows / kQBlock;
+  base += mb.rows;
+  c2 += mb.rows;
+  local += mb.rows;
+  cache += mb.cache;
+  global += mb.vec;
+  agg += mb.vec;
+  new_global += mb.vec;
+  new_agg += mb.vec;
+  rows += mb.slots;
+  roles += mb.slots;
+  w_rows += mb.slots;
   const long long col = (long long)blockIdx.x * kLanes + threadIdx.x;
   const bool active = col < n4;
   const long long n_scales = n4 / (kQBlock / kVec);   // scales per row
@@ -246,8 +297,36 @@ safa_q8_rows_kernel(const int8_t* __restrict__ q,
          reinterpret_cast<float4*>(new_agg), col);
 }
 
-inline unsigned int blocks_for(long long n4) {
-  return (unsigned int)((n4 + kLanes - 1) / kLanes);
+inline dim3 grid_for(long long n4, int s) {
+  return dim3((unsigned int)((n4 + kLanes - 1) / kLanes), (unsigned int)s);
+}
+
+int launch_rows(const float* cache, const float* trained,
+                const float* global, const float* agg, const int* rows,
+                const uint8_t* roles, const float* w, float* new_global,
+                float* new_agg, float* c2, int s, int r, int k, long long n,
+                cudaStream_t stream) {
+  const long long n4 = n / kVec;
+  if (n4 == 0 || s == 0) return (int)cudaSuccess;
+  safa_rows_kernel<<<grid_for(n4, s), dim3(kLanes, kSlices), 0, stream>>>(
+      cache, trained, global, agg, rows, roles, w, new_global, new_agg, c2,
+      r, k, n4);
+  return (int)cudaGetLastError();
+}
+
+int launch_q8_rows(const int8_t* q, const float* scales, const float* base,
+                   const float* cache, const float* global, const float* agg,
+                   const int* rows, const uint8_t* roles, const float* w,
+                   float* new_global, float* new_agg, float* c2,
+                   float* local, int s, int r, int k, long long n,
+                   cudaStream_t stream) {
+  const long long n4 = n / kVec;
+  if (n4 == 0 || s == 0) return (int)cudaSuccess;
+  safa_q8_rows_kernel<<<grid_for(n4, s), dim3(kLanes, kSlices), 0,
+                        stream>>>(
+      q, scales, base, cache, global, agg, rows, roles, w, new_global,
+      new_agg, c2, local, r, k, n4);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -264,12 +343,8 @@ int safa_aggregate_rows_f32(const float* cache, const float* trained,
                             const float* w, float* new_global,
                             float* new_agg, float* c2, int r, int k,
                             long long n, cudaStream_t stream) {
-  const long long n4 = n / kVec;
-  if (n4 == 0) return (int)cudaSuccess;
-  safa_rows_kernel<<<blocks_for(n4), dim3(kLanes, kSlices), 0, stream>>>(
-      cache, trained, global, agg, rows, roles, w, new_global, new_agg, c2,
-      r, k, n4);
-  return (int)cudaGetLastError();
+  return launch_rows(cache, trained, global, agg, rows, roles, w,
+                     new_global, new_agg, c2, 1, r, k, n, stream);
 }
 
 // The int8 form: q: [k, n] int8; scales: [k, n / 128] f32; base: [k, n]
@@ -283,13 +358,33 @@ int safa_aggregate_q8_rows_f32(const int8_t* q, const float* scales,
                                float* new_agg, float* c2, float* local,
                                int r, int k, long long n,
                                cudaStream_t stream) {
-  const long long n4 = n / kVec;
-  if (n4 == 0) return (int)cudaSuccess;
-  safa_q8_rows_kernel<<<blocks_for(n4), dim3(kLanes, kSlices), 0,
-                        stream>>>(
-      q, scales, base, cache, global, agg, rows, roles, w, new_global,
-      new_agg, c2, local, r, k, n4);
-  return (int)cudaGetLastError();
+  return launch_q8_rows(q, scales, base, cache, global, agg, rows, roles, w,
+                        new_global, new_agg, c2, local, 1, r, k, n, stream);
+}
+
+// The fleet forms: cache [s, r, n]; trained, base, c2, local [s, k, n];
+// q [s, k, n] int8; scales [s, k, n / 128]; global, agg, new_global,
+// new_agg [s, n]; rows, roles, w [s, k].  gridDim.y = s (at most 65,535).
+int safa_aggregate_rows_fleet_f32(const float* cache, const float* trained,
+                                  const float* global, const float* agg,
+                                  const int* rows, const uint8_t* roles,
+                                  const float* w, float* new_global,
+                                  float* new_agg, float* c2, int s, int r,
+                                  int k, long long n, cudaStream_t stream) {
+  return launch_rows(cache, trained, global, agg, rows, roles, w,
+                     new_global, new_agg, c2, s, r, k, n, stream);
+}
+
+int safa_aggregate_q8_rows_fleet_f32(const int8_t* q, const float* scales,
+                                     const float* base, const float* cache,
+                                     const float* global, const float* agg,
+                                     const int* rows, const uint8_t* roles,
+                                     const float* w, float* new_global,
+                                     float* new_agg, float* c2, float* local,
+                                     int s, int r, int k, long long n,
+                                     cudaStream_t stream) {
+  return launch_q8_rows(q, scales, base, cache, global, agg, rows, roles, w,
+                        new_global, new_agg, c2, local, s, r, k, n, stream);
 }
 
 }  // extern "C"

@@ -10,8 +10,11 @@ at once, batched over the stacked clients dim with
 ``torch.func.vmap(torch.func.grad(loss))``.  ``local_train_fleet`` trains
 a fleet of S runs sharing the task in one call: a second ``vmap`` over
 the members, the client data not batched over them, so it is held once
-whatever S.  ``stack_tasks`` stacks S tasks with different client data
-(padded to the longest) for a per-member-task sweep.
+whatever S.  The sparse schedules train the K active rows alone
+(``local_train_rows``; a fleet's S * K through
+``local_train_rows_fleet``).  ``stack_tasks`` stacks S tasks with
+different client data (padded to the longest) for a per-member-task
+sweep.
 
 Parameters keep the JAX package's layouts, so weights carry across
 unchanged (``repro_torch.convert``): conv weights are HWIO, fully
@@ -101,6 +104,21 @@ class SupervisedTask(Task):
         del round_idx
         r = rows.clamp(max=self._x.shape[0] - 1).long()
         return self._train(params_rows, self._x[r], self._y[r])
+
+    def local_train_rows_fleet(self, params_rows: dict, rows,
+                               round_idx) -> dict:
+        """The rows-train contract for a fleet of S runs sharing this task:
+        [S, K, ...] replicas, member s's replica k on client
+        ``rows[s, k]``'s data.  Members train different clients, so the
+        S * K replicas go through ``local_train_rows`` as one flat batch
+        (one call per SGD step), each replica taking the step its own run
+        takes; sentinel rows clamp as there."""
+        lead = tuple(rows.shape)
+        flat = {k: v.reshape((-1,) + tuple(v.shape[2:]))
+                for k, v in params_rows.items()}
+        out = self.local_train_rows(flat, rows.reshape(-1), round_idx)
+        return {k: v.reshape(lead + tuple(v.shape[1:]))
+                for k, v in out.items()}
 
     def local_train_fleet(self, fleet_params: dict, round_idx) -> dict:
         """``local_train`` for a fleet of S runs sharing this task:

@@ -41,7 +41,10 @@ LAUNCHES = {'safa_aggregate': 0, 'safa_aggregate_packed': 0,
             'weighted_merge_packed': 0, 'weighted_merge_packed_fleet': 0,
             'gather_rows': 0, 'scatter_rows': 0,
             'safa_aggregate_packed_rows': 0,
-            'safa_aggregate_packed_q8_rows': 0}
+            'safa_aggregate_packed_q8_rows': 0,
+            'gather_rows_fleet': 0, 'scatter_rows_fleet': 0,
+            'safa_aggregate_packed_rows_fleet': 0,
+            'safa_aggregate_packed_q8_rows_fleet': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,6 +71,12 @@ _SIGNATURES = {
                                 _I, _L, _P),
     'safa_aggregate_q8_rows_f32': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _P, _P, _P, _I, _I, _L, _P),
+    'gather_rows_fleet_f32': (_P, _P, _P, _I, _I, _I, _L, _P),
+    'scatter_rows_fleet_f32': (_P, _P, _P, _I, _I, _I, _L, _P),
+    'safa_aggregate_rows_fleet_f32': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _L, _P),
+    'safa_aggregate_q8_rows_fleet_f32': (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                         _P, _P, _P, _P, _I, _I, _I, _L, _P),
 }
 
 _lib = None

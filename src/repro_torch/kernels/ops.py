@@ -21,8 +21,9 @@ two launches per round (``quantize_packed``, then ``dequantize_packed``).
 ``weighted_merge_tree_packed`` is the weighted-merge family's server
 merge: the model packed once, one ``weighted_merge_packed`` launch.
 The sparse schedules' packed engine works on the pack buffers directly,
-with ``gather_rows``/``scatter_rows`` and the rows aggregation kernels
-(re-exported here, as the JAX package's ``ops`` holds them).
+with ``gather_rows``/``scatter_rows`` and the rows aggregation kernels,
+and their fleet forms (re-exported here, as the JAX package's ``ops``
+holds them).
 
 Each has a fleet form (``*_fleet``) over S independent servers: stacked
 models carry [S, m, ...] leaves and globals [S, ...], and each form
@@ -41,22 +42,26 @@ from repro_torch.kernels.comm_quant import (PACK_TILE, QBLOCK,
                                             dequantize_packed_fleet,
                                             quantize_packed,
                                             quantize_packed_fleet)
-from repro_torch.kernels.rows import gather_rows, scatter_rows
+from repro_torch.kernels.rows import (gather_rows, gather_rows_fleet,
+                                     scatter_rows, scatter_rows_fleet)
 from repro_torch.kernels.safa_aggregate import (
     safa_aggregate, safa_aggregate_fleet, safa_aggregate_packed,
     safa_aggregate_packed_fleet, safa_aggregate_packed_q8,
     safa_aggregate_packed_q8_fleet, safa_aggregate_packed_q8_rows,
-    safa_aggregate_packed_rows)
+    safa_aggregate_packed_q8_rows_fleet, safa_aggregate_packed_rows,
+    safa_aggregate_packed_rows_fleet)
 from repro_torch.kernels.weighted_merge import (weighted_merge_packed,
                                                 weighted_merge_packed_fleet)
 
-__all__ = ['PackSpec', 'comm_bytes', 'gather_rows', 'pack_fleet',
-           'pack_global', 'pack_spec', 'pack_stacked',
-           'safa_aggregate_packed_q8_rows', 'safa_aggregate_packed_rows',
+__all__ = ['PackSpec', 'comm_bytes', 'gather_rows', 'gather_rows_fleet',
+           'pack_fleet', 'pack_global', 'pack_spec', 'pack_stacked',
+           'safa_aggregate_packed_q8_rows',
+           'safa_aggregate_packed_q8_rows_fleet',
+           'safa_aggregate_packed_rows', 'safa_aggregate_packed_rows_fleet',
            'safa_aggregate_tree', 'safa_aggregate_tree_fleet',
            'safa_aggregate_tree_packed', 'safa_aggregate_tree_packed_fleet',
            'safa_compressed_update', 'safa_compressed_update_fleet',
-           'scatter_rows', 'tree_keys', 'unpack_fleet', 'unpack_global',
+           'scatter_rows', 'scatter_rows_fleet', 'tree_keys', 'unpack_fleet', 'unpack_global',
            'unpack_stacked',
            'weighted_merge_packed', 'weighted_merge_packed_fleet',
            'weighted_merge_tree_packed', 'weighted_merge_tree_packed_fleet',

@@ -77,6 +77,9 @@ def weighted_merge_ref(trained, global_prev, wrow):
 # A row index outside [0, R) reads and writes row R - 1, the buffer's
 # scratch row: that is where a sparse schedule's sentinel slots (index m
 # of an [m + 1, N] buffer) go, and no index can reach past the buffer.
+# Each takes one run's operands or a fleet's, with a leading member axis
+# (buf [S, R, N], rows [S, K], slot rows [S, K, N], vectors [S, N]), the
+# scratch row then being member s's own row R - 1.
 
 # SAFA role bits (``core.protocol.ROLE_*``), repeated so that this module
 # stands alone beside the kernels
@@ -90,22 +93,37 @@ def row_index(rows, r: int):
     return torch.where((rows >= 0) & (rows < r), rows, r - 1)
 
 
+def _flat_rows(rows, r: int):
+    """Rows [(S,) K] as int64 indices into the [S * R, N] view of a
+    fleet's buffer (member s's rows offset by s * R), every index outside
+    [0, R) first sent to member s's scratch row R - 1."""
+    idx = row_index(rows, r)
+    if rows.ndim == 2:
+        idx = idx + r * torch.arange(rows.shape[0],
+                                     device=rows.device)[:, None]
+    return idx.reshape(-1)
+
+
 def gather_rows_ref(buf, rows):
-    """buf [R, N], rows [K] -> [K, N]: row rows[j] of buf in slot j."""
-    return buf.index_select(0, row_index(rows, buf.shape[0]))
+    """buf [(S,) R, N], rows [(S,) K] -> [(S,) K, N]: row rows[j] of buf in
+    slot j."""
+    n = buf.shape[-1]
+    got = buf.reshape(-1, n).index_select(0, _flat_rows(rows, buf.shape[-2]))
+    return got.reshape(tuple(rows.shape) + (n,))
 
 
 def scatter_rows_ref(buf, rows, vals):
-    """Write vals [K, N] into buf [R, N] at ``rows``, in place, and return
-    buf.  Where slots share a row the last slot wins: every slot writes
-    the value of the last slot with its row, so the writes agree whatever
-    their order."""
-    idx = row_index(rows, buf.shape[0])
+    """Write vals [(S,) K, N] into buf [(S,) R, N] at ``rows``, in place,
+    and return buf.  Where slots share a row the last slot wins: every
+    slot writes the value of the last slot with its row, so the writes
+    agree whatever their order."""
+    n = buf.shape[-1]
+    idx = _flat_rows(rows, buf.shape[-2])
     k = idx.shape[0]
     slot = torch.arange(k, device=idx.device)
     last = torch.where(idx[:, None] == idx[None, :], slot[None, :],
                        -1).amax(dim=1)
-    buf.index_copy_(0, idx, vals[last])
+    buf.view(-1, n).index_copy_(0, idx, vals.reshape(-1, n)[last])
     return buf
 
 
@@ -113,14 +131,14 @@ def _rows_math(c0, tr, global_prev, agg, roles, w_rows):
     """Eq. 6-8 on K gathered cache rows c0 with the trained rows tr, as
     deltas on the running aggregate: (new_global, new_agg, c2)."""
     def bit(b):
-        return ((roles & b) != 0)[:, None]
+        return ((roles & b) != 0)[..., None]
     p, u, d = bit(_PICKED), bit(_UNDRAFTED), bit(_DEPRECATED)
-    c1 = torch.where(d & ~p, global_prev[None], c0)        # Eq. 6
+    c1 = torch.where(d & ~p, global_prev[..., None, :], c0)   # Eq. 6
     c1 = torch.where(p, tr, c1)
-    c2 = torch.where(u, tr, c1)                             # Eq. 8
-    w = w_rows.float()[:, None]
-    new_global = agg + torch.sum(w * (c1 - c0), dim=0)      # Eq. 7
-    new_agg = agg + torch.sum(w * (c2 - c0), dim=0)
+    c2 = torch.where(u, tr, c1)                                # Eq. 8
+    w = w_rows.float()[..., None]
+    new_global = agg + torch.sum(w * (c1 - c0), dim=-2)        # Eq. 7
+    new_agg = agg + torch.sum(w * (c2 - c0), dim=-2)
     return new_global, new_agg, c2
 
 
@@ -129,8 +147,8 @@ def safa_aggregate_rows_ref(cache, trained_rows, global_prev, agg, rows,
     """The rows kernel's formula: on the K cache rows c0 = cache[rows],
     new_global = agg + sum_k w_k (c1_k - c0_k) and new_agg = agg +
     sum_k w_k (c2_k - c0_k), with c1, c2 of Eq. 6 and 8 from the ROLE_*
-    bits in ``roles`` [K] uint8.  Returns (new_global [N], new_agg [N],
-    c2 [K, N])."""
+    bits in ``roles`` [(S,) K] uint8.  Returns (new_global [(S,) N],
+    new_agg [(S,) N], c2 [(S,) K, N])."""
     return _rows_math(gather_rows_ref(cache, rows), trained_rows,
                       global_prev, agg, roles, w_rows)
 
@@ -140,8 +158,9 @@ def safa_aggregate_q8_rows_ref(q, scales, base_rows, cache, global_prev,
     """The int8 rows kernel's composition: the trained row is the
     dequantised upload where the slot committed and its base row
     elsewhere, then ``safa_aggregate_rows_ref``.  Returns (new_global,
-    new_agg, c2 [K, N], local [K, N]), local being the trained rows."""
-    done = ((roles & _COMMITTED) != 0)[:, None]
+    new_agg, c2 [(S,) K, N], local [(S,) K, N]), local being the trained
+    rows."""
+    done = ((roles & _COMMITTED) != 0)[..., None]
     tr = torch.where(done, dequantize_packed_ref(q, scales), base_rows)
     return _rows_math(gather_rows_ref(cache, rows), tr, global_prev, agg,
                       roles, w_rows) + (tr,)

@@ -18,47 +18,77 @@ from repro_torch.kernels import backend, ref
 from repro_torch.kernels.comm_quant import _check_packed
 
 
-def _shapes(buf, rows):
-    if buf.ndim != 2 or rows.ndim != 1:
-        raise ValueError(f'expected buf [R, N] and rows [K], got shapes '
+def _shapes(buf, rows, fleet: bool):
+    """(lead, r, k, n) of a launch: lead is (S,) for a fleet, () for one
+    run; raises on the wrong ranks or a width the kernels do not take."""
+    want = 2 + fleet
+    if buf.ndim != want or rows.ndim != want - 1 or \
+            (fleet and rows.shape[0] != buf.shape[0]):
+        form = '[S, R, N] and rows [S, K]' if fleet else '[R, N] and rows [K]'
+        raise ValueError(f'expected buf {form}, got shapes '
                          f'{tuple(buf.shape)} and {tuple(rows.shape)}')
-    r, n = buf.shape
+    lead = tuple(buf.shape[:1]) if fleet else ()
+    r, n = buf.shape[-2:]
     _check_packed(n)
-    return r, rows.shape[0], n
+    return lead, r, rows.shape[-1], n
 
 
-def _check(buf, rows, r, k, n):
-    backend.check_operand(buf, 'buf', torch.float32, (r, n), buf.device)
-    backend.check_operand(rows, 'rows', torch.int32, (k,), buf.device)
+def _gather(key: str, entry: str, fleet: bool, buf, rows):
+    lead, r, k, n = _shapes(buf, rows, fleet)
+    if not backend.is_cuda(buf, rows):
+        return ref.gather_rows_ref(buf, rows)
+    backend.check_operand(buf, 'buf', torch.float32, lead + (r, n),
+                          buf.device)
+    backend.check_operand(rows, 'rows', torch.int32, lead + (k,), buf.device)
+    out = torch.empty(lead + (k, n), dtype=torch.float32, device=buf.device)
+    backend.call(entry, buf.device, buf.data_ptr(), rows.data_ptr(),
+                 out.data_ptr(), *lead, r, k, n)
+    backend.LAUNCHES[key] += 1
+    return out
+
+
+def _scatter(key: str, entry: str, fleet: bool, buf, rows, vals):
+    lead, r, k, n = _shapes(buf, rows, fleet)
+    if tuple(vals.shape) != lead + (k, n):
+        dims = (f'S={lead[0]}, ' if fleet else '') + f'K={k}, N={n}'
+        raise ValueError(f'vals shape {tuple(vals.shape)} does not match '
+                         f'({dims})')
+    if not backend.is_cuda(buf, rows, vals):
+        return ref.scatter_rows_ref(buf, rows, vals)
+    dev = buf.device
+    backend.check_operand(buf, 'buf', torch.float32, lead + (r, n), dev)
+    backend.check_operand(rows, 'rows', torch.int32, lead + (k,), dev)
+    backend.check_operand(vals, 'vals', torch.float32, lead + (k, n), dev)
+    backend.call(entry, dev, buf.data_ptr(), rows.data_ptr(),
+                 vals.data_ptr(), *lead, r, k, n)
+    backend.LAUNCHES[key] += 1
+    return buf
 
 
 def gather_rows(buf, rows):
     """buf [R, N] f32 pack buffer (N % PACK_TILE == 0), rows [K] int32 ->
     [K, N], one launch."""
-    r, k, n = _shapes(buf, rows)
-    if not backend.is_cuda(buf, rows):
-        return ref.gather_rows_ref(buf, rows)
-    _check(buf, rows, r, k, n)
-    out = torch.empty((k, n), dtype=torch.float32, device=buf.device)
-    backend.call('gather_rows_f32', buf.device, buf.data_ptr(),
-                 rows.data_ptr(), out.data_ptr(), r, k, n)
-    backend.LAUNCHES['gather_rows'] += 1
-    return out
+    return _gather('gather_rows', 'gather_rows_f32', False, buf, rows)
+
+
+def gather_rows_fleet(buf, rows):
+    """Fleet form of ``gather_rows``: buf [S, R, N], rows [S, K] int32 ->
+    [S, K, N], one launch for all S members."""
+    return _gather('gather_rows_fleet', 'gather_rows_fleet_f32', True, buf,
+                   rows)
 
 
 def scatter_rows(buf, rows, vals):
     """Write vals [K, N] f32 into buf [R, N] at ``rows`` [K] int32, in
     place, one launch; returns ``buf``.  ``vals`` must not overlap
     ``buf``."""
-    r, k, n = _shapes(buf, rows)
-    if tuple(vals.shape) != (k, n):
-        raise ValueError(f'vals shape {tuple(vals.shape)} does not match '
-                         f'(K={k}, N={n})')
-    if not backend.is_cuda(buf, rows, vals):
-        return ref.scatter_rows_ref(buf, rows, vals)
-    _check(buf, rows, r, k, n)
-    backend.check_operand(vals, 'vals', torch.float32, (k, n), buf.device)
-    backend.call('scatter_rows_f32', buf.device, buf.data_ptr(),
-                 rows.data_ptr(), vals.data_ptr(), r, k, n)
-    backend.LAUNCHES['scatter_rows'] += 1
-    return buf
+    return _scatter('scatter_rows', 'scatter_rows_f32', False, buf, rows,
+                    vals)
+
+
+def scatter_rows_fleet(buf, rows, vals):
+    """Fleet form of ``scatter_rows``: vals [S, K, N] into buf [S, R, N] at
+    each member's ``rows`` [S, K], in place, one launch for all S members;
+    returns ``buf``."""
+    return _scatter('scatter_rows_fleet', 'scatter_rows_fleet_f32', True,
+                    buf, rows, vals)

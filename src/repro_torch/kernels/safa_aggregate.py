@@ -29,6 +29,9 @@ alone (``csrc/safa_rows.cu``): ``safa_aggregate_packed_rows`` and its int8
 form ``safa_aggregate_packed_q8_rows`` read the K cache rows by index and
 return the new global, the new running aggregate and the K new cache rows
 (and the int8 form the K local rows), for the engine to scatter back.
+Their fleet forms (``*_rows_fleet``) take a leading member axis on every
+operand (cache [S, R, N], slot rows [S, K, N], vectors [S, N], slots
+[S, K]) and launch once for all S members.
 """
 from __future__ import annotations
 
@@ -227,23 +230,86 @@ def safa_aggregate_packed_q8_fleet(q, scales, base, cache, global_prev,
 # The sparse schedules' rows forms: Eq. 6-8 on K indexed cache rows
 # ---------------------------------------------------------------------------
 
-def _check_rows_operands(cache, rows, roles, w_rows, global_prev, agg):
-    """Shapes (r, k, n) of a rows launch, with the operands every rows
-    kernel shares checked; raises on a bad rank or width."""
-    if cache.ndim != 2 or rows.ndim != 1:
-        raise ValueError(f'expected cache [R, N] and rows [K], got shapes '
+def _rows_lead(fleet: bool, cache, rows) -> tuple:
+    """The member axis of a rows launch: (S,) for a fleet, () for one run;
+    raises on the wrong ranks or a width the kernels do not take."""
+    want = 2 + fleet
+    if cache.ndim != want or rows.ndim != want - 1:
+        form = ('cache [S, R, N] and rows [S, K]' if fleet
+                else 'cache [R, N] and rows [K]')
+        raise ValueError(f'expected {form}, got shapes '
                          f'{tuple(cache.shape)} and {tuple(rows.shape)}')
-    (r, n), k = cache.shape, rows.shape[0]
-    _check_packed(n)
+    _check_packed(cache.shape[-1])
+    return tuple(cache.shape[:1]) if fleet else ()
+
+
+def _check_rows_operands(fleet: bool, cache, rows, roles, w_rows,
+                         global_prev, agg):
+    """(lead, r, k, n) of a rows launch, with the operands every rows
+    kernel shares checked."""
+    lead = _rows_lead(fleet, cache, rows)
+    (r, n), k = cache.shape[-2:], rows.shape[-1]
     dev = cache.device
-    backend.check_operand(cache, 'cache', torch.float32, (r, n), dev)
-    backend.check_operand(rows, 'rows', torch.int32, (k,), dev)
-    backend.check_operand(roles, 'roles', torch.uint8, (k,), dev)
-    backend.check_operand(w_rows, 'w_rows', torch.float32, (k,), dev)
-    backend.check_operand(global_prev, 'global_prev', torch.float32, (n,),
-                          dev)
-    backend.check_operand(agg, 'agg', torch.float32, (n,), dev)
-    return r, k, n
+    backend.check_operand(cache, 'cache', torch.float32, lead + (r, n), dev)
+    backend.check_operand(rows, 'rows', torch.int32, lead + (k,), dev)
+    backend.check_operand(roles, 'roles', torch.uint8, lead + (k,), dev)
+    backend.check_operand(w_rows, 'w_rows', torch.float32, lead + (k,), dev)
+    backend.check_operand(global_prev, 'global_prev', torch.float32,
+                          lead + (n,), dev)
+    backend.check_operand(agg, 'agg', torch.float32, lead + (n,), dev)
+    return lead, r, k, n
+
+
+def _rows(key: str, entry: str, fleet: bool, cache, trained_rows,
+          global_prev, agg, rows, roles, w_rows):
+    if not backend.is_cuda(cache, trained_rows, global_prev, agg):
+        _rows_lead(fleet, cache, rows)
+        return ref.safa_aggregate_rows_ref(cache, trained_rows, global_prev,
+                                           agg, rows, roles, w_rows)
+    lead, r, k, n = _check_rows_operands(fleet, cache, rows, roles, w_rows,
+                                         global_prev, agg)
+    dev = cache.device
+    backend.check_operand(trained_rows, 'trained_rows', torch.float32,
+                          lead + (k, n), dev)
+    new_global = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
+    new_agg = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
+    c2 = torch.empty(lead + (k, n), dtype=torch.float32, device=dev)
+    backend.call(entry, dev, cache.data_ptr(), trained_rows.data_ptr(),
+                 global_prev.data_ptr(), agg.data_ptr(), rows.data_ptr(),
+                 roles.data_ptr(), w_rows.data_ptr(), new_global.data_ptr(),
+                 new_agg.data_ptr(), c2.data_ptr(), *lead, r, k, n)
+    backend.LAUNCHES[key] += 1
+    return new_global, new_agg, c2
+
+
+def _q8_rows(key: str, entry: str, fleet: bool, q_rows, scales_rows,
+             base_rows, cache, global_prev, agg, rows, roles, w_rows):
+    if not backend.is_cuda(q_rows, scales_rows, base_rows, cache,
+                           global_prev, agg):
+        _rows_lead(fleet, cache, rows)
+        return ref.safa_aggregate_q8_rows_ref(q_rows, scales_rows,
+                                              base_rows, cache, global_prev,
+                                              agg, rows, roles, w_rows)
+    lead, r, k, n = _check_rows_operands(fleet, cache, rows, roles, w_rows,
+                                         global_prev, agg)
+    dev = cache.device
+    backend.check_operand(q_rows, 'q_rows', torch.int8, lead + (k, n), dev)
+    backend.check_operand(scales_rows, 'scales_rows', torch.float32,
+                          lead + (k, n // QBLOCK), dev)
+    backend.check_operand(base_rows, 'base_rows', torch.float32,
+                          lead + (k, n), dev)
+    new_global = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
+    new_agg = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
+    c2 = torch.empty(lead + (k, n), dtype=torch.float32, device=dev)
+    local = torch.empty(lead + (k, n), dtype=torch.float32, device=dev)
+    backend.call(entry, dev, q_rows.data_ptr(), scales_rows.data_ptr(),
+                 base_rows.data_ptr(), cache.data_ptr(),
+                 global_prev.data_ptr(), agg.data_ptr(), rows.data_ptr(),
+                 roles.data_ptr(), w_rows.data_ptr(), new_global.data_ptr(),
+                 new_agg.data_ptr(), c2.data_ptr(), local.data_ptr(), *lead,
+                 r, k, n)
+    backend.LAUNCHES[key] += 1
+    return new_global, new_agg, c2, local
 
 
 def safa_aggregate_packed_rows(cache, trained_rows, global_prev, agg, rows,
@@ -258,25 +324,20 @@ def safa_aggregate_packed_rows(cache, trained_rows, global_prev, agg, rows,
     Returns (new_global [N], new_agg [N], c2 [K, N]), new_global = agg +
     sum w (c1 - c0) and new_agg = agg + sum w (c2 - c0); the caller
     scatters c2 back into the cache."""
-    if not backend.is_cuda(cache, trained_rows, global_prev, agg):
-        _check_packed(cache.shape[-1])
-        return ref.safa_aggregate_rows_ref(cache, trained_rows, global_prev,
-                                           agg, rows, roles, w_rows)
-    r, k, n = _check_rows_operands(cache, rows, roles, w_rows, global_prev,
-                                   agg)
-    dev = cache.device
-    backend.check_operand(trained_rows, 'trained_rows', torch.float32,
-                          (k, n), dev)
-    new_global = torch.empty(n, dtype=torch.float32, device=dev)
-    new_agg = torch.empty(n, dtype=torch.float32, device=dev)
-    c2 = torch.empty((k, n), dtype=torch.float32, device=dev)
-    backend.call('safa_aggregate_rows_f32', dev, cache.data_ptr(),
-                 trained_rows.data_ptr(), global_prev.data_ptr(),
-                 agg.data_ptr(), rows.data_ptr(), roles.data_ptr(),
-                 w_rows.data_ptr(), new_global.data_ptr(),
-                 new_agg.data_ptr(), c2.data_ptr(), r, k, n)
-    backend.LAUNCHES['safa_aggregate_packed_rows'] += 1
-    return new_global, new_agg, c2
+    return _rows('safa_aggregate_packed_rows', 'safa_aggregate_rows_f32',
+                 False, cache, trained_rows, global_prev, agg, rows, roles,
+                 w_rows)
+
+
+def safa_aggregate_packed_rows_fleet(cache, trained_rows, global_prev, agg,
+                                     rows, roles, w_rows):
+    """Fleet form of ``safa_aggregate_packed_rows``: cache [S, R, N],
+    trained_rows [S, K, N], global_prev/agg [S, N], rows/roles/w_rows
+    [S, K]; S servers' Eq. 6-8 in one launch.  Returns (new_global
+    [S, N], new_agg [S, N], c2 [S, K, N])."""
+    return _rows('safa_aggregate_packed_rows_fleet',
+                 'safa_aggregate_rows_fleet_f32', True, cache, trained_rows,
+                 global_prev, agg, rows, roles, w_rows)
 
 
 def safa_aggregate_packed_q8_rows(q_rows, scales_rows, base_rows, cache,
@@ -287,29 +348,20 @@ def safa_aggregate_packed_q8_rows(q_rows, scales_rows, base_rows, cache,
     not commit (no ``ROLE_COMMITTED`` bit) take base_rows [K, N] instead.
     Returns (new_global [N], new_agg [N], c2 [K, N], local [K, N]), local
     being each slot's trained row (its new local model)."""
-    if not backend.is_cuda(q_rows, scales_rows, base_rows, cache,
-                           global_prev, agg):
-        _check_packed(cache.shape[-1])
-        return ref.safa_aggregate_q8_rows_ref(q_rows, scales_rows,
-                                              base_rows, cache, global_prev,
-                                              agg, rows, roles, w_rows)
-    r, k, n = _check_rows_operands(cache, rows, roles, w_rows, global_prev,
-                                   agg)
-    dev = cache.device
-    backend.check_operand(q_rows, 'q_rows', torch.int8, (k, n), dev)
-    backend.check_operand(scales_rows, 'scales_rows', torch.float32,
-                          (k, n // QBLOCK), dev)
-    backend.check_operand(base_rows, 'base_rows', torch.float32, (k, n),
-                          dev)
-    new_global = torch.empty(n, dtype=torch.float32, device=dev)
-    new_agg = torch.empty(n, dtype=torch.float32, device=dev)
-    c2 = torch.empty((k, n), dtype=torch.float32, device=dev)
-    local = torch.empty((k, n), dtype=torch.float32, device=dev)
-    backend.call('safa_aggregate_q8_rows_f32', dev, q_rows.data_ptr(),
-                 scales_rows.data_ptr(), base_rows.data_ptr(),
-                 cache.data_ptr(), global_prev.data_ptr(), agg.data_ptr(),
-                 rows.data_ptr(), roles.data_ptr(), w_rows.data_ptr(),
-                 new_global.data_ptr(), new_agg.data_ptr(), c2.data_ptr(),
-                 local.data_ptr(), r, k, n)
-    backend.LAUNCHES['safa_aggregate_packed_q8_rows'] += 1
-    return new_global, new_agg, c2, local
+    return _q8_rows('safa_aggregate_packed_q8_rows',
+                    'safa_aggregate_q8_rows_f32', False, q_rows, scales_rows,
+                    base_rows, cache, global_prev, agg, rows, roles, w_rows)
+
+
+def safa_aggregate_packed_q8_rows_fleet(q_rows, scales_rows, base_rows,
+                                        cache, global_prev, agg, rows, roles,
+                                        w_rows):
+    """Fleet form of ``safa_aggregate_packed_q8_rows``: q_rows [S, K, N]
+    int8, scales_rows [S, K, N / QBLOCK], base_rows [S, K, N], cache
+    [S, R, N], global_prev/agg [S, N], rows/roles/w_rows [S, K]; one
+    launch.  Returns (new_global [S, N], new_agg [S, N], c2 [S, K, N],
+    local [S, K, N])."""
+    return _q8_rows('safa_aggregate_packed_q8_rows_fleet',
+                    'safa_aggregate_q8_rows_fleet_f32', True, q_rows,
+                    scales_rows, base_rows, cache, global_prev, agg, rows,
+                    roles, w_rows)

@@ -163,22 +163,27 @@ def test_own_init_trains(quickstart):
     assert all(v == 0 for v in backend.LAUNCHES.values())
 
 
-@pytest.mark.parametrize('spec,ex,item', [
-    (tapi.SafaSpec(), tapi.ExecSpec(engine='sequential', schedule='sparse'),
-     '22'),
-    (tapi.SafaSpec(), tapi.ExecSpec(engine='fleet', schedule='sparse_delta'),
-     '22'),
-    (tapi.SafaSpec(), tapi.ExecSpec(schedule='sparse_tier'), '12'),
-    (tapi.SafaSpec(), tapi.ExecSpec(engine='fleet', schedule='sparse'), '22'),
-    (tapi.SafaSpec(quantize_uploads=True), tapi.ExecSpec(), '17'),
+# Sparse sweeps are ported: the ids that named them now name the cells
+# around them that stay unported (the lag tier on either engine, the
+# wire-derived comm model of a FedAvg sparse sweep's env).
+@pytest.mark.parametrize('spec,ex,env,item', [
+    (tapi.SafaSpec(),
+     tapi.ExecSpec(engine='sequential', schedule='sparse_tier'), None, '12'),
+    (tapi.SafaSpec(),
+     tapi.ExecSpec(engine='fleet', schedule='sparse_tier',
+                   use_kernel='packed'), None, '12'),
+    (tapi.SafaSpec(), tapi.ExecSpec(schedule='sparse_tier'), None, '12'),
+    (tapi.SafaSpec(), tapi.ExecSpec(engine='fleet', schedule='sparse_tier'),
+     None, '12'),
+    (tapi.SafaSpec(quantize_uploads=True), tapi.ExecSpec(), None, '17'),
     (tapi.FedAvgSpec(), tapi.ExecSpec(engine='fleet', schedule='sparse'),
-     '22'),
+     TEnvSpec(**QUICKSTART).replace(comm='wire'), '13'),
 ], ids=['sparse', 'sparse_delta', 'sparse_tier', 'fleet', 'quantize_uploads',
         'fedavg'])
-def test_unported_cells_raise(spec, ex, item):
+def test_unported_cells_raise(spec, ex, env, item):
     with pytest.raises(NotImplementedError,
                        match=f'ROADMAP queue 1, item {item} '):
-        tapi.check_compat(spec, ex)
+        tapi.check_compat(spec, ex, env=env)
 
 
 def test_invalid_cells_raise_value_error():

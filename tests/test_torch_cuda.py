@@ -26,12 +26,14 @@ from repro_torch.kernels.comm_quant import (dequantize_packed,
                                             dequantize_packed_fleet,
                                             quantize_packed,
                                             quantize_packed_fleet)
-from repro_torch.kernels.rows import gather_rows, scatter_rows
+from repro_torch.kernels.rows import (gather_rows, gather_rows_fleet,
+                                     scatter_rows, scatter_rows_fleet)
 from repro_torch.kernels.safa_aggregate import (
     safa_aggregate, safa_aggregate_fleet, safa_aggregate_packed,
     safa_aggregate_packed_fleet, safa_aggregate_packed_q8,
     safa_aggregate_packed_q8_fleet, safa_aggregate_packed_q8_rows,
-    safa_aggregate_packed_rows)
+    safa_aggregate_packed_q8_rows_fleet, safa_aggregate_packed_rows,
+    safa_aggregate_packed_rows_fleet)
 from repro_torch.kernels.weighted_merge import (weighted_merge_packed,
                                                 weighted_merge_packed_fleet)
 
@@ -684,3 +686,158 @@ def test_sparse_run_on_the_card(dev, cell):
     for k, v in dense.final_global.items():
         torch.testing.assert_close(runs['scan'].final_global[k], v, rtol=0,
                                    atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# Sparse sweeps: the S-axis row gather/scatter (kernels 13, 14) and rows
+# aggregations (kernels 17, 18)
+# ---------------------------------------------------------------------------
+
+ROWS_FLEET_SHAPES = [(3, 14, 7, 4096), (3, 1001, 124, 2048),
+                     (3, 301, 300, 6144)]
+
+
+def _rows_fleet_case(s, r, k, n, dev, seed):
+    """S members' seeded rows operands (``_rows_case`` per member, each
+    with its own rows, roles and weights), stacked; member 0 has a
+    duplicate real row, member 1 rows outside [0, R)."""
+    cases = [_rows_case(r, k, n, dev, seed + 10 * i) for i in range(s)]
+    t = {name: torch.stack([c[name] for c in cases]) for name in cases[0]}
+    t['rows'][0, 1] = t['rows'][0, 0]
+    t['rows'][1, 0], t['rows'][1, -1] = -1, r + 7
+    return t
+
+
+def _per_member(got, single, s):
+    """Fleet outputs ``got`` equal the single-run kernel's on every
+    member's slices (``single(i)``), bit for bit."""
+    for i in range(s):
+        want = single(i)
+        for g, w in zip(got, want):
+            assert torch.equal(g[i], w), i
+
+
+@pytest.mark.parametrize('s,r,k,n', ROWS_FLEET_SHAPES)
+def test_gather_rows_fleet_matches_plain_and_single_run(dev, s, r, k, n):
+    t = _rows_fleet_case(s, r, k, n, dev, 0)
+    got = gather_rows_fleet(t['cache'], t['rows'])
+    again = gather_rows_fleet(t['cache'], t['rows'])
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.gather_rows_ref(t['cache'], t['rows']))
+    assert torch.equal(got, again)
+    assert torch.equal(got[1, 0], t['cache'][1, -1])
+    assert backend.LAUNCHES['gather_rows_fleet'] == 2
+    _per_member((got,), lambda i: (gather_rows(t['cache'][i],
+                                               t['rows'][i]),), s)
+
+
+@pytest.mark.parametrize('s,r,k,n', ROWS_FLEET_SHAPES)
+def test_scatter_rows_fleet_matches_plain_and_single_run(dev, s, r, k, n):
+    t = _rows_fleet_case(s, r, k, n, dev, 1)
+    want = ref.scatter_rows_ref(t['cache'].clone(), t['rows'], t['trained'])
+    outs = []
+    for _ in range(2):
+        buf = t['cache'].clone()
+        out = scatter_rows_fleet(buf, t['rows'], t['trained'])
+        torch.cuda.synchronize()
+        assert out is buf
+        outs.append(out)
+    assert torch.equal(outs[0], want) and torch.equal(outs[1], want)
+    assert torch.equal(outs[0][0, t['rows'][0, 0].long()], t['trained'][0, 1])
+    assert backend.LAUNCHES['scatter_rows_fleet'] == 2
+    _per_member((outs[0],), lambda i: (scatter_rows(
+        t['cache'][i].clone(), t['rows'][i], t['trained'][i]),), s)
+
+
+@pytest.mark.parametrize('s,r,k,n', ROWS_FLEET_SHAPES)
+def test_rows_aggregate_fleet_matches_plain_and_single_run(dev, s, r, k, n):
+    t = _rows_fleet_case(s, r, k, n, dev, 2)
+    args = (t['cache'], t['trained'], t['global_prev'], t['agg'], t['rows'],
+            t['roles'], t['w'])
+    want = ref.safa_aggregate_rows_ref(*args)
+    got = safa_aggregate_packed_rows_fleet(*args)
+    again = safa_aggregate_packed_rows_fleet(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[2], want[2])
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert backend.LAUNCHES['safa_aggregate_packed_rows_fleet'] == 2
+    _per_member(got, lambda i: safa_aggregate_packed_rows(
+        *(a[i] for a in args)), s)
+
+
+@pytest.mark.parametrize('s,r,k,n', ROWS_FLEET_SHAPES)
+def test_q8_rows_aggregate_fleet_matches_plain_and_single_run(dev, s, r, k,
+                                                              n):
+    t = _rows_fleet_case(s, r, k, n, dev, 3)
+    q, sc = ref.quantize_packed_ref(t['trained'])
+    args = (q, sc, t['base'], t['cache'], t['global_prev'], t['agg'],
+            t['rows'], t['roles'], t['w'])
+    want = ref.safa_aggregate_q8_rows_ref(*args)
+    got = safa_aggregate_packed_q8_rows_fleet(*args)
+    again = safa_aggregate_packed_q8_rows_fleet(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert backend.LAUNCHES['safa_aggregate_packed_q8_rows_fleet'] == 2
+    _per_member(got, lambda i: safa_aggregate_packed_q8_rows(
+        *(a[i] for a in args)), s)
+
+
+def test_fleet_rows_kernels_refuse_bad_operands(dev):
+    t = _rows_fleet_case(2, 14, 7, 2048, dev, 4)
+    with pytest.raises(ValueError, match=r'\[S, R, N\]'):
+        gather_rows_fleet(t['cache'][0], t['rows'][0])
+    with pytest.raises(TypeError, match='rows'):
+        scatter_rows_fleet(t['cache'], t['rows'].long(), t['trained'])
+    with pytest.raises(ValueError, match='agg'):
+        safa_aggregate_packed_rows_fleet(
+            t['cache'], t['trained'], t['global_prev'], t['agg'][0],
+            t['rows'], t['roles'], t['w'])
+    assert all(v == 0 for v in backend.LAUNCHES.values())
+
+
+@pytest.mark.parametrize('cell', sorted(SPARSE_CELLS))
+def test_sparse_sweep_on_the_card(dev, cell):
+    """Two-round sparse sweeps on the card, both engines: the fleet
+    launches each kernel's fleet form as often per round as the cell's
+    single run launches the single-run kernel, the sequential engine the
+    single-run kernels once per member; fleet and sequential train in
+    batches of other sizes, so they are held to atol 1e-5 (1e-4 on the
+    int8 wire), not bit for bit."""
+    from repro_torch import api
+    from repro_torch.fedsim import EnvSpec
+    spec = EnvSpec(m=24, crash_prob=0.3, dataset_size=480, batch_size=10,
+                   epochs=1, t_lim=200.0, seed=3)
+    task = _regression(spec)
+    name, ex, per_round = SPARSE_CELLS[cell]
+    members = [api.SweepMember(env=spec, fraction=f, seed=i,
+                               overrides={'crash_prob': cr})
+               for i, (f, cr) in enumerate(((0.3, 0.1), (0.2, 0.5),
+                                            (0.4, 0.3)))]
+    rounds = 2
+    hists = {}
+    for engine in ('fleet', 'sequential'):
+        backend.reset_launches()
+        hists[engine] = api.Experiment(
+            task, None, api.spec(name),
+            api.ExecSpec(engine=engine, eval_every=1, **ex),
+            rounds=rounds).compile().run_sweep(members)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in backend.LAUNCHES.items() if v}
+        if engine == 'fleet':
+            assert counts == {k + '_fleet': n * rounds
+                              for k, n in per_round.items()}
+        else:
+            assert counts == {k: n * rounds * len(members)
+                              for k, n in per_round.items()}
+    atol = 1e-4 if ex.get('wire') == 'int8' else 1e-5
+    for f, q in zip(hists['fleet'], hists['sequential']):
+        assert all(np.isfinite([e['loss'] for _, e in f.evals()]))
+        for k, v in q.final_global.items():
+            assert v.is_cuda
+            torch.testing.assert_close(f.final_global[k], v, rtol=0,
+                                       atol=atol)

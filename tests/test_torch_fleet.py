@@ -584,10 +584,13 @@ def test_unported_sweep_cells_raise(reg, case):
         if case == 'checkpoint':
             _runner(tt).run_sweep(members, checkpoint='sweep.npz')
         elif case == 'sparse':
-            # sparse single runs are ported; sparse sweeps are item 22
-            with pytest.raises(NotImplementedError, match='item 22 '):
-                _runner(tt, schedule='sparse').run_sweep(members)
-            _runner(tt, schedule='sparse_delta').run_sweep(members)
+            # sparse runs and sweeps are ported; the lag tier (item 12)
+            # stays refused on the fleet engine and on the sequential one
+            with pytest.raises(NotImplementedError, match='item 12 '):
+                _runner(tt, schedule='sparse_tier',
+                        engine='fleet').run_sweep(members)
+            _runner(tt, schedule='sparse_tier',
+                    engine='sequential').run_sweep(members)
         elif case == 'sparse_tier':
             _runner(tt, schedule='sparse_tier').run_sweep(members)
         elif case == 'comm_wire':

@@ -628,21 +628,45 @@ def test_refusals_match_reference(name, fields, ex):
 @pytest.mark.parametrize('schedule', ['sparse', 'sparse_delta'])
 @pytest.mark.parametrize('name', ['safa', 'fedavg', 'fedcs'])
 def test_sparse_sweeps_name_item_22(name, schedule, engine):
-    ex = tapi.ExecSpec(engine=engine, schedule=schedule)
-    with pytest.raises(NotImplementedError, match='item 22'):
-        tapi.check_compat(tapi.spec(name), ex)
-    japi.check_compat(japi.spec(name), japi.ExecSpec(engine=engine,
-                                                     schedule=schedule))
+    """ROADMAP item 22, sparse sweeps, is ported: the port admits every
+    sparse sweep cell the JAX package admits, with every wire and the
+    kernel routes of the single runs."""
+    kernels = {'safa': (False, True, 'packed') if schedule == 'sparse'
+               else (False, 'packed')}.get(name, (False,))
+    for wire in ('f32', 'int8'):
+        for use_kernel in kernels:
+            kw = dict(engine=engine, schedule=schedule, wire=wire,
+                      use_kernel=use_kernel)
+            assert tapi.check_compat(tapi.spec(name),
+                                     tapi.ExecSpec(**kw)).name == name
+            japi.check_compat(japi.spec(name), japi.ExecSpec(**kw))
 
 
 @pytest.mark.parametrize('schedule', ['sparse', 'sparse_delta'])
 def test_run_sweep_refuses_sparse_schedules(reg, schedule):
-    _, tt, _ = reg
+    """A sparse sweep needs the rows-train contract of a shared task: with
+    per-member tasks (padded stacking) it raises the JAX package's
+    ValueError; with a shared task it runs."""
+    jt, tt, _ = reg
     runner = tapi.Experiment(tt, None, tapi.SafaSpec(),
                              tapi.ExecSpec(schedule=schedule), rounds=2,
                              device='cpu').compile()
-    with pytest.raises(NotImplementedError, match='item 22'):
-        runner.run_sweep([tapi.SweepMember(env=TEnvSpec(**ENV))])
+    other = ttasks.regression_task(tt.data, lr=5e-4, epochs=3, device='cpu')
+    with pytest.raises(ValueError, match='rows-train contract') as port:
+        runner.run_sweep(tapi.SweepSpec(
+            members=[tapi.SweepMember(env=TEnvSpec(**ENV))] * 2,
+            tasks=(tt, other)))
+    ref = japi.Experiment(jt, None, japi.SafaSpec(),
+                          japi.ExecSpec(schedule=schedule),
+                          rounds=2).compile()
+    jother = jtasks.regression_task(jt.data, lr=5e-4, epochs=3)
+    with pytest.raises(ValueError) as want:
+        ref.run_sweep(japi.SweepSpec(
+            members=[japi.SweepMember(env=JEnvSpec(**ENV))] * 2,
+            tasks=(jt, jother)))
+    assert str(port.value) == str(want.value)
+    hists = runner.run_sweep([tapi.SweepMember(env=TEnvSpec(**ENV))])
+    assert len(hists) == 1 and hists[0].final_global is not None
 
 
 @pytest.mark.parametrize('name', ['safa', 'fedavg', 'fedcs'])

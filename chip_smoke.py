@@ -35,6 +35,17 @@ Phases, each of which must pass:
              plain versions and, member by member, bit for bit against
              the single-run kernels; the gather and scatter beside
              ``index_select``/``index_copy_`` on the [S * R, N] view.
+             The lag tier's kernels 19 and 20 run on the slot maps of
+             the m = 1000 quota-bounded tier schedule of two rounds
+             (round 2: K = 124, every c2 aimed at the scratch row of a
+             buffer of capacity + 1 = 123 rows; round 1: 121 rows written
+             in place, three sentinel slots), their S-axis forms on the
+             four-member tier fleet's rounds (env seeds 0-3, sentinel
+             padding to K = 125): the whole buffer, scratch row included,
+             bit for bit the plain version's, new_global and new_agg
+             within 5e-7, every member of an S-axis launch bit for bit
+             its single launch, timed on round 2 against the bytes its
+             slot maps and roles need (no PyTorch call computes either).
 3. main    — the paper's Task 2 CNN at full width (m = 100, 24 batches of
              40, 5 epochs) through ``Experiment(...).compile().run()``,
              with ``use_kernel='packed'`` and with ``wire='int8'``; each
@@ -118,6 +129,19 @@ Phases, each of which must pass:
              sequential (a dense fleet would not fit on the card).  Each
              run prints its members' K, seconds per fleet round (or
              member-round) and its peak device memory.
+9. tier    — the lag tier (``schedule='sparse_tier'``) on the same task
+             at full width, 2 rounds, deterministic cuDNN, on the
+             quota-bounded environment: at m = 1000 ``'sparse_tier'``
+             packed (a round: ``gather_rows`` and the tier-rows kernel
+             once each; int8: ``quantize_packed`` and the int8 form),
+             packed int8 and plain, against ``'sparse_delta'`` packed
+             (f32 within 1e-5 after one round and after two, int8 as the
+             sparse phase holds it); a 4-member tier sweep (env seeds
+             0-3) packed, f32 and int8, on both engines, fleet -
+             sequential printed per round and held to 0; a packed run at
+             m = 10,000.  Each run prints its K, tier capacity, per-round
+             train and server-step seconds, launches and peak device
+             memory, beside ``'sparse_delta'`` packed at m = 1000.
 
 The line before the last is a JSON object of kernel records; the last
 line is ``{"ok": true, "device": {...}}``.  Without a visible card, or
@@ -602,34 +626,36 @@ def merge_kernel_phase(torch, n: int, fails: list) -> list:
     return recs
 
 
-def scale_spec(seed=0):
+def scale_spec(seed=0, m=SCALE_M):
     """The quota-bounded environment of the JAX package's
     ``benchmarks/scale.py`` (``make_scale_env``) with the Task 2 data,
-    batch and epochs: m = 1000, crash 0, communication negligible, t_lim
-    pinned at the 2.5 x quota-th fastest client of the env of ``seed``,
-    so that SAFA's active set stays near 2.5 x quota whatever m."""
+    batch and epochs: m clients (1000 unless given), crash 0,
+    communication negligible, t_lim pinned at the 2.5 x quota-th fastest
+    client of the env of ``seed``, so that SAFA's active set stays near
+    2.5 x quota whatever m."""
     import numpy as np
 
     from repro_torch.configs import PAPER_TASKS
     from repro_torch.fedsim import EnvSpec
     cfg = PAPER_TASKS['task2_cnn']
-    spec = EnvSpec(m=SCALE_M, crash_prob=0.0,
+    spec = EnvSpec(m=m, crash_prob=0.0,
                    dataset_size=cfg['dataset_size'],
                    batch_size=cfg['batch_size'], epochs=cfg['epochs'],
                    t_lim=1e9, seed=seed, model_size_mb=1e-3)
     env = spec.build()
     base = env.t_updown + env.full_train_time()
-    k = min(SCALE_M - 1, int(round(2.5 * QUOTA)))
+    k = min(m - 1, int(round(2.5 * QUOTA)))
     return spec.replace(t_lim=float(np.partition(base, k)[k]))
 
 
-def scale_schedule(rounds, seed=0):
-    """SAFA's sparse schedule on ``scale_spec(seed)`` (lag tolerance 10 x
-    rounds, as the JAX package's scale benchmark sets it)."""
+def scale_schedule(rounds, seed=0, form='sparse'):
+    """SAFA's sparse (or lag-tier) schedule on ``scale_spec(seed)`` (lag
+    tolerance 10 x rounds, as the JAX package's scale benchmark sets
+    it)."""
     from repro_torch.core import federation
     return federation.precompute_safa_schedule(
         scale_spec(seed).build(), fraction=QUOTA / SCALE_M,
-        lag_tolerance=10 * rounds, rounds=rounds, form='sparse')
+        lag_tolerance=10 * rounds, rounds=rounds, form=form)
 
 
 def rows_bytes(h_rows, h_roles, n):
@@ -657,6 +683,182 @@ def rows_bytes(h_rows, h_roles, n):
         'q8_rows': (done * wire_row + (k - done) * row + distinct * row
                     + 2 * k * row + 4 * row + slot_bytes, 5 * kn,
                     k * wire_row + 4 * k * row + 4 * row + slot_bytes)}
+
+
+def tier_bytes(h_srcs, h_dsts, h_roles, n):
+    """Bytes (these slot maps' and roles' need, and every slot's) and
+    operations one launch of each tier kernel moves for one member's
+    slots (numpy [K]) at width n: name -> (bytes, flops, dense_bytes).
+    Each distinct row read once, the trained row (int8: q and scales
+    where the slot committed, base elsewhere) only where the slot is
+    picked or undrafted, each distinct destination row written once
+    (the last slot wins it), global and agg read and the two new vectors
+    written once.  A fleet launch moves the sum over its members."""
+    import numpy as np
+
+    from repro_torch.core import protocol
+    k = len(h_srcs)
+    row, kn = 4 * n, k * n
+    reads, writes = len(np.unique(h_srcs)), len(np.unique(h_dsts))
+    need = (h_roles & (protocol.ROLE_PICKED | protocol.ROLE_UNDRAFTED)) != 0
+    done = (h_roles & protocol.ROLE_COMMITTED) != 0
+    slot_bytes = 13 * k                     # srcs, dsts, roles, weights
+    wire_row = n + 4 * (n // 128)
+    vectors = 4 * row + slot_bytes
+    return {
+        'tier': ((reads + writes + int(need.sum())) * row + vectors, 4 * kn,
+                 3 * k * row + vectors),
+        'q8_tier': ((reads + writes + int((need & ~done).sum())) * row
+                    + int((need & done).sum()) * wire_row + vectors, 5 * kn,
+                    2 * k * row + k * wire_row + vectors)}
+
+
+def tier_kernel_phase(torch, n: int, fails: list) -> list:
+    """Kernels 19 and 20 and their S-axis forms on the slot maps of the
+    m = 1000 quota-bounded lag-tier schedule of two rounds (the tier
+    phase's runs): round 2 (K = 124 slots, every c2 aimed at the
+    scratch row, the last slot winning it) and round 1 (121 rows written
+    in place, three sentinel slots) of a buffer of capacity + 1 = 123
+    rows; the S-axis forms on round 2 of the four-member tier fleet of
+    env seeds 0-3 (each member padded with sentinel slots to the fleet's
+    K = 125, capacity + 1 = 126 rows).  Each against its plain version
+    (the whole buffer, scratch row included, bit for bit; new_global and
+    new_agg within 5e-7), twice, each member of an S-axis launch bit for
+    bit its single launch; timed on round 2."""
+    import numpy as np
+
+    from repro_torch.core import protocol
+    from repro_torch.core.schedules import TierFleetSchedule
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.safa_aggregate import (
+        safa_aggregate_packed_q8_tier_rows,
+        safa_aggregate_packed_q8_tier_rows_fleet,
+        safa_aggregate_packed_tier_rows,
+        safa_aggregate_packed_tier_rows_fleet)
+    dev = torch.device('cuda')
+    sched = scale_schedule(2, form='sparse_tier')
+    fleet = TierFleetSchedule.from_members(
+        [scale_schedule(2, seed=i, form='sparse_tier') for i in range(S)])
+    weights = torch.as_tensor(scale_spec().build().weights,
+                              dtype=torch.float32, device=dev)
+    f_weights = torch.as_tensor(
+        np.stack([scale_spec(i).build().weights for i in range(S)]),
+        dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    def maps(sc, t, w):
+        """Round t's (srcs, dsts, roles, slot weights) on the card."""
+        idx = put(sc.idx[..., t, :])
+        return (put(sc.cache_src[..., t, :]), put(sc.cache_dst[..., t, :]),
+                put(sc.roles[..., t, :]), protocol._slot_weights(idx, w))
+
+    recs = []
+
+    def check(cond, what):
+        if not cond:
+            fails.append(what)
+            print(f'FAIL tier kernels: {what}')
+
+    def vec_err(got, want, what):
+        err = max((g - w_).abs().max().item() for g, w_ in zip(got, want))
+        check(err <= 5e-7, f'{what} new_global/new_agg beyond 5e-7 '
+                           f'(max abs err {err:.3e})')
+        return err
+
+    def args_of(kernel, buf, trained, base, glob, agg, m4):
+        if kernel == 'tier':
+            return (buf, trained, glob, agg) + m4
+        q, sc = ref.quantize_packed_ref(trained)
+        return (q, sc, base, buf, glob, agg) + m4
+
+    def hold(kernel, wrapper, plain, shape, m4, what):
+        """Wrapper against plain on fresh seeded operands, twice; returns
+        (err, the launch's outputs, its operands)."""
+        lead = shape[:-2]
+        k = m4[0].shape[-1]
+        ops = (normal(*shape), normal(*lead, k, n), normal(*lead, k, n),
+               normal(*lead, n), normal(*lead, n))
+        want = plain(*args_of(kernel, ops[0].clone(), *ops[1:], m4))
+        got = [wrapper(*args_of(kernel, ops[0].clone(), *ops[1:], m4))
+               for _ in range(2)]
+        torch.cuda.synchronize()
+        check(torch.equal(got[0][2], want[2]),
+              f'{what}: the buffer differs from the plain version\'s')
+        check(all(torch.equal(a, b) for a, b in zip(*got)),
+              f'{what} differs between launches')
+        return vec_err(got[0][:2], want[:2], what), got[0], ops
+
+    h = {'scratch': sched.scratch, 'dup': [], 'pad': []}
+    for t in (1, 0):
+        h['dup'].append(int((sched.cache_dst[t] == sched.scratch).sum()))
+        h['pad'].append(int((sched.idx[t] == sched.m).sum()))
+    print(f'tier: m = {sched.m}, capacity {sched.capacity} (buffer rows '
+          f'{sched.capacity + 1}), K = {sched.width} at N = {n}; rounds 2 '
+          f'and 1: {h["dup"]} slots aim at the scratch row, {h["pad"]} '
+          f'sentinel slots; fleet of {S}: K = {fleet.width} (members\' own '
+          f'{fleet.widths.tolist()}), capacity {fleet.capacity} (members\' '
+          f'own {fleet.capacities.tolist()})')
+    check(h['dup'][0] > 1 and sum(h['pad']) > 0
+          and int((fleet.idx[:, 1] == fleet.m).sum()) > 0,
+          'the slot maps hold no duplicate scratch destination or no '
+          'sentinel slot')
+    r = sched.capacity + 1
+    kernels = [('tier', safa_aggregate_packed_tier_rows,
+                safa_aggregate_packed_tier_rows_fleet,
+                ref.safa_aggregate_tier_rows_ref,
+                'src/repro/kernels/safa_aggregate.py:789'),
+               ('q8_tier', safa_aggregate_packed_q8_tier_rows,
+                safa_aggregate_packed_q8_tier_rows_fleet,
+                ref.safa_aggregate_q8_tier_rows_ref,
+                'src/repro/kernels/safa_aggregate.py:876')]
+    for kernel, single, s_axis, plain, replaces in kernels:
+        name = f'safa_aggregate_packed_{kernel}_rows'
+        m1 = maps(sched, 0, weights)
+        hold(kernel, single, plain, (r, n), m1, f'{name} (round 1)')
+        m2 = maps(sched, 1, weights)
+        err, _, ops = hold(kernel, single, plain, (r, n), m2,
+                           f'{name} (round 2)')
+        args = args_of(kernel, ops[0], *ops[1:], m2)
+        ms = _time_ms(torch, lambda: single(*args))
+        plain_ms = _time_ms(torch, lambda: plain(*args), warm=2, timed=10)
+        need = tier_bytes(sched.cache_src[1], sched.cache_dst[1],
+                          sched.roles[1], n)[kernel]
+        recs.append(_record(name, 'src/repro_torch/csrc/safa_rows.cu',
+                            replaces, err, ms, plain_ms, *need))
+        del args, ops
+
+        fr = fleet.capacity + 1
+        fm1 = maps(fleet, 0, f_weights)
+        hold(kernel, s_axis, plain, (S, fr, n), fm1,
+             f'{name}_fleet (round 1)')
+        fm = maps(fleet, 1, f_weights)
+        err, got, ops = hold(kernel, s_axis, plain, (S, fr, n), fm,
+                             f'{name}_fleet (round 2)')
+        base_args = args_of(kernel, ops[0], *ops[1:], fm)
+        for i in range(S):
+            one = single(*(a[i].clone() if a is ops[0] else a[i]
+                           for a in base_args))
+            check(all(torch.equal(g[i], w_) for g, w_ in zip(got, one)),
+                  f'{name}_fleet member {i} differs from the single '
+                  f'launch')
+        ms = _time_ms(torch, lambda: s_axis(*base_args))
+        plain_ms = _time_ms(torch, lambda: plain(*base_args), warm=2,
+                            timed=10)
+        per = [tier_bytes(fleet.cache_src[i, 1], fleet.cache_dst[i, 1],
+                          fleet.roles[i, 1], n)[kernel] for i in range(S)]
+        recs.append(_record(name + '_fleet',
+                            'src/repro_torch/csrc/safa_rows.cu', replaces,
+                            err, ms, plain_ms,
+                            *(sum(x[j] for x in per) for j in range(3))))
+        del base_args, ops, got
+    _print_records(recs)
+    return recs
 
 
 def rows_kernel_phase(torch, n: int, fails: list) -> list:
@@ -1354,7 +1556,8 @@ def baselines_phase(torch, spec, task, fails: list) -> dict:
 #: in the sparse phase: a round's server step is the round less its
 #: training
 ROUND_FNS = ('safa_round', 'safa_round_sparse', 'safa_round_sparse_delta',
-             'safa_round_sparse_delta_packed', 'fedavg_round',
+             'safa_round_sparse_delta_packed', 'safa_round_sparse_tier',
+             'safa_round_sparse_tier_packed', 'fedavg_round',
              'fedavg_round_sparse', 'fedavg_round_sparse_delta')
 #: FedCS ``sparse_delta`` against dense after two rounds.  The stateless
 #: form carries the global alone, so its whole algebra is held within
@@ -1395,7 +1598,8 @@ def _drive_run(torch, task, label, exp, kernels, fails):
 
     rounds = exp.rounds
     sched = exp.precompute()
-    k = getattr(sched, 'capacity', exp.env.m)
+    tier = exp.exec.schedule == 'sparse_tier'
+    k = sched.width if tier else getattr(sched, 'capacity', exp.env.m)
     originals = {f: getattr(protocol, f) for f in ROUND_FNS}
     attr = 'local_train' if exp.exec.schedule == 'dense' \
         else 'local_train_rows'
@@ -1418,13 +1622,15 @@ def _drive_run(torch, task, label, exp, kernels, fails):
             setattr(protocol, f, originals[f])
         delattr(task, attr)
     server_s = [r - t for r, t in zip(round_s, train_s)]
-    print(f'{label}: K {k} of m {exp.env.m}; {wall:.2f} s for {rounds} '
+    cap = f', tier capacity {sched.capacity}' if tier else ''
+    print(f'{label}: K {k} of m {exp.env.m}{cap}; {wall:.2f} s for {rounds} '
           f'rounds; per round train {[round(v, 4) for v in train_s]} s, '
           f'server step {[round(v, 4) for v in server_s]} s; launches '
           f'{counts}; peak device memory {peak / 2**30:.3f} GiB')
     want = {c: n * rounds for c, n in kernels.items()}
     if counts != want:
         fails.append(f'{label}: launches {counts}, want {want}')
+    hist.peak = peak
     return hist
 
 
@@ -1594,8 +1800,8 @@ def _fleet_forms(kernels: dict) -> dict:
 
 
 def _capacities(exp, members) -> list:
-    """Every member's own active-set width K on ``exp``'s sparse
-    schedule (host precompute only)."""
+    """Every member's own active-set width K on ``exp``'s sparse (or
+    lag-tier: the same events) schedule (host precompute only)."""
     import dataclasses
 
     from repro_torch import api
@@ -1606,6 +1812,20 @@ def _capacities(exp, members) -> list:
     fleet = pdef.fleet_precompute(built, exp.protocol,
                                   rounds=exp.rounds).to_sparse()
     return fleet.capacities.tolist()
+
+
+def _tier_capacity(exp, members) -> int:
+    """The slot capacity of ``exp``'s lag-tier fleet over ``members``
+    (host precompute only)."""
+    import dataclasses
+
+    from repro_torch import api
+    built = [dataclasses.replace(
+        mem, env=mem.env.replace(**(mem.overrides or {})).build(),
+        overrides=None) for mem in members]
+    pdef = api.PROTOCOLS[type(exp.protocol)]
+    return pdef.fleet_precompute(built, exp.protocol,
+                                 rounds=exp.rounds).to_tier().capacity
 
 
 def _drive_sweep(torch, task, label, exp, members, kernels, fails):
@@ -1625,6 +1845,8 @@ def _drive_sweep(torch, task, label, exp, members, kernels, fails):
             + ('_fleet' if fleet else ''))
     rounds, size = exp.rounds, len(members)
     caps = _capacities(exp, members) if ex.schedule != 'dense' else None
+    if ex.schedule == 'sparse_tier':
+        caps = f'{caps}, tier capacity {_tier_capacity(exp, members)}'
     originals = {f: getattr(protocol, f) for f in ROUND_FNS}
     train_s, round_s, seen = [], [], []
     evaluate = task.evaluate
@@ -1805,6 +2027,163 @@ def _sparse_sweeps(torch, spec, task, fails: list) -> dict:
     compare(kept, [('scale-delta-packed', 'sequential', 1e-5)],
             [('scale-delta-packed-int8', 'sequential')])
     del kept, scale_task
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: the packed lag-tier round's launches, f32 and int8
+TIER_PACKED = {'gather_rows': 1, 'safa_aggregate_packed_tier_rows': 1}
+TIER_PACKED_Q8 = {'gather_rows': 1, 'quantize_packed': 1,
+                  'safa_aggregate_packed_q8_tier_rows': 1}
+TIER_M = 10_000         # the lag tier's large single run
+
+
+def tier_phase(torch, fails: list) -> dict:
+    """The lag tier (``schedule='sparse_tier'``) on Task 2's CNN at full
+    width, on the quota-bounded environment: single runs at m = 1000
+    against ``'sparse_delta'`` packed on the same events, a run at
+    m = 10,000, and a 4-member sweep at m = 1000 on both engines; returns
+    the launch counts of kernels 19 and 20 and their S-axis forms in the
+    runs that drive them.  Trains with deterministic cuDNN, as the sparse
+    phases do."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _tier_runs(torch, fails)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _tier_runs(torch, fails: list) -> dict:
+    from repro_torch import api
+    from repro_torch.kernels import backend
+
+    rounds = SPARSE_ROUNDS
+    safa = api.SafaSpec(fraction=QUOTA / SCALE_M, lag_tolerance=10 * rounds)
+    tier = dict(schedule='sparse_tier', use_kernel='packed')
+    delta = dict(schedule='sparse_delta', use_kernel='packed')
+    # (label, exec fields, launches per round)
+    runs = [('tier-packed', tier, TIER_PACKED),
+            ('tier-packed-int8', dict(tier, wire='int8'), TIER_PACKED_Q8),
+            ('tier-plain', dict(schedule='sparse_tier'), {}),
+            ('delta-packed', delta, DELTA_PACKED),
+            ('delta-packed-int8', dict(delta, wire='int8'), DELTA_PACKED_Q8)]
+    launches, peaks = {}, {}
+    spec, task = cnn_setup(torch, scale_spec())
+    init = task.evaluate(task.init_global(0))['loss']
+    print(f'tier: m = {spec.m}, initial eval loss {init:.6f}; rounds '
+          f'{rounds}')
+
+    def run_all(env_spec, env_task, cells, n_rounds, init):
+        finals = {}
+        for label, ex, kernels in cells:
+            tag = f'tier[{label}, {n_rounds} round{"s" * (n_rounds > 1)}]'
+            exp = api.Experiment(env_task, env_spec, safa,
+                                 api.ExecSpec(eval_every=n_rounds, **ex),
+                                 rounds=n_rounds)
+            hist = _drive_run(torch, env_task, tag, exp, kernels, fails)
+            _check_losses(tag, [e['loss'] for _, e in hist.evals()], init,
+                          fails)
+            finals[label] = hist.final_global
+            if n_rounds == rounds:
+                peaks[label] = (exp.env.m, hist.peak,
+                                getattr(exp.precompute(), 'capacity', None)
+                                if ex['schedule'] == 'sparse_tier' else None)
+                if label in ('tier-packed', 'tier-packed-int8'):
+                    for c in kernels:
+                        if 'tier' in c:
+                            launches[c] = backend.LAUNCHES[c]
+        return finals
+
+    finals = run_all(spec, task, runs, rounds, init)
+    first = run_all(spec, task, runs, 1, init)
+    # f32: the tier and sparse_delta run the same slot math over other
+    # storage (another summation order): within 1e-5 after one round and
+    # after two; the packed and plain tier the same
+    for run, ref in (('tier-packed', 'delta-packed'),
+                     ('tier-plain', 'delta-packed'),
+                     ('tier-packed', 'tier-plain')):
+        one = _max_diff(first[run], first[ref])
+        diff = _max_diff(finals[run], finals[ref])
+        print(f'tier: {run} vs {ref} final_global max abs diff after 1 '
+              f'round {one:.3e} (tolerance 1e-05), after {rounds} rounds '
+              f'{diff:.3e} (tolerance 1e-05)')
+        if not (one <= 1e-5 and diff <= 1e-5):
+            fails.append(f'tier: {run} vs {ref} differ by {one:.3e} after 1 '
+                         f'round, {diff:.3e} after {rounds}')
+    # int8 as the sparse phase holds it: 1e-4 after one round, one
+    # quantisation step of the largest weight after the last
+    run, ref = 'tier-packed-int8', 'delta-packed-int8'
+    one = _max_diff(first[run], first[ref])
+    diff = _max_diff(finals[run], finals[ref])
+    bound = max(v.abs().max().item() for v in finals[ref].values()) / 127
+    print(f'tier: {run} vs {ref} final_global max abs diff after 1 round '
+          f'{one:.3e} (tolerance 1e-04), after {rounds} rounds {diff:.3e} '
+          f'(bound {bound:.3e} = max |w| / 127)')
+    if not (one <= 1e-4 and diff <= bound):
+        fails.append(f'tier: {run} vs {ref} differ by {one:.3e} after 1 '
+                     f'round, {diff:.3e} after {rounds}')
+    del finals, first
+
+    # a 4-member sweep at m = 1000 (env seeds 0-3), both engines: fleet
+    # and sequential replay one program, so every member's global is the
+    # same bits after every round
+    members = [api.SweepMember(env=scale_spec(i), fraction=QUOTA / SCALE_M,
+                               lag_tolerance=10 * rounds, seed=i)
+               for i in range(S)]
+    inits = [task.evaluate(task.init_global(i))['loss'] for i in range(S)]
+    print(f'tier sweep: m = {spec.m}, {S} members (env seeds 0-{S - 1}), '
+          f'initial eval losses {inits}; rounds {rounds}')
+    for label, ex, kernels in runs[:2]:
+        kept = {}
+        for engine in ('fleet', 'sequential'):
+            tag = f'tier sweep[{label}, {engine}]'
+            exp = api.Experiment(task, None, safa, api.ExecSpec(
+                engine=engine, eval_every=1, **ex), rounds=rounds)
+            hists, kept[engine], counts = _drive_sweep(
+                torch, task, tag, exp, members,
+                _fleet_forms(kernels) if engine == 'fleet' else kernels,
+                fails)
+            for i, h in enumerate(hists):
+                _check_losses(f'{tag} member {i}',
+                              [e['loss'] for _, e in h.evals()], inits[i],
+                              fails)
+            if engine == 'fleet':
+                for c in _fleet_forms(kernels):
+                    if 'tier' in c:
+                        launches[c] = counts.get(c, 0)
+        per_round = [max(_max_diff(a, b) for a, b in zip(fa, sa))
+                     for fa, sa in zip(kept['fleet'], kept['sequential'])]
+        print(f'tier sweep: {label} fleet - sequential final_global max abs '
+              f'diff over members after each round {per_round} (want 0: '
+              f'the same bits)')
+        if any(d != 0 for d in per_round):
+            fails.append(f'tier sweep: {label} fleet and sequential differ '
+                         f'({per_round})')
+        del kept
+    del task
+    torch.cuda.empty_cache()
+
+    # m = 10,000: the buffer stays capacity + 1 rows
+    big_spec, big_task = cnn_setup(torch, scale_spec(m=TIER_M))
+    big = api.SafaSpec(fraction=QUOTA / TIER_M, lag_tolerance=10 * rounds)
+    exp = api.Experiment(big_task, big_spec, big,
+                         api.ExecSpec(eval_every=rounds, **tier),
+                         rounds=rounds)
+    big_init = big_task.evaluate(big_task.init_global(0))['loss']
+    print(f'tier: m = {TIER_M}, initial eval loss {big_init:.6f}; rounds '
+          f'{rounds}')
+    hist = _drive_run(torch, big_task, f'tier[tier-packed-m{TIER_M}, '
+                      f'{rounds} rounds]', exp, TIER_PACKED, fails)
+    _check_losses(f'tier[tier-packed-m{TIER_M}]',
+                  [e['loss'] for _, e in hist.evals()], big_init, fails)
+    peaks[f'tier-packed-m{TIER_M}'] = (TIER_M, hist.peak,
+                                       exp.precompute().capacity)
+    for label in ('delta-packed', 'tier-packed', f'tier-packed-m{TIER_M}'):
+        m, peak, cap = peaks[label]
+        print(f'tier: {label}: m {m}, tier capacity {cap}, peak device '
+              f'memory {peak / 2**30:.3f} GiB')
+    del big_task, hist
     torch.cuda.empty_cache()
     return launches
 
@@ -2038,7 +2417,8 @@ def main() -> int:
     recs = (kernel_phase(torch, n, fails) + fleet_kernel_phase(torch, n, fails)
             + merge_kernel_phase(torch, n, fails)
             + rows_kernel_phase(torch, n, fails)
-            + rows_fleet_kernel_phase(torch, n, fails))
+            + rows_fleet_kernel_phase(torch, n, fails)
+            + tier_kernel_phase(torch, n, fails))
     torch.cuda.empty_cache()
     lap('kernels')
     spec, task = cnn_setup(torch)
@@ -2054,6 +2434,10 @@ def main() -> int:
     lap('sparse')
     launches.update(sparse_sweep_phase(torch, spec, task, fails))
     lap('sparse sweeps')
+    del task
+    torch.cuda.empty_cache()
+    launches.update(tier_phase(torch, fails))
+    lap('tier')
     for r in recs:
         r['launches'] = launches.get(r['name'], 0)
         del r['bytes'], r['flops'], r['dense_bytes']

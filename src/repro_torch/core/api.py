@@ -24,7 +24,8 @@ for ``run()`` and None/'fleet'/'sequential' for ``run_sweep()``,
 CSAFL) and ``wire`` 'f32'/'int8' (SAFA, FedAvg, FedCS, SEAFL, CSAFL);
 ``ExecSpec(numeric=False)`` gives the timing records alone.  SAFA,
 FedAvg and FedCS runs and sweeps also take the sparse active-set
-schedules, ``schedule='sparse'`` and ``'sparse_delta'``.
+schedules, ``schedule='sparse'`` and ``'sparse_delta'``, and SAFA's take
+the lag-tier schedule, ``'sparse_tier'``.
 ``check_compat`` raises the JAX package's errors for the cells it
 refuses, and ``NotImplementedError``, naming the ROADMAP queue item, for
 every cell not ported yet.
@@ -146,8 +147,13 @@ class ExecSpec:
     fleet's round launches their fleet forms, once each for all S
     members).  A sparse sweep replays the fleet-major sparse form of the
     same event streams, every member re-padded to the fleet's widest
-    active set.  ``'sparse_tier'`` is not ported yet and is refused by
-    name."""
+    active set.  ``'sparse_tier'`` (SAFA) carries no [m, ...] stack: one
+    value buffer of capacity + 1 rows, O(lag_tolerance + quota) whatever
+    m, driven by host slot maps; it takes ``use_kernel=False`` or
+    ``'packed'`` (the row gather and the tier-rows kernel, two launches a
+    round, three on the int8 wire), equal to ``'sparse_delta'`` up to
+    summation order.  A tier sweep's members share the fleet's width and
+    capacity, on either engine."""
     engine: Optional[str] = None
     wire: str = 'f32'
     use_kernel: Any = False
@@ -221,15 +227,18 @@ class ProtocolDef:
     #: protocol's merge exists on pack buffers only, so ``use_kernel``
     #: takes False or 'packed' but never True (the weighted-merge family)
     supports_kernel: Any = False
-    #: the schedules besides ``'dense'`` the JAX package runs this
-    #: protocol on (the port refuses 'sparse_tier' by ROADMAP item)
+    #: the schedules besides ``'dense'`` this protocol runs on
     sparse_forms: tuple = ()
     #: ``sparse_precompute(env, spec, *, rounds, seed)``: the host event
     #: process emitting the sparse schedule (``schedule='sparse'`` and
     #: ``'sparse_delta'``)
     sparse_precompute: Optional[Callable] = None
-    #: ``prepare_state(st, weights, ex)`` builds the carry a schedule
-    #: needs beyond the dense one (the running aggregate, pack buffers)
+    #: ``tier_precompute(env, spec, *, rounds, seed)``: the host event
+    #: process emitting the lag-tier schedule (``schedule='sparse_tier'``)
+    tier_precompute: Optional[Callable] = None
+    #: ``prepare_state(st, weights, ex, sched)`` builds the carry a
+    #: schedule needs beyond the dense one (the running aggregate, pack
+    #: buffers, the lag tier's value buffer sized by ``sched.capacity``)
     prepare_state: Optional[Callable] = None
     #: under ``'sparse_delta'`` the carry is the global model alone
     delta_stateless: bool = False
@@ -354,9 +363,6 @@ def check_compat(protocol_spec: ProtocolSpec,
                 f'the leaf-wise kernel (use_kernel=True) has no rows form; '
                 f"schedule={ex.schedule!r} takes use_kernel=False or "
                 f"'packed'")
-        if ex.schedule == 'sparse_tier':
-            raise _not_ported("schedule='sparse_tier'",
-                              '12 (lag-tier schedule)')
     if quantize_uploads:
         raise _not_ported('quantize_uploads=True',
                           '17 (per-leaf int8 reference)')
@@ -373,7 +379,9 @@ class _RunState:
     cache.  Under ``schedule='sparse_delta'`` it adds ``agg`` (the running
     Eq. 7 aggregate) or, with ``use_kernel='packed'``, ``packed``: the
     (global, local, cache, agg) pack buffers with layout ``spec``, which
-    then replace the local, cache and agg trees."""
+    then replace the local, cache and agg trees.  Under
+    ``'sparse_tier'`` there is no local stack, ``cache`` is the lag tier's
+    value buffer and ``packed`` (global, value buffer, agg)."""
     global_w: dict
     local_w: Optional[dict]
     cache: Optional[dict] = None
@@ -521,18 +529,29 @@ def _safa_sparse_precompute(env, sp, *, rounds, seed):
         rounds=rounds, form='sparse')
 
 
+def _safa_tier_precompute(env, sp, *, rounds, seed):
+    del seed
+    return federation.precompute_safa_schedule(
+        env, fraction=sp.fraction, lag_tolerance=sp.lag_tolerance,
+        rounds=rounds, form='sparse_tier')
+
+
 def _pack_layout(global_w, wire):
     from repro_torch.kernels import ops as kops
     return kops.wire_spec(global_w) if wire == 'int8' \
         else kops.pack_spec(global_w)
 
 
-def _safa_prepare_state(st, weights, ex):
+def _safa_prepare_state(st, weights, ex, sched):
     """The sparse_delta carry: the running aggregate tree, or, under
     ``use_kernel='packed'``, the whole state as resident pack buffers
     (local and cache [m + 1, N], the trailing scratch row taking the
     sentinel slots).  A fleet's ([S, m] weights) are [S, m + 1, N], a
-    scratch row per member, and [S, N]; its layout is one member's."""
+    scratch row per member, and [S, N]; its layout is one member's.  The
+    lag tier's carry is ``_safa_prepare_tier_state``'s."""
+    if ex.schedule == 'sparse_tier':
+        _safa_prepare_tier_state(st, weights, ex, sched)
+        return
     if ex.schedule != 'sparse_delta':
         return
     agg = protocol.init_aggregate(st.cache, weights)
@@ -557,6 +576,41 @@ def _safa_prepare_state(st, weights, ex):
     st.local_w = st.cache = None
 
 
+def _safa_prepare_tier_state(st, weights, ex, sched):
+    """The lag tier's carry, from the global alone: the value buffer of
+    ``sched.capacity + 1`` rows, each the initial global (as every cache
+    row starts), and the running aggregate ``global * sum(weights)``; a
+    fleet's ([S, m] weights) [S, capacity + 1, ...] and [S, ...].  Under
+    ``use_kernel='packed'`` the three are pack buffers.  The buffer is a
+    contiguous copy, not a broadcast view: the rounds write it in
+    place."""
+    fleet = weights.ndim == 2
+    wsum = weights.sum(dim=-1)
+    rows = sched.capacity + 1
+
+    def scale(g):
+        w = wsum.reshape(wsum.shape + (1,) * (g.ndim - wsum.ndim))
+        return g.float() * w
+
+    def tile(g):
+        if fleet:
+            return g[:, None].expand((g.shape[0], rows) + tuple(g.shape[1:]))
+        return g[None].expand((rows,) + tuple(g.shape))
+
+    agg = {k: scale(g) for k, g in st.global_w.items()}
+    if ex.use_kernel != 'packed':
+        st.cache = {k: tile(g).contiguous() for k, g in st.global_w.items()}
+        st.agg = agg
+        return
+    from repro_torch.kernels import ops as kops
+    spec = _pack_layout(_member(st.global_w, 0) if fleet else st.global_w,
+                        ex.wire)
+    pack_g = kops.pack_stacked if fleet else kops.pack_global
+    gbuf = pack_g(st.global_w, spec)
+    st.packed = (gbuf, tile(gbuf).contiguous(), pack_g(agg, spec))
+    st.spec = spec
+
+
 def _unpack_global_state(st):
     """The global model dict of the packed carry (a fleet's: [S, ...])."""
     from repro_torch.kernels import ops as kops
@@ -575,6 +629,17 @@ def _safa_segment(st, seg, weights, train_fn, ex, ctx):
         st.global_w, st.local_w, st.cache = protocol.safa_run_scan_sparse(
             st.global_w, st.local_w, st.cache, seg, weights,
             local_train_fn=train_fn, use_kernel=ex.use_kernel, wire=ex.wire)
+    elif ex.schedule == 'sparse_tier':
+        if st.packed is not None:
+            st.packed = protocol.safa_run_scan_sparse_tier_packed(
+                *st.packed, seg, weights, local_train_fn=train_fn,
+                spec=st.spec, wire=ex.wire)
+            _unpack_global_state(st)
+        else:
+            st.global_w, st.cache, st.agg = \
+                protocol.safa_run_scan_sparse_tier(
+                    st.global_w, st.cache, st.agg, seg, weights,
+                    local_train_fn=train_fn, wire=ex.wire)
     elif st.packed is not None:
         st.packed = protocol.safa_run_scan_sparse_delta_packed(
             *st.packed, seg, weights, local_train_fn=train_fn, spec=st.spec,
@@ -606,6 +671,16 @@ def _safa_loop_round(st, sched, i, weights, train_fn, ex, device):
         st.global_w, st.local_w, st.cache = protocol.safa_round_sparse(
             st.global_w, st.local_w, st.cache, use_kernel=ex.use_kernel,
             **rows)
+    elif ex.schedule == 'sparse_tier':
+        rows.update({f: _put(getattr(sched, f)[i], device) for f in (
+            'base_src', 'cache_src', 'cache_dst', 'global_dst')})
+        if st.packed is not None:
+            st.packed = protocol.safa_round_sparse_tier_packed(
+                *st.packed, spec=st.spec, **rows)
+            _unpack_global_state(st)
+        else:
+            st.global_w, st.cache, st.agg = protocol.safa_round_sparse_tier(
+                st.global_w, st.cache, st.agg, **rows)
     elif st.packed is not None:
         st.packed = protocol.safa_round_sparse_delta_packed(
             *st.packed, spec=st.spec, **rows)
@@ -764,6 +839,7 @@ register(ProtocolDef(
     uses_cache=True, supports_wire=True, supports_kernel=True,
     sparse_forms=('sparse', 'sparse_delta', 'sparse_tier'),
     sparse_precompute=_safa_sparse_precompute,
+    tier_precompute=_safa_tier_precompute,
     prepare_state=_safa_prepare_state))
 
 register(ProtocolDef(
@@ -837,11 +913,16 @@ class Experiment:
     def precompute(self):
         """Run the host event state machine once and cache the schedule:
         [rounds, m] masks for ``schedule='dense'``, [rounds, K] (idx,
-        roles) otherwise (the same event stream); the env rng is consumed
-        exactly once per Experiment."""
+        roles) otherwise (the same event stream), with the slot maps on
+        ``'sparse_tier'``; the env rng is consumed exactly once per
+        Experiment."""
         if self._sched is None:
-            pre = self._pdef.precompute if self.exec.schedule == 'dense' \
-                else self._pdef.sparse_precompute
+            if self.exec.schedule == 'dense':
+                pre = self._pdef.precompute
+            elif self.exec.schedule == 'sparse_tier':
+                pre = self._pdef.tier_precompute
+            else:
+                pre = self._pdef.sparse_precompute
             self._sched = pre(
                 self.env, self.protocol, rounds=self.rounds, seed=self.seed)
         return self._sched
@@ -880,8 +961,11 @@ class CompiledRunner:
         return e
 
     def _stateless(self, ex: ExecSpec) -> bool:
-        """A global-only carry: no [m, ...] local or cache stacks."""
-        return ex.schedule == 'sparse_delta' and self._pdef.delta_stateless
+        """A global-only carry: no [m, ...] local or cache stacks.  A lag
+        tier run is always one (``prepare_state`` then builds its value
+        buffer)."""
+        return (ex.schedule == 'sparse_delta' and self._pdef.delta_stateless
+                ) or ex.schedule == 'sparse_tier'
 
     def _finish(self, st: _RunState, weights) -> None:
         if self._pdef.finish_segment is not None:
@@ -910,7 +994,7 @@ class CompiledRunner:
         weights = torch.as_tensor(exp.env.weights, dtype=torch.float32,
                                   device=exp.device)
         if pdef.prepare_state is not None:
-            pdef.prepare_state(st, weights, ex)
+            pdef.prepare_state(st, weights, ex, sched)
         # sparse schedules train through the rows-train contract
         train_fn = exp.task.local_train if ex.schedule == 'dense' \
             else exp.task.local_train_rows
@@ -947,7 +1031,8 @@ class CompiledRunner:
         sparse schedule) and one launch of each server kernel per round.
         ``engine='sequential'`` runs the same precomputed schedules member
         by member through the scan engine (a sparse member at its own
-        active-set width)."""
+        active-set width, a lag-tier member at the fleet's width and
+        capacity)."""
         if checkpoint is not None:
             raise _not_ported('run_sweep(checkpoint=)',
                               '7 (checkpoint and resume)')
@@ -981,7 +1066,11 @@ class CompiledRunner:
 
         fleet = pdef.fleet_precompute(members, exp.protocol,
                                       rounds=exp.rounds)
-        if ex.schedule != 'dense':
+        if ex.schedule == 'sparse_tier':
+            # the fleet-major lag-tier form of the same event streams: the
+            # members' slot maps share the fleet's width and capacity
+            fleet = fleet.to_tier()
+        elif ex.schedule != 'dense':
             # the fleet-major sparse form of the same event streams, every
             # member re-padded to the fleet's widest active set
             fleet = fleet.to_sparse()
@@ -1004,11 +1093,12 @@ class CompiledRunner:
                 st = _init_state(_init_global(task_of(s), mem.seed,
                                               exp.device, exp.init_params),
                                  m, pdef.uses_cache, stateless=stateless)
-                dev = fleet.member(s).to_device(exp.device)
+                msched = fleet.member(s)
+                dev = msched.to_device(exp.device)
                 w_s = torch.as_tensor(mem.env.weights, dtype=torch.float32,
                                       device=exp.device)
                 if pdef.prepare_state is not None:
-                    pdef.prepare_state(st, w_s, ex)
+                    pdef.prepare_state(st, w_s, ex, msched)
                 train_fn = task_of(s).local_train if ex.schedule == 'dense' \
                     else task_of(s).local_train_rows
                 start = 0
@@ -1044,7 +1134,7 @@ class CompiledRunner:
             np.stack([mem.env.weights for mem in members]),
             dtype=torch.float32, device=exp.device)
         if pdef.prepare_state is not None:
-            pdef.prepare_state(st, weights, ex)
+            pdef.prepare_state(st, weights, ex, fleet)
         dev = fleet.to_device(exp.device)
         start = 0
         for stop in evals:

@@ -157,13 +157,15 @@ def precompute_safa_schedule(env: Env, *, fraction: float,
     ``form='sparse'`` returns a ``SparseSchedule`` instead: the same loop
     (same draws, selection and records), each round storing only its
     active set's (idx, roles), so host memory is O(m + rounds K); it
-    equals ``precompute(form='dense').to_sparse()``.  The lag-tier form
-    (``'sparse_tier'``) is not ported yet."""
-    if form == 'sparse_tier':
-        raise NotImplementedError(
-            "form='sparse_tier' is not ported yet (ROADMAP queue 1, item "
-            "12: lag-tier schedule); use form='dense' or 'sparse'")
-    if form not in ('dense', 'sparse'):
+    equals ``precompute(form='dense').to_sparse()``.
+
+    ``form='sparse_tier'`` also records each active client's base version
+    (the ``v`` counter this loop keeps) and lowers the event stream to a
+    ``TierSchedule``: the sparse rows plus the slot maps that let the
+    engines carry one O(lag_tolerance + quota)-row value buffer instead of
+    [m, N] local and cache stacks.  It equals
+    ``precompute(form='dense').to_tier()``."""
+    if form not in ('dense', 'sparse', 'sparse_tier'):
         raise ValueError(f"unknown form {form!r} (want 'dense', 'sparse', "
                          f"or 'sparse_tier')")
     m = env.m
@@ -180,6 +182,7 @@ def precompute_safa_schedule(env: Env, *, fraction: float,
              for k in ('sync', 'committed', 'picked', 'undrafted',
                        'deprecated')} if form == 'dense' else None
     sparse_rows = []
+    base_v_rows = []
     records = []
 
     for t in range(1, rounds + 1):
@@ -221,9 +224,12 @@ def precompute_safa_schedule(env: Env, *, fraction: float,
             masks['undrafted'][i] = sel.undrafted
             masks['deprecated'][i] = dep
         else:
-            sparse_rows.append(schedules.safa_sparse_row(
+            row = schedules.safa_sparse_row(
                 sync, sel.committed, sel.picked, sel.undrafted, dep,
-                bootstrap=(t == 1)))
+                bootstrap=(t == 1))
+            sparse_rows.append(row)
+            if form == 'sparse_tier':
+                base_v_rows.append(base_versions[row[0]])
 
         records.append(RoundRecord(
             round=t,
@@ -240,6 +246,9 @@ def precompute_safa_schedule(env: Env, *, fraction: float,
         picked_prev = sel.picked.copy()
 
     futility = wasted / max(performed, 1e-9)
+    if form == 'sparse_tier':
+        return schedules.build_tier_schedule(m, sparse_rows, base_v_rows,
+                                             records, futility)
     if form == 'sparse':
         idx, roles = schedules.pack_sparse_rows(sparse_rows, m)
         return schedules.SparseSchedule(m=m, idx=idx, roles=roles,

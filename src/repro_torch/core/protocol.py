@@ -32,7 +32,10 @@ own for SAFA and FedAvg/FedCS (``*_run_scan_sparse``,
 They too take a run's segment ([k, K] slot indices) or a fleet's
 ([S, k, K], every member re-padded to the fleet's widest active set), and
 read the member axis from the indices: ``idx.ndim`` is 1 in a run's
-round, 2 in a fleet's.
+round, 2 in a fleet's.  SAFA's lag-tier engines
+(``safa_run_scan_sparse_tier[_packed]``) replace the [m, ...] stacks with
+one bounded value buffer driven by host slot maps, on a run's segment or
+a fleet's alike.
 """
 from __future__ import annotations
 
@@ -738,6 +741,21 @@ def safa_round_sparse_delta(global_w, local_w, cache, agg, *, idx, roles,
     only they change.  Equal to the dense round up to float summation
     order.  Returns (new_global, new_local, new_cache, new_agg)."""
     check_wire(wire)
+    new_global, new_agg, trained_rows, c2_rows = _delta_slots(
+        global_w, agg, tree_gather(local_w, idx), tree_gather(cache, idx),
+        idx=idx, roles=roles, weights=weights,
+        local_train_fn=local_train_fn, train_args=train_args, wire=wire)
+    return (new_global, tree_scatter(local_w, idx, trained_rows),
+            tree_scatter(cache, idx, c2_rows), new_agg)
+
+
+def _delta_slots(global_w, agg, stale_rows, c_rows, *, idx, roles, weights,
+                 local_train_fn, train_args, wire):
+    """The slot math the ``'sparse_delta'`` and lag-tier rounds share, on
+    the K slots' gathered rows: the base rows (the global where the slot
+    syncs, ``stale_rows`` elsewhere) are trained, then Eq. 6-8 move the
+    running aggregate by the slots' rows alone.  ``c_rows`` are the slots'
+    cache rows.  Returns (new_global, new_agg, trained_rows, c2_rows)."""
     fleet = idx.ndim == 2
     sync_r = has_role(roles, ROLE_SYNC)
     com_r = has_role(roles, ROLE_COMMITTED)
@@ -745,12 +763,11 @@ def safa_round_sparse_delta(global_w, local_w, cache, agg, *, idx, roles,
     und_r = has_role(roles, ROLE_UNDRAFTED)
     dep_r = has_role(roles, ROLE_DEPRECATED)
     g_rows = broadcast_global(global_w, idx.shape[-1], fleet=fleet)
-    base_rows = masked_select(sync_r, g_rows, tree_gather(local_w, idx))
+    base_rows = masked_select(sync_r, g_rows, stale_rows)
     trained_rows = local_train_fn(base_rows, idx, *train_args)
     if wire == 'int8':
         trained_rows = _wire_roundtrip(trained_rows, global_w, fleet)
     trained_rows = masked_select(com_r, trained_rows, base_rows)
-    c_rows = tree_gather(cache, idx)
     w_rows = _slot_weights(idx, weights)
     # Eq. 6 on the active rows only
     c1_rows = masked_select(dep_r & ~pick_r, g_rows, c_rows)
@@ -763,8 +780,7 @@ def safa_round_sparse_delta(global_w, local_w, cache, agg, *, idx, roles,
     c2_rows = masked_select(und_r, trained_rows, c1_rows)
     new_agg = {n: _delta(a, c2_rows[n], c1_rows[n], w_rows)
                for n, a in agg1.items()}
-    return (new_global, tree_scatter(local_w, idx, trained_rows),
-            tree_scatter(cache, idx, c2_rows), new_agg)
+    return new_global, new_agg, trained_rows, c2_rows
 
 
 def fedavg_round_sparse(global_w, local_w, *, idx, roles, weights,
@@ -954,3 +970,156 @@ def safa_run_scan_sparse_delta_packed(gbuf, lbuf, cbuf, abuf,
             weights=weights, local_train_fn=local_train_fn, train_args=args,
             spec=spec, wire=wire)
     return gbuf, lbuf, cbuf, abuf
+
+
+# -- lag-tier engine: a version ring and an active slab, no [m, N] stacks --
+#
+# SAFA's lag-tolerant distribution (Eq. 2-3) bounds every client's lag by
+# tau, and a committed client is force-synced the next round it appears,
+# so a trained local row is never read back and every base model a round
+# reads is a global version snapshot (at most tau + 2 live at once); the
+# cache rows are such snapshots or commit rows of recently active clients.
+# The tier round therefore carries one value buffer ``buf`` of
+# ``capacity + 1`` rows (capacity = the peak number of live distinct rows,
+# O(tau + quota); the last row is scratch) and replays the host's slot
+# maps (``schedules.TierSchedule``): it gathers bases at ``base_src`` and
+# caches at ``cache_src``, runs the ``'sparse_delta'`` slot math, writes
+# the new cache rows to ``cache_dst`` and the round's global to
+# ``global_dst``.  Within a round the written slots are disjoint from the
+# read slots, scratch apart, which lets the tier kernels write the buffer
+# in place.  Memory: O((tau + quota) N), whatever m.  The slot maps index
+# the buffer directly (its scratch row is slot ``capacity``): the sentinel
+# of the ``[m + 1, N]`` sparse buffers plays no part.
+
+class TierRoundSchedule(NamedTuple):
+    """SAFA lag-tier per-round schedule: ``idx``/``roles`` as in
+    ``SparseRoundSchedule``, the slot maps ``base_src``, ``cache_src``,
+    ``cache_dst`` [k, K] int32 and ``global_dst`` [k] int32, and
+    ``round_idx`` [k]; a fleet's [S, k, K], [S, k] and [S, k]."""
+    idx: Any
+    roles: Any
+    base_src: Any
+    cache_src: Any
+    cache_dst: Any
+    global_dst: Any
+    round_idx: Any
+    segment = _segment
+    fleet_segment = _fleet_segment
+
+
+def _write_global(buf, global_dst, g) -> None:
+    """Write the round's global ``g`` ([(S,) N]) into the buffer's row
+    ``global_dst`` ([] for a run, [S] for a fleet), in place: one row per
+    member."""
+    if global_dst.ndim == 1:
+        members = torch.arange(global_dst.shape[0], device=buf.device)
+        buf[members, global_dst.long()] = g.to(buf.dtype)
+    else:
+        buf[global_dst.long()] = g.to(buf.dtype)
+
+
+def safa_round_sparse_tier(global_w, buf, agg, *, idx, roles, base_src,
+                           cache_src, cache_dst, global_dst, weights,
+                           local_train_fn, train_args=(), wire: str = 'f32'):
+    """One SAFA round in O((tau + quota) N) through the lag-tier value
+    buffer: the slot math of ``safa_round_sparse_delta`` on rows gathered
+    through the slot maps instead of per-client stacks, so the two agree
+    wherever both run.  ``buf`` (contiguous [(S,) capacity + 1, ...]
+    leaves) is written in place, the new cache rows last-wins in slot
+    order as the tier kernels write them.
+    Returns (new_global, buf, new_agg)."""
+    check_wire(wire)
+    from repro_torch.kernels import ref
+    new_global, new_agg, _, c2_rows = _delta_slots(
+        global_w, agg, tree_gather(buf, base_src), tree_gather(buf, cache_src),
+        idx=idx, roles=roles, weights=weights, local_train_fn=local_train_fn,
+        train_args=train_args, wire=wire)
+    lead = tuple(idx.shape[:-1])
+    for n, b in buf.items():
+        rows = b.view(lead + (b.shape[len(lead)], -1))
+        ref.scatter_rows_ref(rows, cache_dst,
+                             c2_rows[n].reshape(tuple(cache_dst.shape) + (-1,)))
+        _write_global(rows, global_dst, new_global[n].reshape(lead + (-1,)))
+    return new_global, buf, new_agg
+
+
+def safa_run_scan_sparse_tier(global_w, buf, agg,
+                              schedule: TierRoundSchedule, weights, *,
+                              local_train_fn, wire='f32'):
+    """Lag-tier SAFA engine over a run's segment or a fleet's: carries
+    (global, value buffer, agg), the buffer's every row the initial global
+    and ``agg = global * sum(weights)`` at run start (every cache row
+    starts as the initial global).  No [m, N] stack exists anywhere.
+    Returns (new_global, buf, new_agg)."""
+    for r, args in _rounds(schedule):
+        global_w, buf, agg = safa_round_sparse_tier(
+            global_w, buf, agg, idx=r.idx, roles=r.roles,
+            base_src=r.base_src, cache_src=r.cache_src,
+            cache_dst=r.cache_dst, global_dst=r.global_dst, weights=weights,
+            local_train_fn=local_train_fn, train_args=args, wire=wire)
+    return global_w, buf, agg
+
+
+def safa_round_sparse_tier_packed(gbuf, tbuf, abuf, *, idx, roles, base_src,
+                                  cache_src, cache_dst, global_dst, weights,
+                                  local_train_fn, train_args=(), spec,
+                                  wire: str = 'f32'):
+    """One lag-tier round on pack buffers: gbuf [N] f32 global pack, tbuf
+    [capacity + 1, N] value buffer, abuf [N] f32 running aggregate.
+
+    The base rows go ``gather_rows`` (kernel 11) -> unpack -> rows-train
+    -> repack -> one ``safa_aggregate_packed_tier_rows`` launch (kernel
+    19: Eq. 6-8, both delta sums and the ``cache_dst`` write-back, in
+    place in ``tbuf``); under ``wire='int8'`` the repacked rows are
+    block-quantised (``quantize_packed``, kernel 2) and kernel 20
+    dequantises them in registers.  The round's global then goes into row
+    ``global_dst`` by an indexed copy, one row.  Two launches a round on
+    f32, three on int8.  A fleet's round ([S, K] slots, gbuf/abuf [S, N],
+    tbuf [S, capacity + 1, N]) launches the fleet forms once each for all
+    S members (kernels 13, 8 and the S-axis forms of 19 and 20).
+    Returns (gbuf', tbuf, abuf')."""
+    check_wire(wire)
+    from repro_torch.kernels import ops as kops
+    if idx.ndim == 2:
+        gather, quantize = kops.gather_rows_fleet, kops.quantize_packed_fleet
+        tier = kops.safa_aggregate_packed_tier_rows_fleet
+        q8_tier = kops.safa_aggregate_packed_q8_tier_rows_fleet
+        pack, unpack = kops.pack_fleet, kops.unpack_fleet
+    else:
+        gather, quantize = kops.gather_rows, kops.quantize_packed
+        tier = kops.safa_aggregate_packed_tier_rows
+        q8_tier = kops.safa_aggregate_packed_q8_tier_rows
+        pack, unpack = kops.pack_stacked, kops.unpack_stacked
+    w_rows = _slot_weights(idx, weights)
+    base_rows = torch.where(has_role(roles, ROLE_SYNC)[..., None],
+                            gbuf[..., None, :], gather(tbuf, base_src))
+    trained = pack(local_train_fn(unpack(base_rows, spec), idx, *train_args),
+                   spec)
+    if wire == 'int8':
+        q, scales = quantize(trained)
+        ng, na, tbuf = q8_tier(q, scales, base_rows, tbuf, gbuf, abuf,
+                               cache_src, cache_dst, roles, w_rows)
+    else:
+        local_rows = torch.where(
+            has_role(roles, ROLE_COMMITTED)[..., None], trained, base_rows)
+        ng, na, tbuf = tier(tbuf, local_rows, gbuf, abuf, cache_src,
+                            cache_dst, roles, w_rows)
+    _write_global(tbuf, global_dst, ng)
+    return ng, tbuf, na
+
+
+def safa_run_scan_sparse_tier_packed(gbuf, tbuf, abuf,
+                                     schedule: TierRoundSchedule, weights,
+                                     *, local_train_fn, spec, wire='f32'):
+    """Packed counterpart of ``safa_run_scan_sparse_tier``: the carry is
+    three pack buffers, O((tau + quota) N) bytes (a fleet's: [S, N] and
+    [S, capacity + 1, N]), the value buffer written in place; ``spec`` is
+    one member's pack layout.  Returns (gbuf, tbuf, abuf)."""
+    for r, args in _rounds(schedule):
+        gbuf, tbuf, abuf = safa_round_sparse_tier_packed(
+            gbuf, tbuf, abuf, idx=r.idx, roles=r.roles, base_src=r.base_src,
+            cache_src=r.cache_src, cache_dst=r.cache_dst,
+            global_dst=r.global_dst, weights=weights,
+            local_train_fn=local_train_fn, train_args=args, spec=spec,
+            wire=wire)
+    return gbuf, tbuf, abuf

@@ -3,7 +3,8 @@ protocol-spec base class, per-round records, run histories, sweep
 members, the precomputed dense mask schedules of every protocol (one
 run's, and a fleet's stacked member-major) and the sparse active-set
 schedules of SAFA, FedAvg and FedCS (a run's, and a fleet's re-padded to
-its widest member) that the engines replay.  The
+its widest member) and SAFA's lag-tier schedules (the sparse rows plus the
+slot maps of one bounded value buffer) that the engines replay.  The
 state machines that produce the schedules live in
 ``repro_torch.core.federation`` (the FedAsync and weighted-merge
 family's in ``repro_torch.core.agg_schemes``); the engines that consume
@@ -11,6 +12,7 @@ them in ``repro_torch.core.protocol``."""
 from __future__ import annotations
 
 import dataclasses
+import heapq
 from typing import Any, Optional
 
 import numpy as np
@@ -116,6 +118,27 @@ class SafaSchedule:
         idx, roles = pack_sparse_rows(rows, m, capacity)
         return SparseSchedule(m=m, idx=idx, roles=roles,
                               records=self.records, futility=self.futility)
+
+    def to_tier(self, capacity: Optional[int] = None) -> 'TierSchedule':
+        """Lag-tier form: replay the version counters the SAFA state
+        machine keeps (``v[sync] = gv`` before selection, ``v[committed] =
+        t`` after) to recover each active client's base version, then hand
+        the per-round event rows to the slot allocator.
+        ``federation.precompute_safa_schedule(form='sparse_tier')`` records
+        the same data inline, so both build the same schedule."""
+        m = self.sync.shape[1]
+        v = np.zeros(m, np.int64)
+        rows, base_rows = [], []
+        for t in range(self.rounds):
+            v[self.sync[t]] = t
+            row = safa_sparse_row(self.sync[t], self.committed[t],
+                                  self.picked[t], self.undrafted[t],
+                                  self.deprecated[t], bootstrap=(t == 0))
+            rows.append(row)
+            base_rows.append(v[row[0]].copy())
+            v[self.committed[t]] = t + 1
+        return build_tier_schedule(m, rows, base_rows, self.records,
+                                   self.futility, capacity=capacity)
 
 
 def _round_idx(rounds: int, device) -> torch.Tensor:
@@ -383,6 +406,200 @@ class SparseSyncSchedule:
 
 
 # ---------------------------------------------------------------------------
+# Lag-tier schedules: a version ring and the active rows' slot maps
+# ---------------------------------------------------------------------------
+#
+# The sparse form bounds the schedule's memory, but SAFA's numeric state
+# still carries [m, N] local and cache stacks.  The lag-tolerant
+# distribution makes most of that redundant: an inactive client's local
+# row is the global snapshot at its version (lag <= tau, so at most tau + 2
+# distinct snapshots are live), and its cache row is such a snapshot or one
+# of the <= quota commit rows of its last active round.  The tier form
+# replaces both stacks with one value buffer of ``capacity + 1`` rows (a
+# version ring and an active-commit slab in one tensor; the trailing row
+# is scratch) and host-precomputed per-round slot maps:
+#
+#   base_src[t, j]   slot holding slot j's base model (its version's
+#                    global snapshot); scratch for synced slots.
+#   cache_src[t, j]  slot holding slot j's cache row c0.
+#   cache_dst[t, j]  slot that receives slot j's new cache row c2; scratch
+#                    when the value is never read again (or when c2 is a
+#                    global snapshot already in the ring).
+#   global_dst[t]    slot that receives the round's output global; scratch
+#                    once no later round reads it.
+#
+# Slots are assigned by value lifetime (a first-fit heap over exact
+# last-read rounds), so ``capacity`` is the peak number of live distinct
+# rows, O(tau + quota) whatever m.  Within a round every read slot
+# differs from every written slot, scratch apart (a value written in round
+# t is first read strictly later): that is what lets the tier kernels
+# write the buffer in place.  Local state needs no buffer: a committed
+# client is force-synced the next round it appears, so a trained local row
+# is never read back and base rows are always version snapshots.
+
+
+def build_tier_schedule(m: int, rows, base_rows, records, futility,
+                        capacity: Optional[int] = None) -> 'TierSchedule':
+    """Lower per-round sparse event rows and base versions to slot maps.
+
+    ``rows`` are ``safa_sparse_row`` outputs; ``base_rows[t]`` holds the
+    version counter (after sync, before commit) of each active client,
+    aligned with ``rows[t][0]``.  Two passes: record every value read and
+    write with its exact rounds, then allocate buffer slots by lifetime."""
+    rounds = len(rows)
+    idx, roles = pack_sparse_rows(rows, m, capacity)
+    width = idx.shape[1]
+    R_S, R_P = protocol.ROLE_SYNC, protocol.ROLE_PICKED
+    R_U, R_D = protocol.ROLE_UNDRAFTED, protocol.ROLE_DEPRECATED
+    R_C = protocol.ROLE_COMMITTED
+
+    # Pass A, value ids: version v -> v (0..rounds; version 0 is the
+    # initial global, version t + 1 round t's output); commit events ->
+    # rounds + 1 + their event number.
+    n_vals = rounds + 1
+    cache_ref: dict = {}        # client -> value id its cache row holds
+    last_read: dict = {}        # value id -> last round reading it
+    base_val = np.full((rounds, width), -1, np.int64)
+    cache_val = np.full((rounds, width), -1, np.int64)
+    commit_val = np.full((rounds, width), -1, np.int64)
+    for i, ((act, rls), bv) in enumerate(zip(rows, base_rows)):
+        for j in range(len(act)):
+            k, r = int(act[j]), int(rls[j])
+            if (r & R_C) and not (r & R_S):
+                base_val[i, j] = v = int(bv[j])
+                last_read[v] = i
+            if r & (R_P | R_U | R_D):
+                cache_val[i, j] = cv = cache_ref.get(k, 0)
+                last_read[cv] = i
+            if r & (R_P | R_U):
+                commit_val[i, j] = cache_ref[k] = n_vals
+                n_vals += 1
+            elif r & R_D:
+                # cache := the current global: version i is already in the
+                # ring (or never read again), so no slot is written
+                cache_ref[k] = i
+
+    # Pass B, slot allocation in write order.  Version v is written in
+    # round v - 1 (version 0 before the run), commit values in their
+    # round.  A slot frees the round after its value's last read.
+    writes: dict = {wr: [] for wr in range(-1, rounds)}
+    if 0 in last_read:
+        writes[-1].append(0)
+    for i in range(rounds):
+        for j in range(width):
+            v = int(commit_val[i, j])
+            if v >= 0 and v in last_read:
+                writes[i].append(v)
+        if (i + 1) in last_read:
+            writes[i].append(i + 1)
+    slot_of: dict = {}
+    free: list = []
+    pending: dict = {wr: [] for wr in range(rounds + 1)}
+    next_slot = 0
+    for wr in range(-1, rounds):
+        if wr >= 0:
+            for s in pending[wr]:
+                heapq.heappush(free, s)
+        for val in writes[wr]:
+            if free:
+                s = heapq.heappop(free)
+            else:
+                s = next_slot
+                next_slot += 1
+            slot_of[val] = s
+            pending.setdefault(last_read[val] + 1, []).append(s)
+
+    scratch = next_slot
+    base_src = np.full((rounds, width), scratch, np.int32)
+    cache_src = np.full((rounds, width), scratch, np.int32)
+    cache_dst = np.full((rounds, width), scratch, np.int32)
+    global_dst = np.full(rounds, scratch, np.int32)
+    for i in range(rounds):
+        for j in range(width):
+            if base_val[i, j] >= 0:
+                base_src[i, j] = slot_of[int(base_val[i, j])]
+            if cache_val[i, j] >= 0:
+                cache_src[i, j] = slot_of[int(cache_val[i, j])]
+            v = int(commit_val[i, j])
+            if v >= 0 and v in slot_of:
+                cache_dst[i, j] = slot_of[v]
+        if (i + 1) in slot_of:
+            global_dst[i] = slot_of[i + 1]
+    versions_stored = sum(1 for v in slot_of if v <= rounds)
+    return TierSchedule(
+        m=m, idx=idx, roles=roles, base_src=base_src, cache_src=cache_src,
+        cache_dst=cache_dst, global_dst=global_dst, capacity=next_slot,
+        versions_stored=versions_stored,
+        commits_stored=len(slot_of) - versions_stored,
+        records=records, futility=futility)
+
+
+def _tier_to_device(self, device) -> protocol.TierRoundSchedule:
+    """One host->device hop for a tier schedule: a run's [rounds, K] slot
+    maps and [rounds] round indices, or a fleet's [S, rounds, K] and
+    [S, rounds] (``fleet_segment`` cuts it into eval segments)."""
+    def put(a):
+        return torch.as_tensor(a, device=device)
+    round_idx = _round_idx(self.rounds, device)
+    if self.idx.ndim == 3:
+        round_idx = round_idx.expand(self.size, self.rounds)
+    return protocol.TierRoundSchedule(
+        idx=put(self.idx), roles=put(self.roles),
+        base_src=put(self.base_src), cache_src=put(self.cache_src),
+        cache_dst=put(self.cache_dst), global_dst=put(self.global_dst),
+        round_idx=round_idx)
+
+
+def _tier_nbytes(self) -> int:
+    return (self.idx.nbytes + self.roles.nbytes + self.base_src.nbytes
+            + self.cache_src.nbytes + self.cache_dst.nbytes
+            + self.global_dst.nbytes)
+
+
+@dataclasses.dataclass
+class TierSchedule:
+    """Lag-tier SAFA event process (see the section comment above): sparse
+    [rounds, K] active-set indices and roles plus the slot maps that drive
+    one ``[capacity + 1, N]`` value buffer.  ``capacity`` is the peak
+    live-row count (O(tau + quota)); the extra row is scratch."""
+    m: int
+    idx: np.ndarray             # [rounds, K] int32, sentinel == m
+    roles: np.ndarray           # [rounds, K] uint8 of protocol.ROLE_* bits
+    base_src: np.ndarray        # [rounds, K] int32 buffer slots
+    cache_src: np.ndarray       # [rounds, K] int32
+    cache_dst: np.ndarray       # [rounds, K] int32 (scratch == discard)
+    global_dst: np.ndarray      # [rounds] int32
+    capacity: int               # live slots; the scratch slot is capacity
+    versions_stored: int
+    commits_stored: int
+    records: list
+    futility: float
+
+    @property
+    def rounds(self) -> int:
+        return self.idx.shape[0]
+
+    @property
+    def width(self) -> int:
+        return self.idx.shape[1]
+
+    @property
+    def scratch(self) -> int:
+        return self.capacity
+
+    nbytes = property(_tier_nbytes)
+    to_device = _tier_to_device
+
+    def to_sparse(self) -> SparseSchedule:
+        """The sparse event stream, without the slot maps."""
+        return SparseSchedule(m=self.m, idx=self.idx, roles=self.roles,
+                              records=self.records, futility=self.futility)
+
+    def to_dense(self) -> SafaSchedule:
+        return self.to_sparse().to_dense()
+
+
+# ---------------------------------------------------------------------------
 # Fleet-major stacking: [S, rounds, m] schedules for batched sweeps
 # ---------------------------------------------------------------------------
 
@@ -458,6 +675,13 @@ class FleetSchedule(_FleetStack):
         fleet-wide largest active set unless ``capacity`` is given)."""
         return SparseFleetSchedule.from_members(
             [self.member(s).to_sparse() for s in range(self.size)],
+            capacity=capacity)
+
+    def to_tier(self, capacity: Optional[int] = None
+                ) -> 'TierFleetSchedule':
+        """Lag-tier [S, rounds, K] form of the same event streams."""
+        return TierFleetSchedule.from_members(
+            [self.member(s).to_tier() for s in range(self.size)],
             capacity=capacity)
 
 
@@ -649,3 +873,104 @@ class SparseSyncFleetSchedule(_SparseFleetStack):
 
     _MEMBER_CLS = SparseSyncSchedule
     _SCHEDULE_CLS = protocol.SparseSyncSchedule
+
+
+@dataclasses.dataclass
+class TierFleetSchedule:
+    """S lag-tier SAFA event processes, fleet-major ([S, rounds, K]).
+
+    Members may differ in active-set width and in slot capacity: stacking
+    pads the width with sentinel no-op slots and remaps each member's
+    scratch slot (its own ``capacity``) to the fleet's, so that one
+    ``[S, capacity + 1, N]`` value buffer batches.  ``member(s)`` hands
+    back the padded-width schedule in fleet slot space, so that the
+    sequential engine replays a member with the fleet's widths and their
+    numbers are the same bits."""
+    m: int
+    idx: np.ndarray             # [S, rounds, K]
+    roles: np.ndarray
+    base_src: np.ndarray
+    cache_src: np.ndarray
+    cache_dst: np.ndarray
+    global_dst: np.ndarray      # [S, rounds]
+    capacity: int               # the fleet's live slots; scratch == capacity
+    capacities: np.ndarray      # [S] per-member live-slot counts
+    widths: np.ndarray          # [S] per-member active-set widths
+    versions_stored: np.ndarray
+    commits_stored: np.ndarray
+    records: list
+    futility: np.ndarray
+
+    @classmethod
+    def from_members(cls, members: list,
+                     capacity: Optional[int] = None) -> 'TierFleetSchedule':
+        if len({(s.m, s.rounds) for s in members}) != 1:
+            raise ValueError('fleet members must share (m, rounds)')
+        m = members[0].m
+        wid = max(s.width for s in members) if capacity is None else capacity
+        need = max(s.width for s in members)
+        if wid < need:
+            raise ValueError(
+                f'sparse fleet capacity {wid} < member active-set max {need}')
+        cap = max(s.capacity for s in members)
+
+        def pad(a, fill):
+            out = np.full(a.shape[:-1] + (wid,), fill, a.dtype)
+            out[..., :a.shape[-1]] = a
+            return out
+
+        def remap(s, a):
+            # member scratch -> fleet scratch (the other slots keep the
+            # member's own allocation)
+            return np.where(a == s.capacity, cap, a).astype(np.int32)
+
+        return cls(
+            m=m,
+            idx=np.stack([pad(s.idx, m) for s in members]),
+            roles=np.stack([pad(s.roles, 0) for s in members]),
+            base_src=np.stack([pad(remap(s, s.base_src), cap)
+                               for s in members]),
+            cache_src=np.stack([pad(remap(s, s.cache_src), cap)
+                                for s in members]),
+            cache_dst=np.stack([pad(remap(s, s.cache_dst), cap)
+                                for s in members]),
+            global_dst=np.stack([remap(s, s.global_dst) for s in members]),
+            capacity=cap,
+            capacities=np.array([s.capacity for s in members], np.int32),
+            widths=np.array([s.width for s in members], np.int32),
+            versions_stored=np.array([s.versions_stored for s in members],
+                                     np.int32),
+            commits_stored=np.array([s.commits_stored for s in members],
+                                    np.int32),
+            records=[s.records for s in members],
+            futility=np.array([s.futility for s in members]))
+
+    @property
+    def size(self) -> int:
+        return self.idx.shape[0]
+
+    @property
+    def rounds(self) -> int:
+        return self.idx.shape[1]
+
+    @property
+    def width(self) -> int:
+        return self.idx.shape[2]
+
+    nbytes = property(_tier_nbytes)
+    to_device = _tier_to_device
+
+    def member(self, s: int) -> TierSchedule:
+        """Member s in fleet slot space (scratch == the fleet's capacity)
+        at the fleet's padded width: the sequential engine then runs the
+        program the fleet runs, with the same reduction widths.  A member's
+        own precompute (its own width and capacity) runs the same events
+        through narrower reductions."""
+        return TierSchedule(
+            m=self.m, idx=self.idx[s], roles=self.roles[s],
+            base_src=self.base_src[s], cache_src=self.cache_src[s],
+            cache_dst=self.cache_dst[s], global_dst=self.global_dst[s],
+            capacity=self.capacity,
+            versions_stored=int(self.versions_stored[s]),
+            commits_stored=int(self.commits_stored[s]),
+            records=self.records[s], futility=float(self.futility[s]))

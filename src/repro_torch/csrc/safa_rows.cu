@@ -10,7 +10,16 @@
 //     (safa_aggregate_packed_rows_fleet) -> safa_aggregate_rows_fleet_f32;
 //   * src/repro/kernels/safa_aggregate.py:_q8_rows_fleet_kernel
 //     (safa_aggregate_packed_q8_rows_fleet)
-//     -> safa_aggregate_q8_rows_fleet_f32 below.
+//     -> safa_aggregate_q8_rows_fleet_f32 below;
+//   * src/repro/kernels/safa_aggregate.py:_tier_rows_kernel
+//     (safa_aggregate_packed_tier_rows) -> safa_aggregate_tier_rows_f32
+//     and, with a member axis the JAX package has not (it vmaps the
+//     single kernel), safa_aggregate_tier_rows_fleet_f32;
+//   * src/repro/kernels/safa_aggregate.py:_q8_tier_rows_kernel
+//     (safa_aggregate_packed_q8_tier_rows)
+//     -> safa_aggregate_q8_tier_rows_f32 and
+//     safa_aggregate_q8_tier_rows_fleet_f32.
+// The tier forms are described before their kernels, below.
 //
 // The fleet forms run S independent servers in one launch: every operand
 // gains a leading member axis (cache [S, R, N], trained and the outputs'
@@ -125,13 +134,19 @@ __device__ __forceinline__ void stage_slots(Stage& s, int k0, int kn,
 }
 
 // Add the warps' partial sums in warp order, then to agg; write both.
-__device__ __forceinline__ void finish(Stage& s, float4 dg, float4 da,
+// ``late`` (the tier forms) is a store held back until every warp of the
+// block has passed the barrier, and so has done all its reads.
+template <class St>
+__device__ __forceinline__ void finish(St& s, float4 dg, float4 da,
                                        bool active, const float4* agg,
                                        float4* new_global, float4* new_agg,
-                                       long long col) {
+                                       long long col,
+                                       float4* late = nullptr,
+                                       float4 late_v = float4()) {
   s.dg[threadIdx.y][threadIdx.x] = dg;
   s.da[threadIdx.y][threadIdx.x] = da;
   __syncthreads();
+  if (late != nullptr) *late = late_v;
   if (threadIdx.y != 0 || !active) return;
   float4 sg = s.dg[0][threadIdx.x], sa = s.da[0][threadIdx.x];
   for (int y = 1; y < kSlices; ++y) {
@@ -297,6 +312,236 @@ safa_q8_rows_kernel(const int8_t* __restrict__ q,
          reinterpret_cast<float4*>(new_agg), col);
 }
 
+// ---------------------------------------------------------------------------
+// The lag tier's forms (kernels 19 and 20): the rows kernels over the tier
+// value buffer buf [C + 1, n] (its last row the scratch slot), each slot
+// reading its cache row c0 = buf[srcs[j]] and writing its c2 to
+// buf[dsts[j]] in the same launch, in place (the TPU call aliases buf to
+// its output).  The math is the rows kernels', with no c2 output; the
+// int8 form dequantises its uploads in registers where the slot
+// committed, takes its base row elsewhere, and writes no local row (the
+// tier's local state is the version ring).
+//
+// In place, and the same bits as the plain version, which gathers every
+// c0 before it scatters:
+//   * rows written other than the scratch row: the schedule keeps them
+//     apart from every row read in the round (a value written in round t
+//     is first read strictly later), so no read can see a write.  The
+//     kernel relies on that and does not check it.
+//   * a shared destination: the last slot wins, as in the row scatter
+//     (rows.cu); a slot skips its write where a later slot writes the
+//     same row, so each row is written once.
+//   * the scratch row is read and written by the inert slots (and by
+//     slots whose value is never read again).  Its one write, the last
+//     such slot's, is held in registers by the warp that computes it and
+//     stored after the block's final barrier, when every warp has read
+//     the buffer.
+// Bound: device-memory bytes, as the rows kernels': c0 of every slot, the
+// trained row (int8: q and scales, or base) only where the slot is picked
+// or undrafted, one c2 row per distinct destination, global and agg read
+// once and the two new vectors written once.  The fleet forms are the
+// same code with blockIdx.y = s, member s's buffer [C + 1, n] at
+// s * (C + 1) * n.
+
+// Shared state of a tier block: the staged slots and the partial sums.
+struct TierStage {
+  long long src[kChunk];         // buffer row offset each slot reads
+  long long dst[kChunk];         // row offset it writes, -1: skipped
+  uint8_t role[kChunk];
+  float w[kChunk];
+  float4 dg[kSlices][kLanes];
+  float4 da[kSlices][kLanes];
+};
+
+__device__ __forceinline__ void stage_tier_slots(
+    TierStage& s, int k0, int kn, int k, const int* srcs, const int* dsts,
+    const uint8_t* roles, const float* w_rows, int n_rows, long long n4) {
+  const int tid = threadIdx.y * kLanes + threadIdx.x;
+  for (int i = tid; i < kn; i += kThreads) {
+    const int j = k0 + i;
+    const long long d = fix_row(dsts[j], n_rows);
+    bool last = true;
+    for (int l = j + 1; l < k && last; ++l) {
+      last = fix_row(dsts[l], n_rows) != d;
+    }
+    s.src[i] = fix_row(srcs[j], n_rows) * n4;
+    s.dst[i] = last ? d * n4 : -1;
+    s.role[i] = roles[j];
+    s.w[i] = w_rows[j];
+  }
+}
+
+// Store c2 of a staged slot, or hold it back if it goes to the scratch row.
+__device__ __forceinline__ void tier_store(float4* b4, long long dst,
+                                           long long scratch, long long col,
+                                           float4 v, float4& held,
+                                           bool& holds) {
+  if (dst == scratch) {
+    held = v;
+    holds = true;
+  } else if (dst >= 0) {
+    b4[dst + col] = v;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+safa_tier_rows_kernel(float* buf, const float* __restrict__ trained,
+                      const float* __restrict__ global,
+                      const float* __restrict__ agg,
+                      const int* __restrict__ srcs,
+                      const int* __restrict__ dsts,
+                      const uint8_t* __restrict__ roles,
+                      const float* __restrict__ w_rows,
+                      float* __restrict__ new_global,
+                      float* __restrict__ new_agg, int n_rows, int k,
+                      long long n4) {
+  __shared__ TierStage s;
+  const Member mb(n_rows, k, n4 * kVec);
+  buf += mb.cache;
+  trained += mb.rows;
+  global += mb.vec;
+  agg += mb.vec;
+  new_global += mb.vec;
+  new_agg += mb.vec;
+  srcs += mb.slots;
+  dsts += mb.slots;
+  roles += mb.slots;
+  w_rows += mb.slots;
+  const long long col = (long long)blockIdx.x * kLanes + threadIdx.x;
+  const bool active = col < n4;
+  const long long scratch = (long long)(n_rows - 1) * n4;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 g =
+      active ? reinterpret_cast<const float4*>(global)[col] : zero;
+  // buf is read and written: no __restrict__, so every load of a group is
+  // ordered before the group's stores
+  float4* b4 = reinterpret_cast<float4*>(buf);
+  const float4* t4 = reinterpret_cast<const float4*>(trained);
+  float4 dg = zero, da = zero, held = zero;
+  bool holds = false;
+  for (int k0 = 0; k0 < k; k0 += kChunk) {
+    const int kn = min(kChunk, k - k0);
+    __syncthreads();   // the previous chunk's readers are done
+    stage_tier_slots(s, k0, kn, k, srcs, dsts, roles, w_rows, n_rows, n4);
+    __syncthreads();
+    if (!active) continue;
+    for (int i0 = threadIdx.y; i0 < kn; i0 += kSlices * kGroup) {
+      float4 c[kGroup], t[kGroup];
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const int i = i0 + u * kSlices;
+        if (i >= kn) continue;
+        c[u] = b4[s.src[i] + col];
+        t[u] = (s.role[i] & (kPicked | kUndrafted))
+                   ? t4[(long long)(k0 + i) * n4 + col] : zero;
+      }
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const int i = i0 + u * kSlices;
+        if (i >= kn) continue;
+        const uint8_t f = s.role[i];
+        const float4 c1 = (f & kPicked) ? t[u]
+                          : (f & kDeprecated) ? g : c[u];
+        const float4 cc = (f & kUndrafted) ? t[u] : c1;
+        tier_store(b4, s.dst[i], scratch, col, cc, held, holds);
+        add_delta(dg, c1, c[u], s.w[i]);
+        add_delta(da, cc, c[u], s.w[i]);
+      }
+    }
+  }
+  finish(s, dg, da, active, reinterpret_cast<const float4*>(agg),
+         reinterpret_cast<float4*>(new_global),
+         reinterpret_cast<float4*>(new_agg), col,
+         holds ? b4 + scratch + col : nullptr, held);
+}
+
+__global__ void __launch_bounds__(kThreads)
+safa_q8_tier_rows_kernel(const int8_t* __restrict__ q,
+                         const float* __restrict__ scales,
+                         const float* __restrict__ base, float* buf,
+                         const float* __restrict__ global,
+                         const float* __restrict__ agg,
+                         const int* __restrict__ srcs,
+                         const int* __restrict__ dsts,
+                         const uint8_t* __restrict__ roles,
+                         const float* __restrict__ w_rows,
+                         float* __restrict__ new_global,
+                         float* __restrict__ new_agg, int n_rows, int k,
+                         long long n4) {
+  __shared__ TierStage s;
+  const Member mb(n_rows, k, n4 * kVec);
+  q += mb.rows;
+  scales += mb.rows / kQBlock;
+  base += mb.rows;
+  buf += mb.cache;
+  global += mb.vec;
+  agg += mb.vec;
+  new_global += mb.vec;
+  new_agg += mb.vec;
+  srcs += mb.slots;
+  dsts += mb.slots;
+  roles += mb.slots;
+  w_rows += mb.slots;
+  const long long col = (long long)blockIdx.x * kLanes + threadIdx.x;
+  const bool active = col < n4;
+  const long long scratch = (long long)(n_rows - 1) * n4;
+  const long long n_scales = n4 / (kQBlock / kVec);   // scales per row
+  const long long sblk = col / (kQBlock / kVec);      // this thread's block
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 g =
+      active ? reinterpret_cast<const float4*>(global)[col] : zero;
+  const char4* q4 = reinterpret_cast<const char4*>(q);
+  const float4* bs4 = reinterpret_cast<const float4*>(base);
+  float4* b4 = reinterpret_cast<float4*>(buf);
+  float4 dg = zero, da = zero, held = zero;
+  bool holds = false;
+  for (int k0 = 0; k0 < k; k0 += kChunk) {
+    const int kn = min(kChunk, k - k0);
+    __syncthreads();
+    stage_tier_slots(s, k0, kn, k, srcs, dsts, roles, w_rows, n_rows, n4);
+    __syncthreads();
+    if (!active) continue;
+    for (int i0 = threadIdx.y; i0 < kn; i0 += kSlices * kGroup) {
+      char4 qv[kGroup];
+      float sc[kGroup];
+      float4 b[kGroup], c[kGroup];
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const int i = i0 + u * kSlices;
+        if (i >= kn) continue;
+        const long long j = k0 + i;
+        const uint8_t f = s.role[i];
+        const bool need = f & (kPicked | kUndrafted);
+        const bool done = f & kCommitted;
+        qv[u] = (need && done) ? q4[j * n4 + col] : make_char4(0, 0, 0, 0);
+        sc[u] = (need && done) ? scales[j * n_scales + sblk] : 0.f;
+        b[u] = (need && !done) ? bs4[j * n4 + col] : zero;
+        c[u] = b4[s.src[i] + col];
+      }
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const int i = i0 + u * kSlices;
+        if (i >= kn) continue;
+        const uint8_t f = s.role[i];
+        const float x = sc[u];
+        const float4 t = (f & kCommitted)
+            ? make_float4((float)qv[u].x * x, (float)qv[u].y * x,
+                          (float)qv[u].z * x, (float)qv[u].w * x)
+            : b[u];
+        const float4 c1 = (f & kPicked) ? t : (f & kDeprecated) ? g : c[u];
+        const float4 cc = (f & kUndrafted) ? t : c1;
+        tier_store(b4, s.dst[i], scratch, col, cc, held, holds);
+        add_delta(dg, c1, c[u], s.w[i]);
+        add_delta(da, cc, c[u], s.w[i]);
+      }
+    }
+  }
+  finish(s, dg, da, active, reinterpret_cast<const float4*>(agg),
+         reinterpret_cast<float4*>(new_global),
+         reinterpret_cast<float4*>(new_agg), col,
+         holds ? b4 + scratch + col : nullptr, held);
+}
+
 inline dim3 grid_for(long long n4, int s) {
   return dim3((unsigned int)((n4 + kLanes - 1) / kLanes), (unsigned int)s);
 }
@@ -326,6 +571,35 @@ int launch_q8_rows(const int8_t* q, const float* scales, const float* base,
                         stream>>>(
       q, scales, base, cache, global, agg, rows, roles, w, new_global,
       new_agg, c2, local, r, k, n4);
+  return (int)cudaGetLastError();
+}
+
+int launch_tier_rows(float* buf, const float* trained, const float* global,
+                     const float* agg, const int* srcs, const int* dsts,
+                     const uint8_t* roles, const float* w, float* new_global,
+                     float* new_agg, int s, int r, int k, long long n,
+                     cudaStream_t stream) {
+  const long long n4 = n / kVec;
+  if (n4 == 0 || s == 0) return (int)cudaSuccess;
+  safa_tier_rows_kernel<<<grid_for(n4, s), dim3(kLanes, kSlices), 0,
+                          stream>>>(
+      buf, trained, global, agg, srcs, dsts, roles, w, new_global, new_agg,
+      r, k, n4);
+  return (int)cudaGetLastError();
+}
+
+int launch_q8_tier_rows(const int8_t* q, const float* scales,
+                        const float* base, float* buf, const float* global,
+                        const float* agg, const int* srcs, const int* dsts,
+                        const uint8_t* roles, const float* w,
+                        float* new_global, float* new_agg, int s, int r,
+                        int k, long long n, cudaStream_t stream) {
+  const long long n4 = n / kVec;
+  if (n4 == 0 || s == 0) return (int)cudaSuccess;
+  safa_q8_tier_rows_kernel<<<grid_for(n4, s), dim3(kLanes, kSlices), 0,
+                             stream>>>(
+      q, scales, base, buf, global, agg, srcs, dsts, roles, w, new_global,
+      new_agg, r, k, n4);
   return (int)cudaGetLastError();
 }
 
@@ -385,6 +659,62 @@ int safa_aggregate_q8_rows_fleet_f32(const int8_t* q, const float* scales,
                                      cudaStream_t stream) {
   return launch_q8_rows(q, scales, base, cache, global, agg, rows, roles, w,
                         new_global, new_agg, c2, local, s, r, k, n, stream);
+}
+
+// The lag tier's forms.  buf: [r, n] f32 tier value buffer, read and
+// written in place (its last row the scratch slot); trained: [k, n] f32,
+// not overlapping buf; global/agg: [n] f32; srcs/dsts: [k] int32 rows of
+// buf each slot reads c0 from and writes c2 to (outside [0, r): row
+// r - 1); roles: [k] uint8; w: [k] f32.  Writes new_global and new_agg
+// ([n] f32, fresh).  Rows written other than row r - 1 must not be read
+// by any slot.  n must be a multiple of 4.
+int safa_aggregate_tier_rows_f32(float* buf, const float* trained,
+                                 const float* global, const float* agg,
+                                 const int* srcs, const int* dsts,
+                                 const uint8_t* roles, const float* w,
+                                 float* new_global, float* new_agg, int r,
+                                 int k, long long n, cudaStream_t stream) {
+  return launch_tier_rows(buf, trained, global, agg, srcs, dsts, roles, w,
+                          new_global, new_agg, 1, r, k, n, stream);
+}
+
+// The int8 form: q: [k, n] int8; scales: [k, n / 128] f32; base: [k, n]
+// f32; the rest as above.  n must be a multiple of 128.
+int safa_aggregate_q8_tier_rows_f32(const int8_t* q, const float* scales,
+                                    const float* base, float* buf,
+                                    const float* global, const float* agg,
+                                    const int* srcs, const int* dsts,
+                                    const uint8_t* roles, const float* w,
+                                    float* new_global, float* new_agg, int r,
+                                    int k, long long n,
+                                    cudaStream_t stream) {
+  return launch_q8_tier_rows(q, scales, base, buf, global, agg, srcs, dsts,
+                             roles, w, new_global, new_agg, 1, r, k, n,
+                             stream);
+}
+
+// Their fleet forms: buf [s, r, n]; trained, base [s, k, n]; q [s, k, n]
+// int8; scales [s, k, n / 128]; global, agg, new_global, new_agg [s, n];
+// srcs, dsts, roles, w [s, k].  gridDim.y = s (at most 65,535).
+int safa_aggregate_tier_rows_fleet_f32(float* buf, const float* trained,
+                                       const float* global, const float* agg,
+                                       const int* srcs, const int* dsts,
+                                       const uint8_t* roles, const float* w,
+                                       float* new_global, float* new_agg,
+                                       int s, int r, int k, long long n,
+                                       cudaStream_t stream) {
+  return launch_tier_rows(buf, trained, global, agg, srcs, dsts, roles, w,
+                          new_global, new_agg, s, r, k, n, stream);
+}
+
+int safa_aggregate_q8_tier_rows_fleet_f32(
+    const int8_t* q, const float* scales, const float* base, float* buf,
+    const float* global, const float* agg, const int* srcs, const int* dsts,
+    const uint8_t* roles, const float* w, float* new_global, float* new_agg,
+    int s, int r, int k, long long n, cudaStream_t stream) {
+  return launch_q8_tier_rows(q, scales, base, buf, global, agg, srcs, dsts,
+                             roles, w, new_global, new_agg, s, r, k, n,
+                             stream);
 }
 
 }  // extern "C"

@@ -44,7 +44,11 @@ LAUNCHES = {'safa_aggregate': 0, 'safa_aggregate_packed': 0,
             'safa_aggregate_packed_q8_rows': 0,
             'gather_rows_fleet': 0, 'scatter_rows_fleet': 0,
             'safa_aggregate_packed_rows_fleet': 0,
-            'safa_aggregate_packed_q8_rows_fleet': 0}
+            'safa_aggregate_packed_q8_rows_fleet': 0,
+            'safa_aggregate_packed_tier_rows': 0,
+            'safa_aggregate_packed_q8_tier_rows': 0,
+            'safa_aggregate_packed_tier_rows_fleet': 0,
+            'safa_aggregate_packed_q8_tier_rows_fleet': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -77,6 +81,15 @@ _SIGNATURES = {
                                       _I, _I, _I, _L, _P),
     'safa_aggregate_q8_rows_fleet_f32': (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                          _P, _P, _P, _P, _I, _I, _I, _L, _P),
+    'safa_aggregate_tier_rows_f32': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _I, _I, _L, _P),
+    'safa_aggregate_q8_tier_rows_f32': (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                        _P, _P, _P, _I, _I, _L, _P),
+    'safa_aggregate_tier_rows_fleet_f32': (_P, _P, _P, _P, _P, _P, _P, _P,
+                                           _P, _P, _I, _I, _I, _L, _P),
+    'safa_aggregate_q8_tier_rows_fleet_f32': (_P, _P, _P, _P, _P, _P, _P,
+                                              _P, _P, _P, _P, _P, _I, _I,
+                                              _I, _L, _P),
 }
 
 _lib = None

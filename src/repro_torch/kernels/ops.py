@@ -21,9 +21,9 @@ two launches per round (``quantize_packed``, then ``dequantize_packed``).
 ``weighted_merge_tree_packed`` is the weighted-merge family's server
 merge: the model packed once, one ``weighted_merge_packed`` launch.
 The sparse schedules' packed engine works on the pack buffers directly,
-with ``gather_rows``/``scatter_rows`` and the rows aggregation kernels,
-and their fleet forms (re-exported here, as the JAX package's ``ops``
-holds them).
+with ``gather_rows``/``scatter_rows`` and the rows aggregation kernels
+(the lag tier's with the tier-rows kernels), and their fleet forms
+(re-exported here, as the JAX package's ``ops`` holds them).
 
 Each has a fleet form (``*_fleet``) over S independent servers: stacked
 models carry [S, m, ...] leaves and globals [S, ...], and each form
@@ -48,8 +48,11 @@ from repro_torch.kernels.safa_aggregate import (
     safa_aggregate, safa_aggregate_fleet, safa_aggregate_packed,
     safa_aggregate_packed_fleet, safa_aggregate_packed_q8,
     safa_aggregate_packed_q8_fleet, safa_aggregate_packed_q8_rows,
-    safa_aggregate_packed_q8_rows_fleet, safa_aggregate_packed_rows,
-    safa_aggregate_packed_rows_fleet)
+    safa_aggregate_packed_q8_rows_fleet,
+    safa_aggregate_packed_q8_tier_rows,
+    safa_aggregate_packed_q8_tier_rows_fleet, safa_aggregate_packed_rows,
+    safa_aggregate_packed_rows_fleet, safa_aggregate_packed_tier_rows,
+    safa_aggregate_packed_tier_rows_fleet)
 from repro_torch.kernels.weighted_merge import (weighted_merge_packed,
                                                 weighted_merge_packed_fleet)
 
@@ -57,7 +60,11 @@ __all__ = ['PackSpec', 'comm_bytes', 'gather_rows', 'gather_rows_fleet',
            'pack_fleet', 'pack_global', 'pack_spec', 'pack_stacked',
            'safa_aggregate_packed_q8_rows',
            'safa_aggregate_packed_q8_rows_fleet',
+           'safa_aggregate_packed_q8_tier_rows',
+           'safa_aggregate_packed_q8_tier_rows_fleet',
            'safa_aggregate_packed_rows', 'safa_aggregate_packed_rows_fleet',
+           'safa_aggregate_packed_tier_rows',
+           'safa_aggregate_packed_tier_rows_fleet',
            'safa_aggregate_tree', 'safa_aggregate_tree_fleet',
            'safa_aggregate_tree_packed', 'safa_aggregate_tree_packed_fleet',
            'safa_compressed_update', 'safa_compressed_update_fleet',

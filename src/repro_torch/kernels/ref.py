@@ -164,3 +164,34 @@ def safa_aggregate_q8_rows_ref(q, scales, base_rows, cache, global_prev,
     tr = torch.where(done, dequantize_packed_ref(q, scales), base_rows)
     return _rows_math(gather_rows_ref(cache, rows), tr, global_prev, agg,
                       roles, w_rows) + (tr,)
+
+
+# -- the lag tier's forms: the value buffer read and written in place -------
+#
+# buf is the tier's [(S,) capacity + 1, N] value buffer, its last row the
+# scratch slot; ``srcs`` name each slot's cache row c0, ``dsts`` the row
+# that receives its c2.  Every slot reads before any slot writes, and
+# where slots share a destination the last slot wins, so the scratch row
+# (read and written by the inert slots) comes out defined too.
+
+def safa_aggregate_tier_rows_ref(buf, trained_rows, global_prev, agg, srcs,
+                                 dsts, roles, w_rows):
+    """The tier kernel's formula: ``safa_aggregate_rows_ref`` on the rows
+    c0 = buf[srcs], then c2 written into buf at ``dsts`` in place.
+    Returns (new_global [(S,) N], new_agg [(S,) N], buf)."""
+    ng, na, c2 = _rows_math(gather_rows_ref(buf, srcs), trained_rows,
+                            global_prev, agg, roles, w_rows)
+    return ng, na, scatter_rows_ref(buf, dsts, c2)
+
+
+def safa_aggregate_q8_tier_rows_ref(q, scales, base_rows, buf, global_prev,
+                                    agg, srcs, dsts, roles, w_rows):
+    """The int8 tier kernel's composition: the trained row is the
+    dequantised upload where the slot committed and its base row
+    elsewhere, then ``safa_aggregate_tier_rows_ref``.  There is no local
+    output: the tier's local state is the version ring.  Returns
+    (new_global, new_agg, buf)."""
+    done = ((roles & _COMMITTED) != 0)[..., None]
+    tr = torch.where(done, dequantize_packed_ref(q, scales), base_rows)
+    return safa_aggregate_tier_rows_ref(buf, tr, global_prev, agg, srcs,
+                                        dsts, roles, w_rows)

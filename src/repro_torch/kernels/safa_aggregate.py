@@ -32,6 +32,13 @@ return the new global, the new running aggregate and the K new cache rows
 Their fleet forms (``*_rows_fleet``) take a leading member axis on every
 operand (cache [S, R, N], slot rows [S, K, N], vectors [S, N], slots
 [S, K]) and launch once for all S members.
+
+SAFA's lag tier carries one [C + 1, N] value buffer instead of the cache
+stack: ``safa_aggregate_packed_tier_rows`` and its int8 form
+``safa_aggregate_packed_q8_tier_rows`` read each slot's cache row through
+one slot map (``srcs``) and write its new cache row through another
+(``dsts``) into the same buffer, in place; their fleet forms
+(``*_tier_rows_fleet``) take the leading member axis.
 """
 from __future__ import annotations
 
@@ -230,13 +237,15 @@ def safa_aggregate_packed_q8_fleet(q, scales, base, cache, global_prev,
 # The sparse schedules' rows forms: Eq. 6-8 on K indexed cache rows
 # ---------------------------------------------------------------------------
 
-def _rows_lead(fleet: bool, cache, rows) -> tuple:
+def _rows_lead(fleet: bool, cache, rows, names=('cache', 'rows')) -> tuple:
     """The member axis of a rows launch: (S,) for a fleet, () for one run;
-    raises on the wrong ranks or a width the kernels do not take."""
+    raises on the wrong ranks or a width the kernels do not take.
+    ``names`` name the buffer and slot operands in the message."""
     want = 2 + fleet
     if cache.ndim != want or rows.ndim != want - 1:
-        form = ('cache [S, R, N] and rows [S, K]' if fleet
-                else 'cache [R, N] and rows [K]')
+        b, i = names
+        form = (f'{b} [S, R, N] and {i} [S, K]' if fleet
+                else f'{b} [R, N] and {i} [K]')
         raise ValueError(f'expected {form}, got shapes '
                          f'{tuple(cache.shape)} and {tuple(rows.shape)}')
     _check_packed(cache.shape[-1])
@@ -244,14 +253,14 @@ def _rows_lead(fleet: bool, cache, rows) -> tuple:
 
 
 def _check_rows_operands(fleet: bool, cache, rows, roles, w_rows,
-                         global_prev, agg):
+                         global_prev, agg, names=('cache', 'rows')):
     """(lead, r, k, n) of a rows launch, with the operands every rows
     kernel shares checked."""
-    lead = _rows_lead(fleet, cache, rows)
+    lead = _rows_lead(fleet, cache, rows, names)
     (r, n), k = cache.shape[-2:], rows.shape[-1]
     dev = cache.device
-    backend.check_operand(cache, 'cache', torch.float32, lead + (r, n), dev)
-    backend.check_operand(rows, 'rows', torch.int32, lead + (k,), dev)
+    backend.check_operand(cache, names[0], torch.float32, lead + (r, n), dev)
+    backend.check_operand(rows, names[1], torch.int32, lead + (k,), dev)
     backend.check_operand(roles, 'roles', torch.uint8, lead + (k,), dev)
     backend.check_operand(w_rows, 'w_rows', torch.float32, lead + (k,), dev)
     backend.check_operand(global_prev, 'global_prev', torch.float32,
@@ -365,3 +374,122 @@ def safa_aggregate_packed_q8_rows_fleet(q_rows, scales_rows, base_rows,
                     'safa_aggregate_q8_rows_fleet_f32', True, q_rows,
                     scales_rows, base_rows, cache, global_prev, agg, rows,
                     roles, w_rows)
+
+
+# ---------------------------------------------------------------------------
+# The lag tier's forms: Eq. 6-8 through slot maps, the buffer in place
+# ---------------------------------------------------------------------------
+
+_TIER = ('buf', 'srcs')
+
+
+def _tier(key: str, entry: str, fleet: bool, buf, trained_rows,
+          global_prev, agg, srcs, dsts, roles, w_rows):
+    if not backend.is_cuda(buf, trained_rows, global_prev, agg):
+        _rows_lead(fleet, buf, srcs, _TIER)
+        return ref.safa_aggregate_tier_rows_ref(buf, trained_rows,
+                                                global_prev, agg, srcs, dsts,
+                                                roles, w_rows)
+    lead, r, k, n = _check_rows_operands(fleet, buf, srcs, roles, w_rows,
+                                         global_prev, agg, _TIER)
+    dev = buf.device
+    backend.check_operand(dsts, 'dsts', torch.int32, lead + (k,), dev)
+    backend.check_operand(trained_rows, 'trained_rows', torch.float32,
+                          lead + (k, n), dev)
+    new_global = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
+    new_agg = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
+    backend.call(entry, dev, buf.data_ptr(), trained_rows.data_ptr(),
+                 global_prev.data_ptr(), agg.data_ptr(), srcs.data_ptr(),
+                 dsts.data_ptr(), roles.data_ptr(), w_rows.data_ptr(),
+                 new_global.data_ptr(), new_agg.data_ptr(), *lead, r, k, n)
+    backend.LAUNCHES[key] += 1
+    return new_global, new_agg, buf
+
+
+def _q8_tier(key: str, entry: str, fleet: bool, q_rows, scales_rows,
+             base_rows, buf, global_prev, agg, srcs, dsts, roles, w_rows):
+    if not backend.is_cuda(q_rows, scales_rows, base_rows, buf, global_prev,
+                           agg):
+        _rows_lead(fleet, buf, srcs, _TIER)
+        return ref.safa_aggregate_q8_tier_rows_ref(
+            q_rows, scales_rows, base_rows, buf, global_prev, agg, srcs,
+            dsts, roles, w_rows)
+    lead, r, k, n = _check_rows_operands(fleet, buf, srcs, roles, w_rows,
+                                         global_prev, agg, _TIER)
+    dev = buf.device
+    backend.check_operand(dsts, 'dsts', torch.int32, lead + (k,), dev)
+    backend.check_operand(q_rows, 'q_rows', torch.int8, lead + (k, n), dev)
+    backend.check_operand(scales_rows, 'scales_rows', torch.float32,
+                          lead + (k, n // QBLOCK), dev)
+    backend.check_operand(base_rows, 'base_rows', torch.float32,
+                          lead + (k, n), dev)
+    new_global = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
+    new_agg = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
+    backend.call(entry, dev, q_rows.data_ptr(), scales_rows.data_ptr(),
+                 base_rows.data_ptr(), buf.data_ptr(),
+                 global_prev.data_ptr(), agg.data_ptr(), srcs.data_ptr(),
+                 dsts.data_ptr(), roles.data_ptr(), w_rows.data_ptr(),
+                 new_global.data_ptr(), new_agg.data_ptr(), *lead, r, k, n)
+    backend.LAUNCHES[key] += 1
+    return new_global, new_agg, buf
+
+
+def safa_aggregate_packed_tier_rows(buf, trained_rows, global_prev, agg,
+                                    srcs, dsts, roles, w_rows):
+    """Eq. 6-8 through the lag tier's slot maps, the cache write-back in
+    place, one launch.
+
+    buf: [C + 1, N] f32 tier value buffer (its last row the scratch
+    slot); trained_rows: [K, N] f32 (the committed slots' uploads, base
+    rows elsewhere; not overlapping buf); global_prev, agg: [N] f32;
+    srcs/dsts: [K] int32 buffer rows each slot reads its cache row c0 from
+    and writes its c2 to; roles: [K] uint8 ``protocol.ROLE_*`` bits;
+    w_rows: [K] f32.  Every slot reads before any slot writes, and the
+    last slot wins a shared destination, so the buffer comes out as
+    ``ref.safa_aggregate_tier_rows_ref`` leaves it; within a round the
+    schedule keeps the rows read apart from those written (the scratch row
+    apart), which the kernel relies on and does not check.  Returns
+    (new_global [N], new_agg [N], buf)."""
+    return _tier('safa_aggregate_packed_tier_rows',
+                 'safa_aggregate_tier_rows_f32', False, buf, trained_rows,
+                 global_prev, agg, srcs, dsts, roles, w_rows)
+
+
+def safa_aggregate_packed_tier_rows_fleet(buf, trained_rows, global_prev,
+                                          agg, srcs, dsts, roles, w_rows):
+    """Fleet form of ``safa_aggregate_packed_tier_rows``: buf
+    [S, C + 1, N], trained_rows [S, K, N], global_prev/agg [S, N],
+    srcs/dsts/roles/w_rows [S, K]; S servers in one launch, each member's
+    buffer written in place.  Returns (new_global [S, N], new_agg [S, N],
+    buf)."""
+    return _tier('safa_aggregate_packed_tier_rows_fleet',
+                 'safa_aggregate_tier_rows_fleet_f32', True, buf,
+                 trained_rows, global_prev, agg, srcs, dsts, roles, w_rows)
+
+
+def safa_aggregate_packed_q8_tier_rows(q_rows, scales_rows, base_rows, buf,
+                                       global_prev, agg, srcs, dsts, roles,
+                                       w_rows):
+    """The int8 wire's form of ``safa_aggregate_packed_tier_rows``: the K
+    slots' uploads arrive as q_rows [K, N] int8 and scales_rows
+    [K, N / QBLOCK] f32 and are dequantised in registers; slots that did
+    not commit take base_rows [K, N].  No local output.  Returns
+    (new_global [N], new_agg [N], buf)."""
+    return _q8_tier('safa_aggregate_packed_q8_tier_rows',
+                    'safa_aggregate_q8_tier_rows_f32', False, q_rows,
+                    scales_rows, base_rows, buf, global_prev, agg, srcs,
+                    dsts, roles, w_rows)
+
+
+def safa_aggregate_packed_q8_tier_rows_fleet(q_rows, scales_rows, base_rows,
+                                             buf, global_prev, agg, srcs,
+                                             dsts, roles, w_rows):
+    """Fleet form of ``safa_aggregate_packed_q8_tier_rows``: q_rows
+    [S, K, N] int8, scales_rows [S, K, N / QBLOCK], base_rows [S, K, N],
+    buf [S, C + 1, N], global_prev/agg [S, N], srcs/dsts/roles/w_rows
+    [S, K]; one launch.  Returns (new_global [S, N], new_agg [S, N],
+    buf)."""
+    return _q8_tier('safa_aggregate_packed_q8_tier_rows_fleet',
+                    'safa_aggregate_q8_tier_rows_fleet_f32', True, q_rows,
+                    scales_rows, base_rows, buf, global_prev, agg, srcs,
+                    dsts, roles, w_rows)

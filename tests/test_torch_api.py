@@ -163,18 +163,22 @@ def test_own_init_trains(quickstart):
     assert all(v == 0 for v in backend.LAUNCHES.values())
 
 
-# Sparse sweeps are ported: the ids that named them now name the cells
-# around them that stay unported (the lag tier on either engine, the
-# wire-derived comm model of a FedAvg sparse sweep's env).
+# The sparse schedules, sparse sweeps and the lag tier are ported: the ids
+# that named them now name the cells around them that stay unported (the
+# wire-derived comm model of a lag-tier run's or sweep's env).
 @pytest.mark.parametrize('spec,ex,env,item', [
     (tapi.SafaSpec(),
-     tapi.ExecSpec(engine='sequential', schedule='sparse_tier'), None, '12'),
+     tapi.ExecSpec(engine='sequential', schedule='sparse_tier'),
+     TEnvSpec(**QUICKSTART).replace(comm='wire'), '13'),
     (tapi.SafaSpec(),
      tapi.ExecSpec(engine='fleet', schedule='sparse_tier',
-                   use_kernel='packed'), None, '12'),
-    (tapi.SafaSpec(), tapi.ExecSpec(schedule='sparse_tier'), None, '12'),
-    (tapi.SafaSpec(), tapi.ExecSpec(engine='fleet', schedule='sparse_tier'),
-     None, '12'),
+                   use_kernel='packed'),
+     TEnvSpec(**QUICKSTART).replace(comm='wire'), '13'),
+    (tapi.SafaSpec(), tapi.ExecSpec(schedule='sparse_tier', wire='int8'),
+     TEnvSpec(**QUICKSTART).replace(comm='wire'), '13'),
+    (tapi.SafaSpec(),
+     tapi.ExecSpec(engine='fleet', schedule='sparse_tier', wire='int8'),
+     TEnvSpec(**QUICKSTART).replace(comm='wire'), '13'),
     (tapi.SafaSpec(quantize_uploads=True), tapi.ExecSpec(), None, '17'),
     (tapi.FedAvgSpec(), tapi.ExecSpec(engine='fleet', schedule='sparse'),
      TEnvSpec(**QUICKSTART).replace(comm='wire'), '13'),

@@ -11,9 +11,10 @@ selects, one multiply or one IEEE division, so they match exactly;
 new_global (of Eq. 6-8 and of the weighted merge) and the rows kernels'
 new_agg are sums taken in another order, held to rtol 1e-5 / atol 1e-6;
 gathered and scattered rows and the rows kernels' c2 and local rows are
-copies and selects, equal exactly.  A fleet kernel runs the single-run kernel's code on each member's
-slices, so it must equal the single-run kernel bit for bit on every
-member.
+copies and selects, equal exactly, and so is the whole value buffer the
+tier kernels write in place, its scratch row included.  A fleet kernel
+runs the single-run kernel's code on each member's slices, so it must
+equal the single-run kernel bit for bit on every member.
 """
 import dataclasses
 
@@ -32,8 +33,10 @@ from repro_torch.kernels.safa_aggregate import (
     safa_aggregate, safa_aggregate_fleet, safa_aggregate_packed,
     safa_aggregate_packed_fleet, safa_aggregate_packed_q8,
     safa_aggregate_packed_q8_fleet, safa_aggregate_packed_q8_rows,
-    safa_aggregate_packed_q8_rows_fleet, safa_aggregate_packed_rows,
-    safa_aggregate_packed_rows_fleet)
+    safa_aggregate_packed_q8_rows_fleet, safa_aggregate_packed_q8_tier_rows,
+    safa_aggregate_packed_q8_tier_rows_fleet, safa_aggregate_packed_rows,
+    safa_aggregate_packed_rows_fleet, safa_aggregate_packed_tier_rows,
+    safa_aggregate_packed_tier_rows_fleet)
 from repro_torch.kernels.weighted_merge import (weighted_merge_packed,
                                                 weighted_merge_packed_fleet)
 
@@ -826,6 +829,236 @@ def test_sparse_sweep_on_the_card(dev, cell):
             task, None, api.spec(name),
             api.ExecSpec(engine=engine, eval_every=1, **ex),
             rounds=rounds).compile().run_sweep(members)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in backend.LAUNCHES.items() if v}
+        if engine == 'fleet':
+            assert counts == {k + '_fleet': n * rounds
+                              for k, n in per_round.items()}
+        else:
+            assert counts == {k: n * rounds * len(members)
+                              for k, n in per_round.items()}
+    atol = 1e-4 if ex.get('wire') == 'int8' else 1e-5
+    for f, q in zip(hists['fleet'], hists['sequential']):
+        assert all(np.isfinite([e['loss'] for _, e in f.evals()]))
+        for k, v in q.final_global.items():
+            assert v.is_cuda
+            torch.testing.assert_close(f.final_global[k], v, rtol=0,
+                                       atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# The lag tier: the tier-rows kernels (19, 20) and their S-axis forms
+# ---------------------------------------------------------------------------
+
+#: (R = capacity + 1 buffer rows, K slots, N): a small buffer, the m = 1000
+#: quota-bounded shape, and more slots than one 256-slot chunk
+TIER_SHAPES = [(10, 8, 4096), (123, 124, 2048), (301, 300, 6144)]
+
+
+def _tier_case(r, k, n, dev, seed):
+    """Seeded tier operands laid out as a tier schedule lays out a round:
+    the real slots read rows of the lower half of the buffer (repeats
+    allowed) and write distinct rows of the upper half or the scratch row
+    r - 1 (several slots, so the last must win it); slots without a
+    cache role read the scratch row; three sentinel slots (role 0, weight
+    0) read and write the scratch row; the weights are data shares."""
+    rng = np.random.default_rng(seed)
+    cap = r - 1
+    real = max(2, k - 3)
+    live = cap // 2
+    roles = np.zeros(k, np.uint8)
+    roles[:real] = rng.integers(1, 32, real)
+    srcs = np.full(k, cap, np.int32)
+    dsts = np.full(k, cap, np.int32)
+    reads = (roles[:real] & (4 | 8 | 16)) != 0
+    srcs[:real] = np.where(reads, rng.integers(0, max(live, 1), real), cap)
+    n_w = min(real // 2, cap - live)
+    who = rng.choice(real, n_w, replace=False)
+    dsts[who] = live + rng.choice(cap - live, n_w, replace=False)
+    w = np.zeros(k)
+    w[:real] = rng.dirichlet(np.ones(real))
+    t = {'srcs': torch.as_tensor(srcs, device=dev),
+         'dsts': torch.as_tensor(dsts, device=dev),
+         'roles': torch.as_tensor(roles, device=dev),
+         'w': torch.as_tensor(w, dtype=torch.float32, device=dev)}
+    for name, shape in (('buf', (r, n)), ('trained', (k, n)),
+                        ('base', (k, n)), ('global_prev', (n,)),
+                        ('agg', (n,))):
+        t[name] = torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                                  device=dev)
+    assert int((dsts == cap).sum()) >= 2
+    return t
+
+
+def _tier_args(t, kernel, buf):
+    if kernel == 'tier':
+        return (buf, t['trained'], t['global_prev'], t['agg'], t['srcs'],
+                t['dsts'], t['roles'], t['w'])
+    q, sc = ref.quantize_packed_ref(t['trained'])
+    return (q, sc, t['base'], buf, t['global_prev'], t['agg'], t['srcs'],
+            t['dsts'], t['roles'], t['w'])
+
+
+TIER_KERNELS = {
+    'tier': (safa_aggregate_packed_tier_rows,
+             safa_aggregate_packed_tier_rows_fleet,
+             ref.safa_aggregate_tier_rows_ref),
+    'q8_tier': (safa_aggregate_packed_q8_tier_rows,
+                safa_aggregate_packed_q8_tier_rows_fleet,
+                ref.safa_aggregate_q8_tier_rows_ref)}
+
+
+@pytest.mark.parametrize('kernel', sorted(TIER_KERNELS))
+@pytest.mark.parametrize('r,k,n', TIER_SHAPES)
+def test_tier_rows_match_plain(dev, kernel, r, k, n):
+    """In place, the whole buffer (scratch row included) bit for bit the
+    plain version's, the same bits on every launch; new_global and
+    new_agg within rtol 1e-5 / atol 1e-6."""
+    single, _, plain = TIER_KERNELS[kernel]
+    t = _tier_case(r, k, n, dev, 7)
+    want = plain(*_tier_args(t, kernel, t['buf'].clone()))
+    outs = []
+    for _ in range(2):
+        buf = t['buf'].clone()
+        got = single(*_tier_args(t, kernel, buf))
+        torch.cuda.synchronize()
+        assert got[2] is buf
+        outs.append(got)
+    for got in outs:
+        assert torch.equal(got[2], want[2])
+        for g, w in zip(got[:2], want[:2]):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    assert backend.LAUNCHES['safa_aggregate_packed_' + kernel + '_rows'] == 2
+
+
+@pytest.mark.parametrize('kernel', sorted(TIER_KERNELS))
+@pytest.mark.parametrize('r,k,n', TIER_SHAPES)
+def test_tier_rows_fleet_match_plain_and_single_run(dev, kernel, r, k, n):
+    single, fleet, plain = TIER_KERNELS[kernel]
+    cases = [_tier_case(r, k, n, dev, 20 + i) for i in range(3)]
+    t = {name: torch.stack([c[name] for c in cases]) for name in cases[0]}
+    want = plain(*_tier_args(t, kernel, t['buf'].clone()))
+    buf = t['buf'].clone()
+    got = fleet(*_tier_args(t, kernel, buf))
+    torch.cuda.synchronize()
+    assert got[2] is buf
+    assert torch.equal(got[2], want[2])
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    args = _tier_args(t, kernel, t['buf'])
+    for i in range(3):
+        one = single(*(a[i].clone() if a is t['buf'] else a[i]
+                       for a in args))
+        for g, w in zip(got, one):
+            assert torch.equal(g[i], w), i
+    assert backend.LAUNCHES[
+        'safa_aggregate_packed_' + kernel + '_rows_fleet'] == 1
+
+
+def test_tier_kernels_refuse_bad_operands(dev):
+    t = _tier_case(10, 8, 2048, dev, 8)
+    with pytest.raises(TypeError, match='dsts'):
+        safa_aggregate_packed_tier_rows(
+            t['buf'], t['trained'], t['global_prev'], t['agg'], t['srcs'],
+            t['dsts'].long(), t['roles'], t['w'])
+    with pytest.raises(TypeError, match='srcs'):
+        safa_aggregate_packed_tier_rows(
+            t['buf'], t['trained'], t['global_prev'], t['agg'],
+            t['srcs'].long(), t['dsts'], t['roles'], t['w'])
+    with pytest.raises(ValueError, match='trained_rows'):
+        safa_aggregate_packed_tier_rows(
+            t['buf'], t['trained'][:4], t['global_prev'], t['agg'],
+            t['srcs'], t['dsts'], t['roles'], t['w'])
+    with pytest.raises(ValueError, match=r'buf \[S, R, N\]'):
+        safa_aggregate_packed_tier_rows_fleet(
+            t['buf'], t['trained'], t['global_prev'], t['agg'], t['srcs'],
+            t['dsts'], t['roles'], t['w'])
+    with pytest.raises(ValueError, match='contiguous'):
+        safa_aggregate_packed_tier_rows(
+            t['buf'].t().contiguous().t(), t['trained'], t['global_prev'],
+            t['agg'], t['srcs'], t['dsts'], t['roles'], t['w'])
+    assert all(v == 0 for v in backend.LAUNCHES.values())
+
+
+#: tier cell -> (exec fields, launches per round of a single run; a fleet
+#: launches the ``*_fleet`` forms as often)
+TIER_CELLS = {
+    'plain': ({}, {}),
+    'plain-int8': (dict(wire='int8'), {'quantize_packed': 1,
+                                       'dequantize_packed': 1}),
+    'packed': (dict(use_kernel='packed'),
+               {'gather_rows': 1, 'safa_aggregate_packed_tier_rows': 1}),
+    'packed-int8': (dict(use_kernel='packed', wire='int8'),
+                    {'gather_rows': 1, 'quantize_packed': 1,
+                     'safa_aggregate_packed_q8_tier_rows': 1}),
+}
+
+
+def _tier_spec():
+    from repro_torch.fedsim import EnvSpec
+    return EnvSpec(m=24, crash_prob=0.3, dataset_size=480, batch_size=10,
+                   epochs=1, t_lim=200.0, seed=3)
+
+
+@pytest.mark.parametrize('cell', sorted(TIER_CELLS))
+def test_tier_run_on_the_card(dev, cell):
+    """Lag-tier runs on the card through ``run()`` (scan and loop): each
+    kernel launches as often per round as the cell says; scan equals loop
+    bit for bit; the run ends within atol 1e-5 of the same cell's
+    ``'sparse_delta'`` run (1e-4 on the int8 wire)."""
+    from repro_torch import api
+    spec = _tier_spec()
+    task = _regression(spec)
+    ex, per_round = TIER_CELLS[cell]
+    rounds = 6
+    runs = {}
+    for engine in ('scan', 'loop'):
+        backend.reset_launches()
+        runs[engine] = api.Experiment(
+            task, spec, api.SafaSpec(fraction=0.3, lag_tolerance=2),
+            api.ExecSpec(engine=engine, eval_every=3, schedule='sparse_tier',
+                         **ex), rounds=rounds).compile().run()
+        torch.cuda.synchronize()
+        assert {k: v for k, v in backend.LAUNCHES.items() if v} == \
+            {k: n * rounds for k, n in per_round.items()}
+    for k, v in runs['scan'].final_global.items():
+        assert v.is_cuda and torch.equal(v, runs['loop'].final_global[k])
+    assert all(np.isfinite([e['loss'] for _, e in runs['scan'].evals()]))
+    delta = api.Experiment(task, spec,
+                           api.SafaSpec(fraction=0.3, lag_tolerance=2),
+                           api.ExecSpec(eval_every=3, schedule='sparse_delta',
+                                        **ex), rounds=rounds).compile().run()
+    atol = 1e-4 if ex.get('wire') == 'int8' else 1e-5
+    for k, v in delta.final_global.items():
+        torch.testing.assert_close(runs['scan'].final_global[k], v, rtol=0,
+                                   atol=atol)
+
+
+@pytest.mark.parametrize('cell', sorted(TIER_CELLS))
+def test_tier_sweep_on_the_card(dev, cell):
+    """Two-round lag-tier sweeps on the card, both engines: the fleet
+    launches each kernel's fleet form as often per round as the cell's
+    single run launches the single-run kernel, the sequential engine the
+    single-run kernels once per member; the two train in batches of
+    other sizes, so they are held to atol 1e-5 (1e-4 on the int8 wire)."""
+    from repro_torch import api
+    spec = _tier_spec()
+    task = _regression(spec)
+    ex, per_round = TIER_CELLS[cell]
+    members = [api.SweepMember(env=spec, fraction=f, lag_tolerance=tau,
+                               seed=i, overrides={'crash_prob': cr})
+               for i, (f, cr, tau) in enumerate(((0.3, 0.1, 3),
+                                                 (0.2, 0.5, 2),
+                                                 (0.4, 0.3, 4)))]
+    rounds = 2
+    hists = {}
+    for engine in ('fleet', 'sequential'):
+        backend.reset_launches()
+        hists[engine] = api.Experiment(
+            task, None, api.SafaSpec(),
+            api.ExecSpec(engine=engine, eval_every=1, schedule='sparse_tier',
+                         **ex), rounds=rounds).compile().run_sweep(members)
         torch.cuda.synchronize()
         counts = {k: v for k, v in backend.LAUNCHES.items() if v}
         if engine == 'fleet':

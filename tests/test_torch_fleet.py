@@ -584,15 +584,25 @@ def test_unported_sweep_cells_raise(reg, case):
         if case == 'checkpoint':
             _runner(tt).run_sweep(members, checkpoint='sweep.npz')
         elif case == 'sparse':
-            # sparse runs and sweeps are ported; the lag tier (item 12)
-            # stays refused on the fleet engine and on the sequential one
-            with pytest.raises(NotImplementedError, match='item 12 '):
+            # sparse sweeps and the lag tier are ported; a tier sweep's
+            # checkpoint (item 7) stays refused on both engines
+            with pytest.raises(NotImplementedError, match='item 7 '):
                 _runner(tt, schedule='sparse_tier',
-                        engine='fleet').run_sweep(members)
+                        engine='fleet').run_sweep(members,
+                                                  checkpoint='sweep.npz')
             _runner(tt, schedule='sparse_tier',
-                    engine='sequential').run_sweep(members)
+                    engine='sequential').run_sweep(members,
+                                                   checkpoint='sweep.npz')
         elif case == 'sparse_tier':
-            _runner(tt, schedule='sparse_tier').run_sweep(members)
+            # the lag tier is ported; a member env deriving its comm model
+            # from the wire (item 13) stays refused
+            wired = [tapi.SweepMember(env=TEnvSpec(**BASE),
+                                      overrides={'comm': 'wire'})]
+            with pytest.raises(NotImplementedError, match='item 13 '):
+                _runner(tt, schedule='sparse_tier',
+                        use_kernel='packed').run_sweep(wired)
+            _runner(tt, schedule='sparse_tier', engine='sequential',
+                    wire='int8').run_sweep(wired)
         elif case == 'comm_wire':
             wired = [tapi.SweepMember(env=TEnvSpec(**BASE),
                                       overrides={'comm': 'wire'})]

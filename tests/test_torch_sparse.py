@@ -186,10 +186,24 @@ def test_capacity_error_matches_reference():
 
 
 def test_sparse_tier_form_stays_unported():
-    with pytest.raises(NotImplementedError, match='item 12'):
-        tfed.precompute_safa_schedule(_env('torch'), fraction=0.3,
-                                      lag_tolerance=3, rounds=4,
-                                      form='sparse_tier')
+    """The name dates from before the lag tier was ported.  The tier form
+    is now the host precompute's third form (a ``TierSchedule`` whose
+    event stream is the sparse one); what stays unported around it is its
+    checkpoint (ROADMAP item 7), and an unknown form is still refused."""
+    tier = tfed.precompute_safa_schedule(_env('torch'), fraction=0.3,
+                                         lag_tolerance=3, rounds=4,
+                                         form='sparse_tier')
+    sparse = tfed.precompute_safa_schedule(_env('torch'), fraction=0.3,
+                                           lag_tolerance=3, rounds=4,
+                                           form='sparse')
+    assert isinstance(tier, tsched.TierSchedule)
+    np.testing.assert_array_equal(tier.idx, sparse.idx)
+    np.testing.assert_array_equal(tier.roles, sparse.roles)
+    exp = tapi.Experiment(None, TEnvSpec(**ENV), tapi.SafaSpec(),
+                          tapi.ExecSpec(schedule='sparse_tier'), rounds=4,
+                          device='cpu')
+    with pytest.raises(NotImplementedError, match='item 7 '):
+        exp.compile().run(checkpoint='tier.npz')
     with pytest.raises(ValueError, match='unknown form'):
         tfed.precompute_safa_schedule(_env('torch'), fraction=0.3,
                                       lag_tolerance=3, rounds=4,

@@ -658,12 +658,31 @@ def test_per_member_task_sparse_sweep_raises_reference_error(reg, schedule):
 
 @pytest.mark.parametrize('engine', ['fleet', 'sequential'])
 def test_sparse_tier_sweeps_still_name_item_12(reg, engine):
+    """The name dates from when lag-tier sweeps were refused under ROADMAP
+    item 12.  They are ported: a timing-only tier sweep gives the sparse
+    sweep's records, and the cells of a tier sweep that stay unported
+    (its checkpoint, item 7; a member env deriving its comm model from
+    the wire, item 13) name their items."""
     _, tt, _ = reg
-    with pytest.raises(NotImplementedError, match='item 12'):
-        tapi.Experiment(tt, None, tapi.SafaSpec(),
-                        tapi.ExecSpec(engine=engine, schedule='sparse_tier'),
-                        rounds=2, device='cpu').compile().run_sweep(
-            _members('torch'))
+    runner = tapi.Experiment(tt, None, tapi.SafaSpec(),
+                             tapi.ExecSpec(engine=engine,
+                                           schedule='sparse_tier'),
+                             rounds=2, device='cpu').compile()
+    with pytest.raises(NotImplementedError, match='item 7 '):
+        runner.run_sweep(_members('torch'), checkpoint='sweep.npz')
+    wired = [dataclasses.replace(mem, overrides={'comm': 'wire'})
+             for mem in _members('torch')]
+    with pytest.raises(NotImplementedError, match='item 13 '):
+        runner.run_sweep(wired)
+    timing = [tapi.Experiment(None, None, tapi.SafaSpec(),
+                              tapi.ExecSpec(engine=engine, schedule=s,
+                                            numeric=False),
+                              rounds=ROUNDS, device='cpu').compile()
+              .run_sweep(_members('torch'))
+              for s in ('sparse_tier', 'sparse')]
+    for a, b in zip(*timing):
+        assert _timing(a.records) == _timing(b.records)
+        assert a.futility == b.futility
 
 
 def test_timing_only_sparse_sweep_matches_dense_records():

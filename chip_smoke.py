@@ -46,6 +46,11 @@ Phases, each of which must pass:
              within 5e-7, every member of an S-axis launch bit for bit
              its single launch, timed on round 2 against the bytes its
              slot maps and roles need (no PyTorch call computes either).
+             The per-leaf reference's kernels 5 and 6 (``quantize``,
+             ``dequantize``) run on every row view of seeded [100, n]
+             stacks at the CNN's eight leaf sizes (10 to 313,600 values),
+             bit for bit against their plain versions, timed at n =
+             313,600 and n = 10 against the bytes a launch moves.
 3. main    — the paper's Task 2 CNN at full width (m = 100, 24 batches of
              40, 5 epochs) through ``Experiment(...).compile().run()``,
              with ``use_kernel='packed'`` and with ``wire='int8'``; each
@@ -53,6 +58,20 @@ Phases, each of which must pass:
              must be finite and below the initial model's.  A third run
              with the plain aggregation (``use_kernel=False``) is the
              reference the packed run's model is held to.
+3a. quantize_uploads — the per-leaf int8 reference
+             (``SafaSpec(quantize_uploads=True)``) on the same task at
+             full width, 3 rounds, deterministic cuDNN, evaluated every
+             round: with ``use_kernel='packed'`` and plain, beside the
+             ``wire='int8'`` run.  Each per-leaf run launches
+             ``quantize`` and ``dequantize`` rounds x 100 clients x 8
+             leaves times (and the packed run kernel 1 once a round); the
+             packed run must equal the int8 wire's bit for bit at every
+             eval and in its final model, and plain agree with packed
+             within one quantisation step of the largest weight (max |w|
+             / 127: the two sum in another order, and an int8 rounding
+             edge turns that into a step); every eval loss must fall.
+             Each run prints its per-round train, round-trip and
+             server-step seconds.
 4. fleet   — a 4-member sweep of the same task at full width through
              ``Experiment(...).compile().run_sweep(members)`` (crash rates
              0.1 / 0.3 / 0.5 / 0.7, seeds 0-3), in the same three runs:
@@ -622,6 +641,79 @@ def merge_kernel_phase(torch, n: int, fails: list) -> list:
         sum(merge_bytes(commit[s]) for s in range(S)),
         2 * (int(commit.sum()) + S) * n, S * 4 * ((M + 2) * n + M),
         library_ms=lib))
+    _print_records(recs)
+    return recs
+
+
+#: the Task 2 CNN's leaves in sorted-key order (b1, b2, c1, c2, f1, fb1,
+#: f2, fb2): the per-leaf path quantises each client's row of each
+CNN_LEAVES = (20, 50, 500, 25_000, 313_600, 128, 1280, 10)
+
+
+def leaf_bytes(n: int) -> int:
+    """Bytes one quantise (or dequantise) launch on an [n] vector moves:
+    the f32 values, the int8 values and the ceil(n / 128) f32 scales."""
+    return 5 * n + 4 * -(-n // 128)
+
+
+def leaf_kernel_phase(torch, fails: list) -> list:
+    """Kernels 5 and 6 (the per-leaf reference's quantise and dequantise)
+    on every row view of seeded [100, n] stacks at the CNN's eight leaf
+    sizes, as the per-leaf path hands them: bit for bit against their
+    plain versions; each timed at the largest leaf (f1, n = 313,600) and
+    the smallest (fb2, n = 10), where the launch and not the bytes sets
+    the time."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.comm_quant import dequantize, quantize
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bad, errs = [], {'quantize': 0.0, 'dequantize': 0.0}
+    stacks = {}
+    for n in CNN_LEAVES:
+        x = torch.randn((M, n), generator=gen, device=dev) * 0.1
+        x[0, :min(n, 128)] = 0.0          # an all-zero block
+        stacks[n] = x
+        for k in range(M):
+            want_q, want_s = ref.quantize_ref(x[k])
+            want_x = ref.dequantize_ref(want_q, want_s, n)
+            q, s = quantize(x[k])
+            back = dequantize(want_q, want_s, n=n)
+            if not (torch.equal(q, want_q) and torch.equal(s, want_s)
+                    and torch.equal(back, want_x)):
+                bad.append((n, k))
+            errs['quantize'] = max(
+                errs['quantize'], (q.int() - want_q.int()).abs().max().item(),
+                (s - want_s).abs().max().item())
+            errs['dequantize'] = max(errs['dequantize'],
+                                     (back - want_x).abs().max().item())
+    torch.cuda.synchronize()
+    print(f'leaf kernels: quantize and dequantize on {len(CNN_LEAVES)} leaf '
+          f'sizes x {M} row views, {len(bad)} rows differ from the plain '
+          f'versions')
+    if bad:
+        fails.append(f'leaf kernels differ from their plain versions at '
+                     f'(n, row) {bad[:8]}')
+    times = {}
+    for n in (313_600, 10):
+        row = stacks[n][M // 2 + 1]
+        qs = ref.quantize_ref(row)
+        for name, kernel, plain in (
+                ('quantize', lambda: quantize(row),
+                 lambda: ref.quantize_ref(row)),
+                ('dequantize', lambda: dequantize(*qs, n=n),
+                 lambda: ref.dequantize_ref(*qs, n))):
+            times[name, n] = (_time_ms(torch, kernel),
+                              _time_ms(torch, plain, warm=2, timed=10))
+            print(f'leaf kernel {name} at n = {n}: {times[name, n][0]} ms a '
+                  f'launch (plain {times[name, n][1]} ms), bound '
+                  f'{leaf_bytes(n) / PEAK_BYTES * 1e3} ms by bytes '
+                  f'({leaf_bytes(n)} B)')
+    n = 313_600
+    recs = [_record(name, 'src/repro_torch/csrc/comm_quant.cu',
+                    f'src/repro/kernels/comm_quant.py:{line}', errs[name],
+                    *times[name, n], leaf_bytes(n), ops, leaf_bytes(n))
+            for name, line, ops in (('quantize', 47, 3 * n),
+                                    ('dequantize', 57, n))]
     _print_records(recs)
     return recs
 
@@ -1341,6 +1433,103 @@ def main_path_phase(torch, spec, task, fails: list) -> dict:
     one = one_epoch(task)
     profile_train(torch, 'profile (one epoch)', lambda: one.local_train(
         protocol.broadcast_global(task.init_global(0), spec.m), 0))
+    return launches
+
+
+def quantize_uploads_phase(torch, spec, task, fails: list) -> dict:
+    """The per-leaf int8 reference (``SafaSpec(quantize_uploads=True)``)
+    on Task 2's CNN at full width through ``run()``: with
+    ``use_kernel='packed'`` and plain, beside the ``wire='int8'`` run it
+    is the ground truth of.  Trains with deterministic cuDNN, as the
+    weighted phase does, so that the packed run and the int8 wire train
+    the same bits; returns the launch counts of kernels 5 and 6 in the
+    packed run."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _quantize_uploads_runs(torch, spec, task, fails)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _quantize_uploads_runs(torch, spec, task, fails: list) -> dict:
+    from repro_torch import api
+    from repro_torch.core import federation, protocol
+    from repro_torch.kernels import backend
+
+    rounds = ROUNDS
+    init_loss = task.evaluate(task.init_global(0))['loss']
+    per_leaf = rounds * spec.m * len(CNN_LEAVES)
+    print(f'quantize_uploads: {_card_line()}; initial eval loss '
+          f'{init_loss:.6f}; rounds {rounds}; {per_leaf} launches of each '
+          f'leaf kernel expected')
+    runs = [('per-leaf packed', True, dict(use_kernel='packed'),
+             {'quantize': per_leaf, 'dequantize': per_leaf,
+              'safa_aggregate_packed': rounds}),
+            ('per-leaf plain', True, {},
+             {'quantize': per_leaf, 'dequantize': per_leaf}),
+            ('int8 wire', False, dict(wire='int8', use_kernel='packed'),
+             {'quantize_packed': rounds,
+              'safa_aggregate_packed_q8': rounds})]
+    wrap, server_step = federation._quantized_train_fn, \
+        protocol.safa_server_step
+    hists, launches = {}, {}
+    for name, knob, ex, want in runs:
+        exp = api.Experiment(task, spec,
+                             api.SafaSpec(fraction=0.3, lag_tolerance=5,
+                                          quantize_uploads=knob),
+                             api.ExecSpec(eval_every=1, **ex), rounds=rounds)
+        train_s, trip_s, server_s = [], [], []
+        task.local_train = _timed(torch, task.local_train, train_s)
+        federation._quantized_train_fn = \
+            lambda base: _timed(torch, wrap(base), trip_s)
+        protocol.safa_server_step = _timed(torch, server_step, server_s)
+        try:
+            backend.reset_launches()
+            t = time.perf_counter()
+            hist = exp.compile().run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            counts = {k: v for k, v in backend.LAUNCHES.items() if v}
+        finally:
+            federation._quantized_train_fn = wrap
+            protocol.safa_server_step = server_step
+            del task.local_train
+        trip = [round(a - b, 4) for a, b in zip(trip_s, train_s)]
+        print(f'quantize_uploads[{name}]: {wall:.2f} s for {rounds} rounds; '
+              f'per round train {[round(v, 4) for v in train_s]} s, round '
+              f'trip {trip or "none"} s, server step '
+              f'{[round(v, 4) for v in server_s]} s; launches {counts}')
+        if counts != want:
+            fails.append(f'quantize_uploads[{name}]: launches {counts}, '
+                         f'want {want}')
+        _check_losses(f'quantize_uploads[{name}]',
+                      [e['loss'] for _, e in hist.evals()], init_loss, fails)
+        hists[name] = hist
+        if name == 'per-leaf packed':
+            launches = {k: counts.get(k, 0)
+                        for k in ('quantize', 'dequantize')}
+    ref, wire = hists['per-leaf packed'], hists['int8 wire']
+    same = ref.evals() == wire.evals() and all(
+        torch.equal(v, wire.final_global[k])
+        for k, v in ref.final_global.items())
+    print(f'quantize_uploads: per-leaf packed vs int8 wire, every eval and '
+          f'final_global bit for bit: {same} (max abs diff '
+          f'{_max_diff(ref.final_global, wire.final_global):.3e})')
+    if not same:
+        fails.append('quantize_uploads: the per-leaf packed run differs from '
+                     'the int8 wire run')
+    # plain and packed sum the clients in another order; an int8 rounding
+    # edge turns that into a whole quantisation step of a weight, as the
+    # sparse phase holds its int8 pairs after two rounds
+    diff = _max_diff(hists['per-leaf plain'].final_global, ref.final_global)
+    step = max(v.abs().max().item() for v in ref.final_global.values()) / 127
+    print(f'quantize_uploads: per-leaf plain vs packed final_global max abs '
+          f'diff {diff:.3e}, one quantisation step (max |w| / 127) '
+          f'{step:.3e}')
+    if not diff <= step:
+        fails.append(f'quantize_uploads: per-leaf plain vs packed differ by '
+                     f'{diff:.3e}, beyond one quantisation step {step:.3e}')
     return launches
 
 
@@ -2414,7 +2603,8 @@ def main() -> int:
 
     fails = []
     n = ops.wire_spec(_cnn_init(torch.Generator().manual_seed(0))).n_padded
-    recs = (kernel_phase(torch, n, fails) + fleet_kernel_phase(torch, n, fails)
+    recs = (kernel_phase(torch, n, fails) + leaf_kernel_phase(torch, fails)
+            + fleet_kernel_phase(torch, n, fails)
             + merge_kernel_phase(torch, n, fails)
             + rows_kernel_phase(torch, n, fails)
             + rows_fleet_kernel_phase(torch, n, fails)
@@ -2424,6 +2614,8 @@ def main() -> int:
     spec, task = cnn_setup(torch)
     launches = main_path_phase(torch, spec, task, fails)
     lap('main')
+    launches.update(quantize_uploads_phase(torch, spec, task, fails))
+    lap('quantize_uploads')
     launches.update(fleet_path_phase(torch, spec, task, fails))
     lap('fleet')
     launches.update(baselines_phase(torch, spec, task, fails))

@@ -25,7 +25,9 @@ CSAFL) and ``wire`` 'f32'/'int8' (SAFA, FedAvg, FedCS, SEAFL, CSAFL);
 ``ExecSpec(numeric=False)`` gives the timing records alone.  SAFA,
 FedAvg and FedCS runs and sweeps also take the sparse active-set
 schedules, ``schedule='sparse'`` and ``'sparse_delta'``, and SAFA's take
-the lag-tier schedule, ``'sparse_tier'``.
+the lag-tier schedule, ``'sparse_tier'``.  A dense SAFA run also takes
+``SafaSpec(quantize_uploads=True)``, the per-leaf int8 reference of
+``wire='int8'`` (sweeps refuse it, as the JAX package's do).
 ``check_compat`` raises the JAX package's errors for the cells it
 refuses, and ``NotImplementedError``, naming the ROADMAP queue item, for
 every cell not ported yet.
@@ -71,8 +73,10 @@ __all__ = [
 class SafaSpec(ProtocolSpec):
     """SAFA (the paper's protocol): post-training CFCFM selection at
     quota C*m, Eq. 3 lag-tolerant distribution, Eq. 6-8 three-bypass
-    aggregation.  ``quantize_uploads`` (the per-leaf int8 reference of
-    ``wire='int8'``) is not ported yet."""
+    aggregation.  ``quantize_uploads`` is the per-leaf int8 reference
+    of ``wire='int8'``: each client's upload is quantised leaf by leaf
+    (two launches per leaf per client), bit for bit the numbers the
+    packed wire ships; single runs on the dense schedule only."""
     fraction: float = 0.5
     lag_tolerance: int = 5
     quantize_uploads: bool = False
@@ -363,9 +367,6 @@ def check_compat(protocol_spec: ProtocolSpec,
                 f'the leaf-wise kernel (use_kernel=True) has no rows form; '
                 f"schedule={ex.schedule!r} takes use_kernel=False or "
                 f"'packed'")
-    if quantize_uploads:
-        raise _not_ported('quantize_uploads=True',
-                          '17 (per-leaf int8 reference)')
     return pdef
 
 
@@ -971,6 +972,14 @@ class CompiledRunner:
         if self._pdef.finish_segment is not None:
             self._pdef.finish_segment(st, weights)
 
+    def _train_fn(self, task):
+        if self.exp.exec.schedule != 'dense':
+            # rows-train contract: (params_rows, rows, round_idx)
+            return task.local_train_rows
+        if getattr(self.exp.protocol, 'quantize_uploads', False):
+            return federation._quantized_train_fn(task.local_train)
+        return task.local_train
+
     def run(self, *, checkpoint: Optional[str] = None) -> History:
         """Execute the experiment: one segment per eval point, the global
         model evaluated at each."""
@@ -995,9 +1004,7 @@ class CompiledRunner:
                                   device=exp.device)
         if pdef.prepare_state is not None:
             pdef.prepare_state(st, weights, ex, sched)
-        # sparse schedules train through the rows-train contract
-        train_fn = exp.task.local_train if ex.schedule == 'dense' \
-            else exp.task.local_train_rows
+        train_fn = self._train_fn(exp.task)
         if engine == 'scan' and self._dev is None:
             self._dev = sched.to_device(exp.device)
         start = 0
@@ -1033,9 +1040,6 @@ class CompiledRunner:
         by member through the scan engine (a sparse member at its own
         active-set width, a lag-tier member at the fleet's width and
         capacity)."""
-        if checkpoint is not None:
-            raise _not_ported('run_sweep(checkpoint=)',
-                              '7 (checkpoint and resume)')
         exp, pdef = self.exp, self._pdef
         ex = exp.exec
         engine = self._engine(sweep=True)
@@ -1056,6 +1060,13 @@ class CompiledRunner:
             shared_task, tasks = tasks[0], None
         else:
             shared_task = exp.task
+        if getattr(exp.protocol, 'quantize_uploads', False):
+            raise ValueError(
+                'quantize_uploads is the single-run per-leaf reference '
+                "knob; sweeps take the packed wire instead (wire='int8')")
+        if checkpoint is not None:
+            raise _not_ported('run_sweep(checkpoint=)',
+                              '7 (checkpoint and resume)')
         for t in tasks or (shared_task,):
             _check_task_device(t, exp.device)
         if ex.schedule != 'dense' and tasks is not None:
@@ -1099,8 +1110,7 @@ class CompiledRunner:
                                       device=exp.device)
                 if pdef.prepare_state is not None:
                     pdef.prepare_state(st, w_s, ex, msched)
-                train_fn = task_of(s).local_train if ex.schedule == 'dense' \
-                    else task_of(s).local_train_rows
+                train_fn = self._train_fn(task_of(s))
                 start = 0
                 for stop in evals:
                     pdef.segment(st, dev.segment(start, stop), w_s,

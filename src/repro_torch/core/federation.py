@@ -17,6 +17,7 @@ import warnings
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core import protocol, schedules, selection
 from repro_torch.core.schedules import (FleetSchedule, LocalSchedule,
@@ -24,6 +25,7 @@ from repro_torch.core.schedules import (FleetSchedule, LocalSchedule,
                                         SweepMember, SyncFleetSchedule,
                                         SyncSchedule)
 from repro_torch.fedsim import Env
+from repro_torch.kernels.comm_quant import dequantize, quantize
 
 __all__ = ['FleetSchedule', 'LocalSchedule', 'PROTOCOLS', 'RUNNERS',
            'SweepMember', 'SyncFleetSchedule', 'SyncSchedule', 'Task',
@@ -582,6 +584,31 @@ def precompute_fedasync_schedule(env: Env, *, rounds: int,
 # ---------------------------------------------------------------------------
 # Legacy runner shims (DeprecationWarning; the spec spellings bit for bit)
 # ---------------------------------------------------------------------------
+
+def _quantized_train_fn(base_fn):
+    """int8-compressed uplink, per-leaf REFERENCE path (kernels 5 and 6):
+    each client quantises each leaf of its own update on its own, exactly
+    what a real compressed transfer carries, at 2 launches per leaf per
+    client (2 m L a round).  This is the bit-identity ground truth for
+    the packed wire (``wire='int8'``), which ships the same numbers in 2
+    launches a round, so the rows are not batched into fewer launches.
+
+    PyTorch runs eagerly and nothing retraces, so unlike the JAX
+    package's this wrapper is not memoised: a fresh closure per run costs
+    nothing."""
+    def train_fn(stacked, *args):
+        trained = base_fn(stacked, *args)
+
+        def per_leaf(x):
+            flat = x.reshape(x.shape[0], -1)
+            rows = [dequantize(*quantize(flat[k]), n=flat.shape[1])
+                    for k in range(flat.shape[0])]
+            return torch.stack(rows).reshape(x.shape)
+
+        return {k: per_leaf(v) for k, v in trained.items()}
+
+    return train_fn
+
 
 def _deprecated(name: str, spelling: str):
     # attribute the warning to the first frame outside this module, so

@@ -48,7 +48,8 @@ LAUNCHES = {'safa_aggregate': 0, 'safa_aggregate_packed': 0,
             'safa_aggregate_packed_tier_rows': 0,
             'safa_aggregate_packed_q8_tier_rows': 0,
             'safa_aggregate_packed_tier_rows_fleet': 0,
-            'safa_aggregate_packed_q8_tier_rows_fleet': 0}
+            'safa_aggregate_packed_q8_tier_rows_fleet': 0,
+            'quantize': 0, 'dequantize': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -90,6 +91,8 @@ _SIGNATURES = {
     'safa_aggregate_q8_tier_rows_fleet_f32': (_P, _P, _P, _P, _P, _P, _P,
                                               _P, _P, _P, _P, _P, _I, _I,
                                               _I, _L, _P),
+    'quantize_f32': (_P, _P, _P, _L, _P),
+    'dequantize_f32': (_P, _P, _P, _L, _P),
 }
 
 _lib = None

@@ -1,14 +1,19 @@
-"""Int8 per-block quantisation of packed upload buffers, and its inverse.
+"""Int8 per-block quantisation of upload values, and its inverse.
 
 The paper assumes models are compressed before transmission (§IV-A).  The
-int8 wire carries one f32 scale per ``QBLOCK`` values: ``quantize_packed``
-block-quantises a whole packed [m, N] upload buffer, each client row on
-its own; ``dequantize_packed`` turns (q, scales) back into f32 values, as
-the server of a protocol without a fused int8 aggregation receives them.
-Each has a fleet form (``*_fleet``) for a fleet's [S, m, N] buffer in one
-launch.  On CUDA tensors a wrapper launches its kernel of
-``csrc/comm_quant.cu``; on CPU tensors it runs the plain version in
-``kernels.ref``.
+int8 wire carries one f32 scale per ``QBLOCK`` values.  Two granularities,
+as in the JAX package:
+
+* ``quantize`` / ``dequantize`` — one flat [n] vector per call, any
+  n >= 1 (the last block may be partial): the per-leaf reference path
+  (``SafaSpec(quantize_uploads=True)``), two launches per leaf per client;
+* ``quantize_packed`` / ``dequantize_packed`` — a whole packed [m, N]
+  upload buffer, each client row on its own, in one launch: the wire of
+  ``ExecSpec(wire='int8')``.  Each has a fleet form (``*_fleet``) for a
+  fleet's [S, m, N] buffer in one launch.
+
+On CUDA tensors a wrapper launches its kernel of ``csrc/comm_quant.cu``;
+on CPU tensors it runs the plain version in ``kernels.ref``.
 """
 from __future__ import annotations
 
@@ -97,3 +102,50 @@ def dequantize_packed_fleet(q: torch.Tensor, scales: torch.Tensor):
     S * m rows)."""
     return _dequantize('dequantize_packed_fleet',
                        'dequantize_packed_fleet_f32', 3, q, scales)
+
+
+def _check_flat(t: torch.Tensor, name: str):
+    if t.ndim != 1 or t.shape[0] < 1:
+        raise ValueError(f'{name}: expected a flat [n] vector with n >= 1, '
+                         f'got shape {tuple(t.shape)}')
+
+
+def quantize(x: torch.Tensor):
+    """x: [n] f32, any n >= 1 -> (q [n] int8, scales [ceil(n / QBLOCK)]
+    f32), one kernel launch.  A row view of a larger tensor is taken as
+    it is (no copy): the kernel reads any 4-byte-aligned address."""
+    _check_flat(x, 'x')
+    if not backend.is_cuda(x):
+        return ref.quantize_ref(x)
+    n = x.shape[0]
+    backend.check_operand(x, 'x', torch.float32, (n,), x.device)
+    q = torch.empty(n, dtype=torch.int8, device=x.device)
+    scales = torch.empty(-(-n // QBLOCK), dtype=torch.float32,
+                         device=x.device)
+    backend.call('quantize_f32', x.device, x.data_ptr(), q.data_ptr(),
+                 scales.data_ptr(), n)
+    backend.LAUNCHES['quantize'] += 1
+    return q, scales
+
+
+def dequantize(q: torch.Tensor, scales: torch.Tensor, *, n: int):
+    """Inverse of ``quantize``; ``n`` is the original length: (q [n] int8,
+    scales [ceil(n / QBLOCK)] f32) -> x [n] f32, x = q * scale per block,
+    one kernel launch."""
+    _check_flat(q, 'q')
+    if q.shape[0] != n:
+        raise ValueError(f'q: expected {n} values, got {q.shape[0]}')
+    n_scales = -(-n // QBLOCK)
+    if tuple(scales.shape) != (n_scales,):
+        raise ValueError(f'scales: expected shape ({n_scales},) for n = {n}, '
+                         f'got {tuple(scales.shape)}')
+    if not backend.is_cuda(q, scales):
+        return ref.dequantize_ref(q, scales, n)
+    backend.check_operand(q, 'q', torch.int8, (n,), q.device)
+    backend.check_operand(scales, 'scales', torch.float32, (n_scales,),
+                          q.device)
+    x = torch.empty(n, dtype=torch.float32, device=q.device)
+    backend.call('dequantize_f32', q.device, q.data_ptr(), scales.data_ptr(),
+                 x.data_ptr(), n)
+    backend.LAUNCHES['dequantize'] += 1
+    return x

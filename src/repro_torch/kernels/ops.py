@@ -18,6 +18,9 @@ per round (``quantize_packed``, then ``safa_aggregate_packed_q8``).
 ``wire_roundtrip_packed`` is the int8 wire of the protocols without a
 fused int8 aggregation kernel (FedAvg, FedCS, the weighted-merge family):
 two launches per round (``quantize_packed``, then ``dequantize_packed``).
+``quantize_tree``/``dequantize_tree`` are the int8 wire leaf by leaf
+(``quantize``/``dequantize``: one launch per leaf each), the per-leaf
+reference ``SafaSpec(quantize_uploads=True)`` is written over.
 ``weighted_merge_tree_packed`` is the weighted-merge family's server
 merge: the model packed once, one ``weighted_merge_packed`` launch.
 The sparse schedules' packed engine works on the pack buffers directly,
@@ -37,10 +40,10 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.comm_quant import (PACK_TILE, QBLOCK,
+from repro_torch.kernels.comm_quant import (PACK_TILE, QBLOCK, dequantize,
                                             dequantize_packed,
                                             dequantize_packed_fleet,
-                                            quantize_packed,
+                                            quantize, quantize_packed,
                                             quantize_packed_fleet)
 from repro_torch.kernels.rows import (gather_rows, gather_rows_fleet,
                                      scatter_rows, scatter_rows_fleet)
@@ -56,8 +59,9 @@ from repro_torch.kernels.safa_aggregate import (
 from repro_torch.kernels.weighted_merge import (weighted_merge_packed,
                                                 weighted_merge_packed_fleet)
 
-__all__ = ['PackSpec', 'comm_bytes', 'gather_rows', 'gather_rows_fleet',
-           'pack_fleet', 'pack_global', 'pack_spec', 'pack_stacked',
+__all__ = ['PackSpec', 'comm_bytes', 'dequantize_tree', 'gather_rows',
+           'gather_rows_fleet', 'pack_fleet', 'pack_global', 'pack_spec',
+           'pack_stacked', 'quantize_tree',
            'safa_aggregate_packed_q8_rows',
            'safa_aggregate_packed_q8_rows_fleet',
            'safa_aggregate_packed_q8_tier_rows',
@@ -68,8 +72,8 @@ __all__ = ['PackSpec', 'comm_bytes', 'gather_rows', 'gather_rows_fleet',
            'safa_aggregate_tree', 'safa_aggregate_tree_fleet',
            'safa_aggregate_tree_packed', 'safa_aggregate_tree_packed_fleet',
            'safa_compressed_update', 'safa_compressed_update_fleet',
-           'scatter_rows', 'scatter_rows_fleet', 'tree_keys', 'unpack_fleet', 'unpack_global',
-           'unpack_stacked',
+           'scatter_rows', 'scatter_rows_fleet', 'tree_keys', 'unpack_fleet',
+           'unpack_global', 'unpack_stacked',
            'weighted_merge_packed', 'weighted_merge_packed_fleet',
            'weighted_merge_tree_packed', 'weighted_merge_tree_packed_fleet',
            'wire_roundtrip_packed', 'wire_roundtrip_packed_fleet',
@@ -375,6 +379,21 @@ def wire_roundtrip_packed_fleet(tree, like, spec: PackSpec = None):
     _require_f32(spec)
     q, scales = quantize_packed_fleet(pack_fleet(tree, spec))
     return unpack_fleet(dequantize_packed_fleet(q, scales), spec)
+
+
+def quantize_tree(tree: dict) -> dict:
+    """Quantise every leaf on its own, flattened, in sorted-key order:
+    key -> (q, scales), two tensors per leaf (for communication-compressed
+    uploads)."""
+    return {k: quantize(tree[k].reshape(-1)) for k in tree_keys(tree)}
+
+
+def dequantize_tree(qtree: dict, like: dict) -> dict:
+    """Inverse of ``quantize_tree``: each leaf back to ``like``'s shape and
+    dtype."""
+    return {k: dequantize(*qtree[k], n=like[k].numel())
+            .reshape(like[k].shape).to(like[k].dtype)
+            for k in tree_keys(like)}
 
 
 def comm_bytes(tree: dict, quantized: bool, *, layout: str = 'tree') -> int:

@@ -10,6 +10,7 @@ single-run result on member s's slices."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 QBLOCK = 128
 
@@ -48,6 +49,24 @@ def dequantize_packed_ref(q, scales, qblock: int = QBLOCK):
     *lead, n = q.shape
     x = q.float().reshape(*lead, n // qblock, qblock) * scales[..., None]
     return x.reshape(*lead, n)
+
+
+def quantize_ref(x, qblock: int = QBLOCK):
+    """Block-quantise a flat [n] vector, any n >= 1: returns (q [n] int8,
+    scales [ceil(n / qblock)] f32).  The last block may be partial; its
+    amax is taken over the values that exist (zero padding cannot raise
+    it), so it is ``quantize_packed_ref`` on the zero-padded vector, cut
+    back to n."""
+    n = x.shape[0]
+    q, scales = quantize_packed_ref(F.pad(x.float(), (0, (-n) % qblock)),
+                                    qblock)
+    return q[:n], scales
+
+
+def dequantize_ref(q, scales, n: int, qblock: int = QBLOCK):
+    """Inverse of ``quantize_ref``: q * scale per block, cut back to n."""
+    x = dequantize_packed_ref(F.pad(q, (0, (-n) % qblock)), scales, qblock)
+    return x[:n]
 
 
 def safa_aggregate_q8_ref(q, scales, base, cache, global_prev, picked,

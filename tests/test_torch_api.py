@@ -165,7 +165,8 @@ def test_own_init_trains(quickstart):
 
 # The sparse schedules, sparse sweeps and the lag tier are ported: the ids
 # that named them now name the cells around them that stay unported (the
-# wire-derived comm model of a lag-tier run's or sweep's env).
+# wire-derived comm model of a lag-tier run's or sweep's env, and of a
+# per-leaf int8 reference run's).
 @pytest.mark.parametrize('spec,ex,env,item', [
     (tapi.SafaSpec(),
      tapi.ExecSpec(engine='sequential', schedule='sparse_tier'),
@@ -179,7 +180,8 @@ def test_own_init_trains(quickstart):
     (tapi.SafaSpec(),
      tapi.ExecSpec(engine='fleet', schedule='sparse_tier', wire='int8'),
      TEnvSpec(**QUICKSTART).replace(comm='wire'), '13'),
-    (tapi.SafaSpec(quantize_uploads=True), tapi.ExecSpec(), None, '17'),
+    (tapi.SafaSpec(quantize_uploads=True), tapi.ExecSpec(engine='loop'),
+     TEnvSpec(**QUICKSTART).replace(comm='wire'), '13'),
     (tapi.FedAvgSpec(), tapi.ExecSpec(engine='fleet', schedule='sparse'),
      TEnvSpec(**QUICKSTART).replace(comm='wire'), '13'),
 ], ids=['sparse', 'sparse_delta', 'sparse_tier', 'fleet', 'quantize_uploads',

@@ -23,8 +23,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import backend, ref
-from repro_torch.kernels.comm_quant import (dequantize_packed,
-                                            dequantize_packed_fleet,
+from repro_torch.kernels.comm_quant import (dequantize, dequantize_packed,
+                                            dequantize_packed_fleet, quantize,
                                             quantize_packed,
                                             quantize_packed_fleet)
 from repro_torch.kernels.rows import (gather_rows, gather_rows_fleet,
@@ -1074,3 +1074,82 @@ def test_tier_sweep_on_the_card(dev, cell):
             assert v.is_cuda
             torch.testing.assert_close(f.final_global[k], v, rtol=0,
                                        atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# The per-leaf int8 reference: kernels 5 and 6 and quantize_uploads=True
+# ---------------------------------------------------------------------------
+
+#: leaf sizes: the block edges and the CNN's largest leaf (f1)
+LEAF_SIZES = [1, 10, 13, 127, 128, 129, 2047, 2048, 2049, 313_600]
+
+
+@pytest.mark.parametrize('n', LEAF_SIZES)
+def test_quantize_rows_match_plain(dev, n):
+    """Kernels 5 and 6 on row views of a [3, n] stack, as the per-leaf
+    path hands them: any n, base addresses 4-byte aligned only (row k
+    starts at byte 4 n k), the first block all zero (scale 1e-30 / 127)."""
+    rng = np.random.default_rng(n)
+    x = torch.as_tensor(rng.normal(size=(3, n)).astype(np.float32) * 3,
+                        device=dev)
+    x[0, :128] = 0.0
+    for k in range(3):
+        row = x[k]
+        want_q, want_s = ref.quantize_ref(row)
+        q, s = quantize(row)
+        got = dequantize(want_q, want_s, n=n)
+        torch.cuda.synchronize()
+        assert torch.equal(q, want_q)
+        assert torch.equal(s, want_s)
+        assert torch.equal(got, ref.dequantize_ref(want_q, want_s, n))
+    assert backend.LAUNCHES['quantize'] == 3
+    assert backend.LAUNCHES['dequantize'] == 3
+
+
+def test_quantize_kernels_refuse_bad_operands(dev):
+    x = torch.ones(300, device=dev)
+    with pytest.raises(TypeError, match='float32'):
+        quantize(x.double())
+    with pytest.raises(ValueError, match='contiguous'):
+        quantize(torch.ones(300, 2, device=dev)[:, 0])
+    q, s = quantize(x)
+    with pytest.raises(ValueError, match='mixed devices'):
+        dequantize(q, s.cpu(), n=300)
+    assert backend.LAUNCHES['quantize'] == 1
+    assert backend.LAUNCHES['dequantize'] == 0
+
+
+def test_quantize_uploads_run_on_the_card(dev):
+    """``SafaSpec(quantize_uploads=True)`` through ``run()`` on the card:
+    two launches per leaf per client per round (the regression model has
+    two leaves), and with ``use_kernel='packed'`` the ``wire='int8'``
+    run's numbers bit for bit on both engines."""
+    from repro_torch import api
+    from repro_torch.fedsim import EnvSpec
+    spec = EnvSpec(m=5, crash_prob=0.3, dataset_size=506, batch_size=5,
+                   epochs=3, t_lim=830.0, seed=3)
+    task = _regression(spec)
+    rounds = 4
+    hists = {}
+    for name, sp, ex, want in (
+            ('wire', api.SafaSpec(), dict(wire='int8'),
+             {'quantize_packed': rounds, 'safa_aggregate_packed_q8': rounds}),
+            ('scan', api.SafaSpec(quantize_uploads=True),
+             dict(use_kernel='packed'),
+             {'quantize': rounds * 5 * 2, 'dequantize': rounds * 5 * 2,
+              'safa_aggregate_packed': rounds}),
+            ('loop', api.SafaSpec(quantize_uploads=True),
+             dict(use_kernel='packed', engine='loop'),
+             {'quantize': rounds * 5 * 2, 'dequantize': rounds * 5 * 2,
+              'safa_aggregate_packed': rounds})):
+        backend.reset_launches()
+        hists[name] = api.Experiment(task, spec, sp,
+                                     api.ExecSpec(eval_every=2, **ex),
+                                     rounds=rounds).compile().run()
+        torch.cuda.synchronize()
+        assert {k: v for k, v in backend.LAUNCHES.items() if v} == want
+    for name in ('scan', 'loop'):
+        assert hists[name].evals() == hists['wire'].evals()
+        for k, v in hists['wire'].final_global.items():
+            assert torch.equal(hists[name].final_global[k], v), (name, k)
+

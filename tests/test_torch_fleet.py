@@ -608,5 +608,17 @@ def test_unported_sweep_cells_raise(reg, case):
                                       overrides={'comm': 'wire'})]
             _runner(tt).run_sweep(wired)
         else:
-            tapi.Experiment(tt, None, tapi.SafaSpec(quantize_uploads=True),
-                            rounds=2, device='cpu')
+            # the per-leaf int8 reference runs; sweeps refuse it with the
+            # reference's ValueError, even with a checkpoint, as the
+            # reference does.  Its checkpoint (item 7) and an env deriving
+            # its comm model from the wire (item 13) stay unported
+            knob = tapi.Experiment(tt, TEnvSpec(**BASE),
+                                   tapi.SafaSpec(quantize_uploads=True),
+                                   rounds=2, device='cpu')
+            with pytest.raises(ValueError, match='single-run per-leaf'):
+                knob.compile().run_sweep(members, checkpoint='sweep.npz')
+            with pytest.raises(NotImplementedError, match='item 7 '):
+                knob.compile().run(checkpoint='run.npz')
+            tapi.Experiment(tt, TEnvSpec(**BASE).replace(comm='wire'),
+                            tapi.SafaSpec(quantize_uploads=True), rounds=2,
+                            device='cpu')

@@ -161,6 +161,27 @@ Phases, each of which must pass:
              m = 10,000.  Each run prints its K, tier capacity, per-round
              train and server-step seconds, launches and peak device
              memory, beside ``'sparse_delta'`` packed at m = 1000.
+10. attention — kernel 21 (``swa_attention``, ``csrc/swa_attention.cu``)
+             against its plain version at h2o-danube-3-4b's bulk-prefill
+             shape (B 1, S 8192, 32 heads over 8 KV heads, head_dim 120,
+             window 4096) and at odd shapes (ragged S, one KV head, D 8
+             to 256, no window), f32 within 2e-5 and bf16 within 3e-2;
+             timed at the prefill shape in bf16 beside the plain version
+             and ``scaled_dot_product_attention`` with a band mask (its
+             backend printed), against its bound: the band's
+             4 D flops a (query, key) pair at the bf16 tensor-core rate.
+11. serve  — h2o-danube-3-4b at full width and depth (3,961,839,360
+             parameters, bf16, random init on the card): ``prefill_step``
+             on B 1 x S 8192 tokens with ``attn_impl='pallas'`` must
+             launch kernel 21 once per layer and give the ``'flash_jnp'``
+             path's next tokens, its logits within ``PREFILL_GAP``; the
+             teacher-forced ``Model.prefill`` within ``TEACHER_TOL`` of
+             ``forward_logits`` on 64 tokens; greedy decode through
+             ``serve_step``; ``serve.run`` at the JAX CLI's defaults (4 x
+             32 prompt tokens, 16 generated) must give that decode's
+             tokens.  Prints seconds per prefill and its attention share,
+             decode tokens/s, peak device memory and a profile of one
+             prefill and one decode step.  bf16 products reduce in f32.
 
 The line before the last is a JSON object of kernel records; the last
 line is ``{"ok": true, "device": {...}}``.  Without a visible card, or
@@ -194,6 +215,26 @@ WARM, TIMED = 5, 30     # kernel launches before and inside the timed window
 #: CUDA-core rate (FLOP/s), at its 700 W limit; the card's name and power
 #: limit are printed beside every number
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
+#: its dense bf16 tensor-core rate (FLOP/s): attention's bound on bf16 inputs
+PEAK_BF16_FLOPS = 989e12
+ARCH = 'h2o-danube-3-4b'   # the one configuration with a sliding window
+#: the bulk prefill's shape, cut from INPUT_SHAPES['prefill_32k'] (B 32,
+#: S 32,768, whose bf16 logits alone would take 67 GB)
+PREFILL_B, PREFILL_S = 1, 8192
+SERVE = dict(batch=4, prompt_len=32, gen=16)   # the JAX CLI's defaults
+TEACHER_LEN = 64        # the teacher-forced prefill's prompt
+#: bounds at full width in bf16 (24 layers of bf16 rounding, in another
+#: order on each side): the largest |logit| gap of the bulk prefill's
+#: kernel path against 'flash_jnp', and of the teacher-forced decode-step
+#: prefill against forward_logits
+PREFILL_GAP, TEACHER_TOL = 0.25, 0.25
+#: kernel 21's odd shapes (B, S, H, KH, D, window): the JAX package's
+#: test shapes, ragged S, one KV head, every D the models use, D = 256
+ATTN_ODD = ((1, 64, 2, 2, 16, None), (2, 100, 4, 2, 32, 17),
+            (1, 33, 4, 1, 16, 8), (1, 128, 2, 2, 64, 32),
+            (1, 100, 4, 1, 128, None), (2, 300, 8, 2, 120, 50),
+            (1, 70, 2, 1, 256, 33), (1, 1, 4, 2, 64, None),
+            (1, 200, 4, 4, 8, 1))
 
 
 def _card_line() -> str:
@@ -223,8 +264,8 @@ def _time_ms(torch, fn, warm=WARM, timed=TIMED) -> float:
 
 
 def _record(name, source, replaces, err, ms, plain_ms, nbytes, flops,
-            dense_bytes, library_ms=None):
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
+            dense_bytes, library_ms=None, peak_flops=PEAK_FLOPS):
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak_flops * 1e3
     return {'name': name, 'route': 'cuda', 'source': source,
             'replaces': replaces, 'launches': None, 'max_abs_err': err,
             'ms': ms, 'plain_ms': plain_ms, 'bound_ms': max(t_bytes, t_ops),
@@ -2521,6 +2562,258 @@ def _weighted_runs(torch, spec, task, fails: list) -> dict:
     return launches
 
 
+def band_pairs(S: int, window) -> int:
+    """(query, key) pairs of one head's causal band: sum over i < S of
+    min(i + 1, window)."""
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def attention_kernel_phase(torch, fails: list) -> list:
+    """Kernel 21 (``swa_attention``) against its plain version on the card:
+    at the bulk prefill's shape (h2o-danube-3-4b: B = 1, S = 8192, 32
+    heads over 8 KV heads, head_dim 120, window 4096) and at odd shapes,
+    f32 and bf16; f32 within 2e-5 and bf16 within 3e-2 of the plain
+    version computed in f32 from the same inputs (the JAX package's
+    tolerances, ``tests/test_kernels.py``).  Timed at the prefill shape in
+    bf16 beside the plain version and ``scaled_dot_product_attention``
+    with a boolean band mask (``enable_gqa=True``; timed only)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.swa_attention import swa_attention
+
+    cfg = get_config(ARCH)
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev)
+    main = (PREFILL_B, PREFILL_S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.window)
+    errs = {}
+    for B, S, H, KH, D, win in (main,) + ATTN_ODD:
+        gen.manual_seed(S + (win or 0))
+        qkv = [torch.randn((B, S, h, D), generator=gen, device=dev)
+               for h in (H, KH, KH)]
+        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
+            q, k, v = (t.to(dtype) for t in qkv)
+            out = swa_attention(q, k, v, window=win)
+            want = ref.swa_attention_ref(q.float(), k.float(), v.float(),
+                                         window=win)
+            torch.cuda.synchronize()
+            err = (out.float() - want).abs().max().item()
+            errs[(B, S, H, KH, D, win, str(dtype))] = err
+            if not (out.dtype == dtype and err <= tol):
+                fails.append(f'swa_attention {(B, S, H, KH, D, win)} '
+                             f'{dtype}: max abs err {err:.3e} (tolerance '
+                             f'{tol}), dtype {out.dtype}')
+            del out, want
+    for key, err in errs.items():
+        print(f'attention: {key} max abs err vs plain {err:.3e}')
+
+    B, S, H, KH, D, win = main
+    gen.manual_seed(0)
+    q = torch.randn((B, S, H, D), generator=gen, device=dev).bfloat16()
+    k = torch.randn((B, S, KH, D), generator=gen, device=dev).bfloat16()
+    v = torch.randn((B, S, KH, D), generator=gen, device=dev).bfloat16()
+    ms = _time_ms(torch, lambda: swa_attention(q, k, v, window=win), 2, 10)
+    plain = _time_ms(torch, lambda: ref.swa_attention_ref(q, k, v,
+                                                          window=win), 1, 3)
+    pos = torch.arange(S, device=dev)
+    band = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :]
+                                             < win)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
+                                              enable_gqa=True)
+    try:
+        from torch.nn.attention import SDPBackend
+        backend_name = SDPBackend(torch._fused_sdp_choice(
+            qt, kt, vt, attn_mask=band, enable_gqa=True)).name
+    except Exception as e:  # noqa: BLE001 - a private API: report only
+        backend_name = f'not known ({e!r})'
+    lib = _time_ms(torch, sdpa, 2, 10)
+    lib_err = (sdpa().transpose(1, 2).float() - ref.swa_attention_ref(
+        q, k, v, window=win).float()).abs().max().item()
+    pairs = band_pairs(S, win) * B * H
+    flops = 4 * D * pairs
+    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * KH * D)
+    rec = _record('swa_attention', 'src/repro_torch/csrc/swa_attention.cu',
+                  'src/repro/kernels/swa_attention.py:45', errs[
+                      (B, S, H, KH, D, win, str(torch.bfloat16))],
+                  ms, plain, nbytes, flops, nbytes, library_ms=lib,
+                  peak_flops=PEAK_BF16_FLOPS)
+    print(f'kernel swa_attention (B {B}, S {S}, H {H}, KH {KH}, D {D}, '
+          f'window {win}, bf16): {ms} ms (plain {plain} ms, '
+          f'scaled_dot_product_attention {lib} ms on the {backend_name} '
+          f'backend, max abs diff to plain {lib_err:.3e}); bound '
+          f'{rec["bound_ms"]} ms by {rec["bound_by"]} ({pairs} band '
+          f'pairs, {flops / 1e9:.1f} GFLOP at {PEAK_BF16_FLOPS / 1e12:.0f} '
+          f'TFLOP/s; {nbytes / 1e6:.1f} MB at {PEAK_BYTES / 1e12} TB/s); '
+          f'{flops / ms / 1e9:.1f} TFLOP/s achieved')
+    return [rec]
+
+
+def serve_phase(torch, attn_ms: float, fails: list) -> dict:
+    """h2o-danube-3-4b at full width and depth (24 layers, d_model 3840,
+    32/8 heads, head_dim 120, bf16), random init on the card, through the
+    port's serving entry points: ``ServeSetup.prefill_step`` (bulk
+    prefill) with ``attn_impl='pallas'`` against ``'flash_jnp'``, the
+    teacher-forced ``Model.prefill`` against ``forward_logits``, greedy
+    decode through ``ServeSetup.serve_step``, then ``serve.run`` at the
+    JAX CLI's defaults.  Returns the launches of kernel 21 in the prefill
+    step.  Deterministic settings: TF32 off (PyTorch's default) and bf16
+    products reduced in f32 (``allow_bf16_reduced_precision_reduction =
+    False``), as the reference accumulates."""
+    matmul = torch.backends.cuda.matmul
+    reduced = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        return _serve_runs(torch, attn_ms, fails)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+
+
+def _serve_runs(torch, attn_ms: float, fails: list) -> dict:
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import backend
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import model as model_mod
+
+    dev = torch.device('cuda')
+    cfg = get_config(ARCH)
+    flash = model_mod.build_model(cfg)
+    kern = model_mod.build_model(dataclasses.replace(cfg, attn_impl='pallas'))
+    n = kern.n_params()
+    print(f'serve: {ARCH} {cfg.n_layers} layers, d_model {cfg.d_model}, '
+          f'{cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim {cfg.head_dim}, '
+          f'd_ff {cfg.d_ff}, window {cfg.window}, {cfg.dtype}: {n:,} '
+          f'parameters')
+    if n != 3_961_839_360:
+        fails.append(f'serve: {n} parameters, want 3,961,839,360')
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    params = kern.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    print(f'serve: init on the card {time.perf_counter() - t:.2f} s, '
+          f'{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated')
+
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
+                           generator=torch.Generator().manual_seed(1))
+    batch = {'tokens': tokens.to(dev)}
+    setup = steps.ServeSetup(kern)
+    backend.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    nxt = setup.prefill_step(params, batch)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t
+    counts = dict(backend.LAUNCHES)
+    launches = {'swa_attention': counts['swa_attention']}
+    others = {k: c for k, c in counts.items() if c and k != 'swa_attention'}
+    if counts['swa_attention'] != cfg.n_layers or others:
+        fails.append(f'serve: prefill_step launched swa_attention '
+                     f'{counts["swa_attention"]} times (want '
+                     f'{cfg.n_layers}), others {others}')
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        setup.prefill_step(params, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    profile_train(torch, 'serve profile (one prefill_step, pallas)',
+                  lambda: setup.prefill_step(params, batch))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    nxt_flash = steps.ServeSetup(flash).prefill_step(params, batch)
+    torch.cuda.synchronize()
+    flash_s = time.perf_counter() - t
+    share = cfg.n_layers * attn_ms / 1e3 / min(secs)
+    print(f'serve: prefill_step [{PREFILL_B}, {PREFILL_S}] pallas '
+          f'(kernel 21): first {first:.4f} s, then {[round(s, 4) for s in secs]} '
+          f's ({PREFILL_B * PREFILL_S / min(secs):.0f} tokens/s); kernel 21 '
+          f'{cfg.n_layers} x {attn_ms:.3f} ms = {share:.1%} of it; '
+          f'flash_jnp {flash_s:.4f} s; next tokens {nxt.tolist()} / '
+          f'{nxt_flash.tolist()}')
+    if not torch.equal(nxt, nxt_flash):
+        fails.append(f'serve: prefill_step next tokens {nxt.tolist()} '
+                     f'(pallas) != {nxt_flash.tolist()} (flash_jnp)')
+
+    lk = kern.logits(params, batch)[0].float()
+    lf = flash.logits(params, batch)[0].float()
+    gap = (lk - lf).abs().max().item()
+    last = lk[:, -1, :cfg.vocab_size].topk(2).values
+    print(f'serve: logits pallas vs flash_jnp max abs gap {gap:.4e} over '
+          f'{lk.numel():,} (bound {PREFILL_GAP}; largest |logit| '
+          f'{lf.abs().max().item():.3f}; last row top-2 margin '
+          f'{(last[:, 0] - last[:, 1]).tolist()})')
+    if not (torch.isfinite(lk).all() and gap <= PREFILL_GAP):
+        fails.append(f'serve: pallas vs flash_jnp logits gap {gap:.4e} '
+                     f'(bound {PREFILL_GAP}) or not finite')
+    del lk, lf
+
+    prompt = batch['tokens'][:, :TEACHER_LEN]
+    cache = kern.init_cache(PREFILL_B, TEACHER_LEN, device=dev)
+    _, step = kern.prefill(params, cache, prompt)
+    for label, model in (('flash_jnp', flash), ('pallas', kern)):
+        full = model.logits(params, {'tokens': prompt})[0].float()
+        diff = (step.float() - full).abs().max().item()
+        print(f'serve: teacher-forced Model.prefill vs forward_logits '
+              f'({label}) on {TEACHER_LEN} tokens: max abs diff {diff:.4e} '
+              f'(tolerance {TEACHER_TOL})')
+        if not diff <= TEACHER_TOL:
+            fails.append(f'serve: teacher-forced prefill vs forward_logits '
+                         f'({label}) {diff:.4e} > {TEACHER_TOL}')
+    del cache, step, full
+
+    # greedy decode through ServeSetup.serve_step on serve.run's params
+    # (the same seed and draws) and prompts, to hold serve.run to
+    B, P, G = SERVE['batch'], SERVE['prompt_len'], SERVE['gen']
+    prompts = torch.randint(0, cfg.vocab_size, (B, P),
+                            generator=torch.Generator().manual_seed(0))
+    cache = kern.init_cache(B, P + G, device=dev)
+    cache, logits = kern.prefill(params, cache, prompts.to(dev))
+    tok = logits[:, -1].argmax(-1)
+    greedy = [tok]
+    for _ in range(G - 1):
+        cache, tok = setup.serve_step(params, cache, tok[:, None])
+        greedy.append(tok)
+    greedy = torch.stack(greedy, dim=1)
+    profile_train(torch, 'serve profile (one serve_step, B 4)',
+                  lambda: setup.serve_step(params, cache, tok[:, None]))
+    del params, cache, logits, batch
+    torch.cuda.empty_cache()
+
+    pre_s, dec_s = [], []
+    orig = model_mod.Model.prefill, model_mod.Model.decode_step
+    model_mod.Model.prefill = _timed(torch, orig[0], pre_s)
+    model_mod.Model.decode_step = _timed(torch, orig[1], dec_s)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t = time.perf_counter()
+        toks = serve.run(ARCH, full_size=True, **SERVE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        model_mod.Model.prefill, model_mod.Model.decode_step = orig
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f'serve: serve.run({ARCH!r}, full_size=True, {SERVE}): {wall:.2f} '
+          f's wall; prefill {B}x{P} tokens {sum(pre_s):.4f} s '
+          f'({B * P / sum(pre_s):.1f} tokens/s); decode {B}x{G - 1} tokens '
+          f'{sum(dec_s):.4f} s ({B * (G - 1) / sum(dec_s):.1f} tokens/s, '
+          f'{sum(dec_s) / len(dec_s) * 1e3:.2f} ms a step); peak device '
+          f'memory {peak:.3f} GiB; ids {toks[0].tolist()}')
+    if not (tuple(toks.shape) == (B, G) and torch.equal(toks, greedy)
+            and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size):
+        fails.append(f'serve: serve.run tokens {toks.tolist()} are not the '
+                     f'serve_step greedy decode {greedy.tolist()}')
+    return launches
+
+
 def one_epoch(task):
     """A shallow copy of ``task`` that trains one epoch of its five: the
     profiles' window.  A whole fleet train call launches ~350,000 device
@@ -2533,8 +2826,8 @@ def one_epoch(task):
 
 
 def profile_train(torch, label, train, top=6):
-    """Where one round's local training spends the device: torch.profiler
-    over one ``train()`` call.  Device kernels are deduplicated by
+    """Where one call spends the device (one round's local training, a
+    serving step): torch.profiler over one ``train()`` call.  Device kernels are deduplicated by
     (name, start, end); the busy share is the union of their intervals
     over the call's wall time, so kernels that overlap count once.  A
     measurement only: a profiler that cannot trace the card leaves the
@@ -2564,7 +2857,7 @@ def profile_train(torch, label, train, top=6):
         tot, n = by_name.get(name, (0.0, 0))
         by_name[name] = (tot + stop - start, n + 1)
     summed = sum(tot for tot, _ in by_name.values()) / 1e6
-    print(f'{label}: one train call {wall:.3f} s wall; device busy '
+    print(f'{label}: one call {wall:.3f} s wall; device busy '
           f'{busy / 1e6:.3f} s ({busy / 1e6 / wall:.1%}) as the union of '
           f'{len(spans)} kernels ({summed:.3f} s summed), '
           f'{len(by_name)} kernel names')
@@ -2630,6 +2923,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches.update(tier_phase(torch, fails))
     lap('tier')
+    attn = attention_kernel_phase(torch, fails)
+    recs += attn
+    torch.cuda.empty_cache()
+    lap('attention kernel')
+    launches.update(serve_phase(torch, attn[0]['ms'], fails))
+    lap('serve')
     for r in recs:
         r['launches'] = launches.get(r['name'], 0)
         del r['bytes'], r['flops'], r['dense_bytes']

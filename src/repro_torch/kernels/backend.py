@@ -49,11 +49,12 @@ LAUNCHES = {'safa_aggregate': 0, 'safa_aggregate_packed': 0,
             'safa_aggregate_packed_q8_tier_rows': 0,
             'safa_aggregate_packed_tier_rows_fleet': 0,
             'safa_aggregate_packed_q8_tier_rows_fleet': 0,
-            'quantize': 0, 'dequantize': 0}
+            'quantize': 0, 'dequantize': 0, 'swa_attention': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 #: C entry points of the library and their argument types (every pointer,
 #: and the stream, as c_void_p: a bare int would be cut to 32 bits).
 _SIGNATURES = {
@@ -93,6 +94,8 @@ _SIGNATURES = {
                                               _I, _L, _P),
     'quantize_f32': (_P, _P, _P, _L, _P),
     'dequantize_f32': (_P, _P, _P, _L, _P),
+    'swa_attention_f32': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    'swa_attention_bf16': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 _lib = None

@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.attention import attention_ref
+
 QBLOCK = 128
 
 
@@ -214,3 +216,9 @@ def safa_aggregate_q8_tier_rows_ref(q, scales, base_rows, buf, global_prev,
     tr = torch.where(done, dequantize_packed_ref(q, scales), base_rows)
     return safa_aggregate_tier_rows_ref(buf, tr, global_prev, agg, srcs,
                                         dsts, roles, w_rows)
+
+
+def swa_attention_ref(q, k, v, *, window=None):
+    """Causal (+window) attention oracle, the naive O(S^2) path: kernel
+    21's plain version.  q: [B, S, H, D]; k, v: [B, S, KH, D]."""
+    return attention_ref(q, k, v, causal=True, window=window)

@@ -1,0 +1,110 @@
+"""Parameter initialisers, RMSNorm and RoPE of the model path.
+
+Parameters are nested dicts of tensors, as the JAX package's unboxed
+trees are; the logical-axes boxes (``Box``/``unbox``/``abstract_init``)
+belong to sharding, which is not ported yet.  An initialiser draws on a
+``torch.Generator`` on the parameter's device; given ``generator=None``,
+``param`` returns a tensor on the ``meta`` device (shape and dtype, no
+storage), which is how ``Model.n_params`` counts without allocating.
+"""
+from __future__ import annotations
+
+import itertools
+import math
+
+import torch
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+
+
+def _trunc_normal(generator, shape, dtype, stddev, device):
+    """``stddev * truncated_normal(-2, 2)`` drawn in f32, then cast, as the
+    reference draws it.  ``trunc_normal_``'s bounds are absolute, so they
+    are ``±2 * stddev`` here."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, mean=0.0, std=stddev, a=-2.0 * stddev,
+                                b=2.0 * stddev, generator=generator)
+    return t.to(dtype)
+
+
+def dense_init(generator, shape, dtype, device):
+    """LeCun-normal style init: stddev = 1/sqrt(fan_in), fan_in = shape[0]."""
+    return _trunc_normal(generator, shape, dtype,
+                         1.0 / math.sqrt(max(1, shape[0])), device)
+
+
+def embed_init(generator, shape, dtype, device):
+    return _trunc_normal(generator, shape, dtype, 1.0, device)
+
+
+def zeros_init(generator, shape, dtype, device):  # noqa: ARG001
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def ones_init(generator, shape, dtype, device):  # noqa: ARG001
+    return torch.ones(shape, dtype=dtype, device=device)
+
+
+def param(generator, shape, dtype=torch.float32, init=dense_init, lead=()):
+    """One parameter of ``shape`` with ``lead`` stacked axes in front (the
+    layers' ``[L, ...]``), each layer drawn on its own, so a stacked dense
+    weight's fan-in is the layer's.  ``generator=None`` gives a ``meta``
+    tensor."""
+    shape = tuple(int(s) for s in shape)
+    lead = tuple(int(s) for s in lead)
+    if generator is None:
+        return torch.empty(lead + shape, dtype=dtype, device='meta')
+    if not lead:
+        return init(generator, shape, dtype, generator.device)
+    # one layer at a time: the f32 draw of a whole stack (3.8 GB for
+    # h2o-danube-3-4b's w_up) would outweigh the bf16 model it fills
+    out = torch.empty(lead + shape, dtype=dtype, device=generator.device)
+    for i in itertools.product(*map(range, lead)):
+        out[i] = init(generator, shape, dtype, generator.device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, scale, eps=1e-6):
+    """RMSNorm with (1 + scale) gain, computed in f32 and cast back to x's
+    dtype.  Forward only: the reference's custom VJP serves training."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    r = torch.rsqrt(var + eps)
+    return (xf * r * (1.0 + scale.float())).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float = 10000.0, device=None):
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / (theta ** exponent)  # [head_dim/2]
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: [..., seq, heads, head_dim]; positions: [..., seq] int32.  Split
+    halves (not interleaved pairs), computed in f32, cast back."""
+    head_dim = x.shape[-1]
+    freqs = rope_freqs(head_dim, theta, device=x.device)        # [hd/2]
+    angles = positions[..., :, None].float() * freqs            # [..., s, hd/2]
+    angles = angles[..., :, None, :]                            # [..., s, 1, hd/2]
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Misc
+# ---------------------------------------------------------------------------
+
+def pad_vocab(vocab_size: int, multiple: int = 256) -> int:
+    return int(-(-vocab_size // multiple) * multiple)

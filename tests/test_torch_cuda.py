@@ -1153,3 +1153,82 @@ def test_quantize_uploads_run_on_the_card(dev):
         for k, v in hists['wire'].final_global.items():
             assert torch.equal(hists[name].final_global[k], v), (name, k)
 
+
+
+# -- kernel 21: sliding-window attention, and the model path through it ------
+
+#: (B, S, H, KH, D, window): the JAX package's test shapes, ragged S, one
+#: KV head, every head_dim the dense models use (16-128, 120 for
+#: h2o-danube-3-4b), D = 8 and 256 (the kernel's range), S = 1
+SWA_SHAPES = [(1, 64, 2, 2, 16, None), (2, 100, 4, 2, 32, 17),
+              (1, 33, 4, 1, 16, 8), (1, 128, 2, 2, 64, 32),
+              (1, 100, 4, 1, 128, None), (2, 300, 8, 2, 120, 50),
+              (1, 70, 2, 1, 256, 33), (1, 1, 4, 2, 64, None),
+              (1, 200, 4, 4, 8, 1), (1, 129, 4, 2, 120, 4096)]
+
+
+def _swa_inputs(dev, B, S, H, KH, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.normal(size=(B, S, h, D)).astype(np.float32),
+                            device=dev) for h in (H, KH, KH)]
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('B,S,H,KH,D,win', SWA_SHAPES)
+def test_swa_attention_matches_plain(dev, B, S, H, KH, D, win, dtype):
+    """f32 within 2e-5, bf16 within 3e-2 of the plain version computed in
+    f32 from the same bf16 inputs (the JAX package's tolerances)."""
+    from repro_torch.kernels.swa_attention import swa_attention
+    dt = getattr(torch, dtype)
+    q, k, v = (t.to(dt) for t in _swa_inputs(dev, B, S, H, KH, D, seed=S))
+    out = swa_attention(q, k, v, window=win)
+    want = ref.swa_attention_ref(q.float(), k.float(), v.float(), window=win)
+    torch.cuda.synchronize()
+    assert out.dtype == dt and out.shape == q.shape
+    atol = 2e-5 if dt == torch.float32 else 3e-2
+    torch.testing.assert_close(out.float(), want, atol=atol, rtol=0)
+    assert backend.LAUNCHES['swa_attention'] == 1
+    again = swa_attention(q, k, v, window=win)
+    assert torch.equal(again, out)
+
+
+def test_swa_attention_refuses_bad_operands(dev):
+    from repro_torch.kernels.swa_attention import swa_attention
+    q, k, v = _swa_inputs(dev, 1, 16, 4, 2, 16)
+    with pytest.raises(ValueError, match='head_dim'):
+        swa_attention(q[..., :12], k[..., :12], v[..., :12])
+    with pytest.raises(ValueError, match='contiguous'):
+        swa_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(TypeError, match='float32 or bfloat16'):
+        swa_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match='window'):
+        swa_attention(q, k, v, window=0)
+    with pytest.raises(ValueError, match='H % KH'):
+        swa_attention(q[:, :, :3], k, v)
+    assert backend.LAUNCHES['swa_attention'] == 0
+
+
+def test_full_depth_model_kernel_path_equals_plain(dev):
+    """h2o-danube-3-4b at full depth (24 layers) and reduced width, GQA
+    (8 heads over 2 KV heads), window 8: ``prefill_step`` through kernel 21
+    launches it once per layer and gives the ``'flash_jnp'`` path's next
+    tokens; its logits agree within 1e-4 (f32)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import ServeSetup
+    from repro_torch.models.model import build_model
+    cfg = get_config('h2o-danube-3-4b').reduced(n_layers=24, n_kv_heads=2)
+    plain = build_model(cfg)
+    kern = build_model(dataclasses.replace(cfg, attn_impl='pallas'))
+    params = plain.init(torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 100)), device=dev)
+    batch = {'tokens': tokens}
+    nxt = ServeSetup(kern).prefill_step(params, batch)
+    torch.cuda.synchronize()
+    assert backend.LAUNCHES['swa_attention'] == cfg.n_layers
+    assert torch.equal(nxt, ServeSetup(plain).prefill_step(params, batch))
+    torch.testing.assert_close(kern.logits(params, batch)[0],
+                               plain.logits(params, batch)[0], atol=1e-4,
+                               rtol=0)

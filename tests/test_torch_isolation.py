@@ -36,6 +36,7 @@ def test_import_pulls_in_neither_jax_nor_the_reference():
     code = (
         'import sys\n'
         'import repro_torch, repro_torch.api, repro_torch.data.tasks\n'
+        'import repro_torch.models.model, repro_torch.launch.serve\n'
         'bad = sorted(m for m in sys.modules if m == "jax" '
         'or m.startswith("jax.") or m.startswith("jaxlib") '
         'or m == "repro" or m.startswith("repro."))\n'

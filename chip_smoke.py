@@ -50,7 +50,9 @@ Phases, each of which must pass:
              ``dequantize``) run on every row view of seeded [100, n]
              stacks at the CNN's eight leaf sizes (10 to 313,600 values),
              bit for bit against their plain versions, timed at n =
-             313,600 and n = 10 against the bytes a launch moves.
+             313,600 and n = 10 against the bytes a launch moves; at n =
+             313,600 also their device time a launch, from one
+             ``torch.profiler`` window over 100 launches of each.
 3. main    — the paper's Task 2 CNN at full width (m = 100, 24 batches of
              40, 5 epochs) through ``Experiment(...).compile().run()``,
              with ``use_kernel='packed'`` and with ``wire='int8'``; each
@@ -165,11 +167,15 @@ Phases, each of which must pass:
              against its plain version at h2o-danube-3-4b's bulk-prefill
              shape (B 1, S 8192, 32 heads over 8 KV heads, head_dim 120,
              window 4096) and at odd shapes (ragged S, one KV head, D 8
-             to 256, no window), f32 within 2e-5 and bf16 within 3e-2;
+             to 256, no window), f32 within 2e-5 and bf16 within 3e-2
+             and elementwise within ``BF16_RTOL`` (2e-2) of the plain
+             output plus its spread (the scale of P's bf16 rounding);
              timed at the prefill shape in bf16 beside the plain version
              and ``scaled_dot_product_attention`` with a band mask (its
              backend printed), against its bound: the band's
              4 D flops a (query, key) pair at the bf16 tensor-core rate.
+             Timed only, at ``INPUT_SHAPES['prefill_32k']``'s length (B 1,
+             S 32,768, bf16) beside SDPA: no plain version fits there.
 11. serve  — h2o-danube-3-4b at full width and depth (3,961,839,360
              parameters, bf16, random init on the card): ``prefill_step``
              on B 1 x S 8192 tokens with ``attn_impl='pallas'`` must
@@ -228,6 +234,14 @@ TEACHER_LEN = 64        # the teacher-forced prefill's prompt
 #: kernel path against 'flash_jnp', and of the teacher-forced decode-step
 #: prefill against forward_logits
 PREFILL_GAP, TEACHER_TOL = 0.25, 0.25
+#: kernel 21's bf16 gate, elementwise: |out - plain| <= BF16_RTOL (|plain|
+#: + spread) + BF16_ATOL, inside the JAX package's flat BF16_OUTER.  The
+#: spread, sqrt(sum_j w_ij^2 v_jd^2) (``ref.swa_attention_spread_ref``),
+#: scales the error of P rounded to bf16 (about 2^-8 / sqrt(3) of it, at
+#: most 2^-8 sqrt(keys)), |plain| that of o rounded (2^-8).  A long band's
+#: outputs are small (|o| ~ spread ~ sqrt(e / keys), 0.026 over 4096
+#: keys), so the flat bound alone passes a kernel tens of percent off there
+BF16_RTOL, BF16_ATOL, BF16_OUTER = 2e-2, 1e-4, 3e-2
 #: kernel 21's odd shapes (B, S, H, KH, D, window): the JAX package's
 #: test shapes, ragged S, one KV head, every D the models use, D = 256
 ATTN_ODD = ((1, 64, 2, 2, 16, None), (2, 100, 4, 2, 32, 17),
@@ -750,6 +764,7 @@ def leaf_kernel_phase(torch, fails: list) -> list:
                   f'{leaf_bytes(n) / PEAK_BYTES * 1e3} ms by bytes '
                   f'({leaf_bytes(n)} B)')
     n = 313_600
+    leaf_device_time(torch, stacks[n][M // 2 + 1], times)
     recs = [_record(name, 'src/repro_torch/csrc/comm_quant.cu',
                     f'src/repro/kernels/comm_quant.py:{line}', errs[name],
                     *times[name, n], leaf_bytes(n), ops, leaf_bytes(n))
@@ -757,6 +772,50 @@ def leaf_kernel_phase(torch, fails: list) -> list:
                                     ('dequantize', 57, n))]
     _print_records(recs)
     return recs
+
+
+def leaf_device_time(torch, row, times, launches=100):
+    """Kernels 5 and 6's device time a launch at the largest leaf: one
+    ``torch.profiler`` window over ``launches`` launches of each, printed
+    beside the CUDA-event time a launch (which the host's launch rate
+    sets).  A measurement only: a profiler that cannot trace the card
+    leaves the phase's verdict alone, but a kernel that fails to launch
+    raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.comm_quant import dequantize, quantize
+    n = row.numel()
+    qs = ref.quantize_ref(row)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except Exception as e:  # noqa: BLE001 - report and go on
+        print(f'leaf kernels device time: not measured ({e!r})')
+        return
+    for _ in range(launches):
+        quantize(row)
+    for _ in range(launches):
+        dequantize(*qs, n=n)
+    torch.cuda.synchronize()
+    try:
+        prof.stop()
+        spans = {(e.time_range.start, e.time_range.end, e.name)
+                 for e in prof.events() if e.device_type.name == 'CUDA'}
+    except Exception as e:  # noqa: BLE001 - report and go on
+        print(f'leaf kernels device time: not measured ({e!r})')
+        return
+    for name in ('quantize', 'dequantize'):
+        mine = [stop - start for start, stop, k in spans
+                if f'{name}_kernel' in k
+                and (name == 'dequantize' or 'dequantize' not in k)]
+        if not mine:
+            print(f'leaf kernel {name} at n = {n}: device time not measured '
+                  f'(no such kernel in the trace)')
+            continue
+        print(f'leaf kernel {name} at n = {n}: device {sum(mine) / len(mine)} '
+              f'us a launch (torch.profiler, {len(mine)} launches) beside '
+              f'{times[name, n][0] * 1e3} us a launch by CUDA events')
 
 
 def scale_spec(seed=0, m=SCALE_M):
@@ -2576,11 +2635,12 @@ def attention_kernel_phase(torch, fails: list) -> list:
     heads over 8 KV heads, head_dim 120, window 4096) and at odd shapes,
     f32 and bf16; f32 within 2e-5 and bf16 within 3e-2 of the plain
     version computed in f32 from the same inputs (the JAX package's
-    tolerances, ``tests/test_kernels.py``).  Timed at the prefill shape in
+    tolerances, ``tests/test_kernels.py``), bf16 also elementwise within
+    ``BF16_RTOL`` of the plain output and its spread, plus ``BF16_ATOL``
+    (printed as the worst ratio of error to that bound).  Timed at the
+    prefill shape in
     bf16 beside the plain version and ``scaled_dot_product_attention``
     with a boolean band mask (``enable_gqa=True``; timed only)."""
-    import torch.nn.functional as F
-
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels.swa_attention import swa_attention
@@ -2590,26 +2650,37 @@ def attention_kernel_phase(torch, fails: list) -> list:
     gen = torch.Generator(device=dev)
     main = (PREFILL_B, PREFILL_S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
             cfg.window)
-    errs = {}
+    errs, ratios = {}, {}
     for B, S, H, KH, D, win in (main,) + ATTN_ODD:
         gen.manual_seed(S + (win or 0))
         qkv = [torch.randn((B, S, h, D), generator=gen, device=dev)
                for h in (H, KH, KH)]
-        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
+        for dtype, tol in ((torch.float32, 2e-5),
+                           (torch.bfloat16, BF16_OUTER)):
             q, k, v = (t.to(dtype) for t in qkv)
             out = swa_attention(q, k, v, window=win)
             want = ref.swa_attention_ref(q.float(), k.float(), v.float(),
                                          window=win)
             torch.cuda.synchronize()
-            err = (out.float() - want).abs().max().item()
-            errs[(B, S, H, KH, D, win, str(dtype))] = err
-            if not (out.dtype == dtype and err <= tol):
+            key = (B, S, H, KH, D, win, str(dtype))
+            diff = (out.float() - want).abs()
+            err = errs[key] = diff.max().item()
+            ratio = 0.0
+            if dtype == torch.bfloat16:
+                bound = ref.swa_attention_spread_ref(q, k, v, window=win)
+                bound.add_(want.abs()).mul_(BF16_RTOL).add_(BF16_ATOL)
+                ratio = ratios[key] = (diff / bound).max().item()
+                del bound
+            if not (out.dtype == dtype and err <= tol and ratio <= 1):
                 fails.append(f'swa_attention {(B, S, H, KH, D, win)} '
                              f'{dtype}: max abs err {err:.3e} (tolerance '
-                             f'{tol}), dtype {out.dtype}')
-            del out, want
+                             f'{tol}), worst error / bf16 bound {ratio:.3f} '
+                             f'(bf16 only, at most 1), dtype {out.dtype}')
+            del out, want, diff
     for key, err in errs.items():
-        print(f'attention: {key} max abs err vs plain {err:.3e}')
+        scaled = (f'; worst error / ({BF16_RTOL} (|plain| + spread) + '
+                  f'{BF16_ATOL}) {ratios[key]:.3f}' if key in ratios else '')
+        print(f'attention: {key} max abs err vs plain {err:.3e}{scaled}')
 
     B, S, H, KH, D, win = main
     gen.manual_seed(0)
@@ -2619,20 +2690,7 @@ def attention_kernel_phase(torch, fails: list) -> list:
     ms = _time_ms(torch, lambda: swa_attention(q, k, v, window=win), 2, 10)
     plain = _time_ms(torch, lambda: ref.swa_attention_ref(q, k, v,
                                                           window=win), 1, 3)
-    pos = torch.arange(S, device=dev)
-    band = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :]
-                                             < win)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
-                                              enable_gqa=True)
-    try:
-        from torch.nn.attention import SDPBackend
-        backend_name = SDPBackend(torch._fused_sdp_choice(
-            qt, kt, vt, attn_mask=band, enable_gqa=True)).name
-    except Exception as e:  # noqa: BLE001 - a private API: report only
-        backend_name = f'not known ({e!r})'
+    sdpa, backend_name = _sdpa_band(torch, q, k, v, win)
     lib = _time_ms(torch, sdpa, 2, 10)
     lib_err = (sdpa().transpose(1, 2).float() - ref.swa_attention_ref(
         q, k, v, window=win).float()).abs().max().item()
@@ -2651,8 +2709,63 @@ def attention_kernel_phase(torch, fails: list) -> list:
           f'{rec["bound_ms"]} ms by {rec["bound_by"]} ({pairs} band '
           f'pairs, {flops / 1e9:.1f} GFLOP at {PEAK_BF16_FLOPS / 1e12:.0f} '
           f'TFLOP/s; {nbytes / 1e6:.1f} MB at {PEAK_BYTES / 1e12} TB/s); '
-          f'{flops / ms / 1e9:.1f} TFLOP/s achieved')
+          f'{flops / ms / 1e9:.1f} TFLOP/s achieved, '
+          f'{rec["bound_ms"] / ms:.1%} of the bound')
+    del q, k, v, sdpa
+    torch.cuda.empty_cache()
+    long_attention(torch, H, KH, D, win)
     return [rec]
+
+
+def _sdpa_band(torch, q, k, v, win):
+    """``scaled_dot_product_attention`` on q [B, S, H, D], k, v [B, S, KH,
+    D] with a boolean causal band mask and ``enable_gqa=True``: the
+    library call timed beside kernel 21 (never called by the port).
+    Returns the call and the name of the backend PyTorch picks for it."""
+    import torch.nn.functional as F
+    pos = torch.arange(q.shape[1], device=q.device)
+    band = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :]
+                                             < win)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
+                                              enable_gqa=True)
+    try:
+        from torch.nn.attention import SDPBackend
+        backend_name = SDPBackend(torch._fused_sdp_choice(
+            qt, kt, vt, attn_mask=band, enable_gqa=True)).name
+    except Exception as e:  # noqa: BLE001 - a private API: report only
+        backend_name = f'not known ({e!r})'
+    return sdpa, backend_name
+
+
+def long_attention(torch, H, KH, D, win):
+    """Kernel 21 timed only at ``INPUT_SHAPES['prefill_32k']``'s sequence
+    length (B 1, bf16) beside ``scaled_dot_product_attention`` with its
+    boolean band mask: the plain version's f32 [S, S] scores would take
+    137 GB over the 32 heads there."""
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.kernels.swa_attention import swa_attention
+
+    B, S = 1, INPUT_SHAPES['prefill_32k'].seq_len
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn((B, S, H, D), generator=gen, device=dev).bfloat16()
+    k = torch.randn((B, S, KH, D), generator=gen, device=dev).bfloat16()
+    v = torch.randn((B, S, KH, D), generator=gen, device=dev).bfloat16()
+    ms = _time_ms(torch, lambda: swa_attention(q, k, v, window=win), 2, 10)
+    sdpa, _ = _sdpa_band(torch, q, k, v, win)
+    lib = _time_ms(torch, sdpa, 1, 3)
+    flops = 4 * D * band_pairs(S, win) * B * H
+    bound = flops / PEAK_BF16_FLOPS * 1e3
+    print(f'kernel swa_attention (B {B}, S {S}, H {H}, KH {KH}, D {D}, '
+          f'window {win}, bf16), timed only: {ms} ms, '
+          f'scaled_dot_product_attention {lib} ms; {flops / 1e9:.1f} GFLOP '
+          f'of band pairs, bound {bound} ms by operations; '
+          f'{flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.1%} of the bound')
+    del q, k, v, sdpa
+    torch.cuda.empty_cache()
 
 
 def serve_phase(torch, attn_ms: float, fails: list) -> dict:

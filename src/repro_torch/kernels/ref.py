@@ -222,3 +222,26 @@ def swa_attention_ref(q, k, v, *, window=None):
     """Causal (+window) attention oracle, the naive O(S^2) path: kernel
     21's plain version.  q: [B, S, H, D]; k, v: [B, S, KH, D]."""
     return attention_ref(q, k, v, causal=True, window=window)
+
+
+def swa_attention_spread_ref(q, k, v, *, window=None):
+    """sqrt(sum_j w_ij^2 v_jd^2) over the causal (+window) band, w the
+    softmax weights of ``swa_attention_ref``, in f32, [B, S, H, D]: the
+    scale of the error that rounding the probabilities to bf16 puts on
+    kernel 21's output.  Each w_ij v_jd moves by at most 2^-8 of itself,
+    so an output moves by about 2^-8 / sqrt(3) of this scale when the
+    roundings are independent, and by at most 2^-8 sqrt(keys) of it."""
+    B, S, H, D = q.shape
+    KH = k.shape[2]
+    pos = torch.arange(S, device=q.device)
+    band = pos[:, None] >= pos[None, :]
+    if window is not None:
+        band &= pos[:, None] - pos[None, :] < window
+    qf = (q.float() * D ** -0.5).reshape(B, S, KH, H // KH, D)
+    s = torch.einsum('bqhgd,bkhd->bqhgk', qf, k.float())
+    s.masked_fill_(~band[None, :, None, None, :], -1e30)
+    w = torch.softmax(s, dim=-1)
+    del s
+    w.square_()
+    out = torch.einsum('bqhgk,bkhd->bqhgd', w, v.float().square())
+    return out.sqrt_().reshape(B, S, H, D)

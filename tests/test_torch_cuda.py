@@ -1159,12 +1159,39 @@ def test_quantize_uploads_run_on_the_card(dev):
 
 #: (B, S, H, KH, D, window): the JAX package's test shapes, ragged S, one
 #: KV head, every head_dim the dense models use (16-128, 120 for
-#: h2o-danube-3-4b), D = 8 and 256 (the kernel's range), S = 1
+#: h2o-danube-3-4b), D = 8 and 256 (the kernel's range), S = 1; then the
+#: bf16 kernel's edges: S around its 64-row warpgroups, 128-row blocks
+#: and 128-key tiles (64 keys above D 128) at windows 1, 64 and 128, B 2
+#: with H == KH, D padded (8, 136) and the widest accumulator (256), a
+#: window past S
 SWA_SHAPES = [(1, 64, 2, 2, 16, None), (2, 100, 4, 2, 32, 17),
               (1, 33, 4, 1, 16, 8), (1, 128, 2, 2, 64, 32),
               (1, 100, 4, 1, 128, None), (2, 300, 8, 2, 120, 50),
               (1, 70, 2, 1, 256, 33), (1, 1, 4, 2, 64, None),
-              (1, 200, 4, 4, 8, 1), (1, 129, 4, 2, 120, 4096)]
+              (1, 200, 4, 4, 8, 1), (1, 129, 4, 2, 120, 4096)] + [
+    (1, S, 4, 2, 120, win) for S in (63, 64, 65, 127, 128, 129)
+    for win in (1, 64, 128)] + [
+    (2, 130, 4, 4, 120, 100), (2, 257, 2, 2, 64, None),
+    (1, 150, 4, 2, 8, None), (1, 150, 4, 2, 16, 64),
+    (1, 150, 4, 2, 136, 70), (1, 300, 2, 1, 256, None),
+    (1, 2048, 4, 2, 120, 4096)]
+
+
+#: the bf16 kernel's bound, elementwise: |out - plain| <= BF16_RTOL
+#: (|plain| + spread) + BF16_ATOL, inside the JAX package's flat 3e-2.  The
+#: spread (``ref.swa_attention_spread_ref``) scales the error of P rounded
+#: to bf16, |plain| that of o rounded.  A long band's outputs are small
+#: (|o| ~ spread ~ sqrt(e / keys)), so the flat bound alone would pass a
+#: kernel tens of percent off
+BF16_RTOL, BF16_ATOL = 2e-2, 1e-4
+
+
+def _assert_bf16_close(out, want, q, k, v, window):
+    torch.testing.assert_close(out.float(), want, atol=3e-2, rtol=0)
+    bound = ref.swa_attention_spread_ref(q, k, v, window=window)
+    bound = BF16_RTOL * (want.abs() + bound) + BF16_ATOL
+    ratio = ((out.float() - want).abs() / bound).max().item()
+    assert ratio <= 1, f'worst error / bf16 bound {ratio:.3f}'
 
 
 def _swa_inputs(dev, B, S, H, KH, D, seed=0):
@@ -1177,7 +1204,9 @@ def _swa_inputs(dev, B, S, H, KH, D, seed=0):
 @pytest.mark.parametrize('B,S,H,KH,D,win', SWA_SHAPES)
 def test_swa_attention_matches_plain(dev, B, S, H, KH, D, win, dtype):
     """f32 within 2e-5, bf16 within 3e-2 of the plain version computed in
-    f32 from the same bf16 inputs (the JAX package's tolerances)."""
+    f32 from the same bf16 inputs (the JAX package's tolerances); bf16
+    also within ``BF16_RTOL`` of each plain output and its spread, plus
+    ``BF16_ATOL``."""
     from repro_torch.kernels.swa_attention import swa_attention
     dt = getattr(torch, dtype)
     q, k, v = (t.to(dt) for t in _swa_inputs(dev, B, S, H, KH, D, seed=S))
@@ -1185,11 +1214,49 @@ def test_swa_attention_matches_plain(dev, B, S, H, KH, D, win, dtype):
     want = ref.swa_attention_ref(q.float(), k.float(), v.float(), window=win)
     torch.cuda.synchronize()
     assert out.dtype == dt and out.shape == q.shape
-    atol = 2e-5 if dt == torch.float32 else 3e-2
-    torch.testing.assert_close(out.float(), want, atol=atol, rtol=0)
+    if dt == torch.float32:
+        torch.testing.assert_close(out, want, atol=2e-5, rtol=0)
+    else:
+        _assert_bf16_close(out, want, q, k, v, win)
     assert backend.LAUNCHES['swa_attention'] == 1
     again = swa_attention(q, k, v, window=win)
     assert torch.equal(again, out)
+
+
+def test_swa_attention_bf16_finite_where_first_tile_holds_no_key(dev):
+    """Window 64 at S 512, in the block of query rows 256-383 (warpgroup 0
+    rows 256-319, warpgroup 1 rows 320-383), whose band starts at key 193.
+    At D 120 the kernel walks 128-key tiles: warpgroup 0's first, keys
+    128-255, holds none of row 319's keys (its band starts at 256).  At
+    D 256 it walks 64-key tiles: warpgroup 0's first, keys 192-255, holds
+    none of row 319's, and warpgroup 1's first, keys 256-319, none of row
+    383's.  Such a row adds exp(0) per masked key, which its next tile
+    rescales to 0.  The bf16 output stays finite and within the bf16
+    bound of the plain version, with scores four times the unit scale's."""
+    from repro_torch.kernels.swa_attention import swa_attention
+    for D in (120, 256):
+        q, k, v = (t.bfloat16() for t in _swa_inputs(dev, 1, 512, 4, 2, D,
+                                                      seed=7))
+        q, k = q * 2, k * 2
+        out = swa_attention(q, k, v, window=64)
+        want = ref.swa_attention_ref(q.float(), k.float(), v.float(),
+                                     window=64)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out.float()).all(), D
+        _assert_bf16_close(out, want, q, k, v, 64)
+
+
+def test_swa_attention_bf16_refuses_misaligned(dev):
+    """The bf16 kernel loads rows with TMA: a base pointer that is not
+    16-byte aligned raises, and nothing is copied or launched."""
+    from repro_torch.kernels.swa_attention import swa_attention
+    q, k, v = (t.bfloat16() for t in _swa_inputs(dev, 1, 16, 4, 2, 16))
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=dev)
+    shifted = flat[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match='16-byte'):
+        swa_attention(shifted, k, v)
+    assert backend.LAUNCHES['swa_attention'] == 0
 
 
 def test_swa_attention_refuses_bad_operands(dev):

@@ -193,6 +193,34 @@ def test_swa_attention_plain_matches_reference_kernel(B, S, H, KH, D, win,
 
 
 @pytest.mark.parametrize('B,S,H,KH,D,win,bq,bk', SWA_SHAPES)
+def test_swa_attention_spread_ref_scales_bf16_rounding(B, S, H, KH, D, win,
+                                                       bq, bk):
+    """``ref.swa_attention_spread_ref``, the scale of kernel 21's bf16
+    gate, equals sqrt(sum_j w_ij^2 v_jd^2) from softmax weights computed
+    in numpy; the bf16 kernel's rounding (each weight to bf16, then the
+    output) stays within 2e-2 (|o| + spread), the gate's bound."""
+    from repro_torch.kernels import ref
+    q, k, v = _qkv(B, S, H, KH, D, seed=S)
+    s = np.einsum('bqhgd,bkhd->bqhgk',
+                  q.reshape(B, S, KH, H // KH, D) * D ** -0.5, k)
+    i, j = np.arange(S)[:, None], np.arange(S)[None, :]
+    band = (j <= i) & ((i - j < win) if win is not None else True)
+    s = np.where(band[None, :, None, None, :], s, -np.inf)
+    w = np.exp(s - s.max(-1, keepdims=True))
+    w /= w.sum(-1, keepdims=True)
+    spread = np.sqrt(np.einsum('bqhgk,bkhd->bqhgd', w ** 2,
+                               v ** 2)).reshape(B, S, H, D)
+    got = ref.swa_attention_spread_ref(*map(torch.from_numpy, (q, k, v)),
+                                       window=win)
+    np.testing.assert_allclose(got.numpy(), spread, rtol=1e-5, atol=1e-6)
+    o = np.einsum('bqhgk,bkhd->bqhgd', w, v).reshape(B, S, H, D)
+    w16 = torch.from_numpy(w).bfloat16().float().numpy()
+    o16 = torch.from_numpy(np.einsum('bqhgk,bkhd->bqhgd', w16, v).reshape(
+        B, S, H, D)).bfloat16().float().numpy()
+    assert np.all(np.abs(o16 - o) <= 2e-2 * (np.abs(o) + spread) + 1e-6)
+
+
+@pytest.mark.parametrize('B,S,H,KH,D,win,bq,bk', SWA_SHAPES)
 def test_flash_and_ref_attention_match_reference(B, S, H, KH, D, win, bq,
                                                  bk):
     q, k, v = _qkv(B, S, H, KH, D, seed=S + 1)

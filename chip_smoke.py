@@ -49,10 +49,15 @@ Phases, each of which must pass:
              The per-leaf reference's kernels 5 and 6 (``quantize``,
              ``dequantize``) run on every row view of seeded [100, n]
              stacks at the CNN's eight leaf sizes (10 to 313,600 values),
-             bit for bit against their plain versions, timed at n =
-             313,600 and n = 10 against the bytes a launch moves; at n =
-             313,600 also their device time a launch, from one
-             ``torch.profiler`` window over 100 launches of each.
+             and through their rows entries (``quantize_rows``,
+             ``dequantize_rows``: one launch a row from one C call) on
+             each whole stack, bit for bit against their plain versions
+             and each other; timed at n = 313,600 and n = 10 (a
+             rows-entry launch beside a flat call) against the bytes a
+             launch moves, with their device time a launch at both n
+             from ``torch.profiler`` windows over one rows-entry call
+             (100 launches) of each and, as a control, the flat entry on
+             the same 100 rows and on one row 100 times.
 3. main    — the paper's Task 2 CNN at full width (m = 100, 24 batches of
              40, 5 epochs) through ``Experiment(...).compile().run()``,
              with ``use_kernel='packed'`` and with ``wire='int8'``; each
@@ -72,8 +77,11 @@ Phases, each of which must pass:
              within one quantisation step of the largest weight (max |w|
              / 127: the two sum in another order, and an int8 rounding
              edge turns that into a step); every eval loss must fall.
-             Each run prints its per-round train, round-trip and
-             server-step seconds.
+             Each per-leaf run calls ``quantize_rows`` and
+             ``dequantize_rows`` once a leaf a round (the host calls;
+             each launches kernel 5 or 6 once per client row).  Each run
+             prints its per-round train, round-trip and server-step
+             seconds.
 4. fleet   — a 4-member sweep of the same task at full width through
              ``Experiment(...).compile().run_sweep(members)`` (crash rates
              0.1 / 0.3 / 0.5 / 0.7, seeds 0-3), in the same three runs:
@@ -713,21 +721,30 @@ def leaf_bytes(n: int) -> int:
 
 def leaf_kernel_phase(torch, fails: list) -> list:
     """Kernels 5 and 6 (the per-leaf reference's quantise and dequantise)
-    on every row view of seeded [100, n] stacks at the CNN's eight leaf
-    sizes, as the per-leaf path hands them: bit for bit against their
-    plain versions; each timed at the largest leaf (f1, n = 313,600) and
-    the smallest (fb2, n = 10), where the launch and not the bytes sets
-    the time."""
+    on seeded [100, n] stacks at the CNN's eight leaf sizes: the flat
+    entries on every row view, and the rows entries (one launch a row
+    from one C call, what the per-leaf path runs) on each whole stack,
+    both bit for bit against their plain versions and each other.  Timed
+    at the largest leaf (f1, n = 313,600) and the smallest (fb2, n = 10),
+    where the launch and not the bytes sets the time: a flat call, and a
+    rows-entry launch (events over the m launches of a call / m)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.comm_quant import dequantize, quantize
+    from repro_torch.kernels.comm_quant import (dequantize, dequantize_rows,
+                                                quantize, quantize_rows)
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(5)
-    bad, errs = [], {'quantize': 0.0, 'dequantize': 0.0}
+    bad, bad_stacks, errs = [], [], {'quantize': 0.0, 'dequantize': 0.0}
     stacks = {}
+
+    def err(name, got, want):
+        errs[name] = max(errs[name],
+                         (got.double() - want.double()).abs().max().item())
+
     for n in CNN_LEAVES:
         x = torch.randn((M, n), generator=gen, device=dev) * 0.1
         x[0, :min(n, 128)] = 0.0          # an all-zero block
         stacks[n] = x
+        flat = []
         for k in range(M):
             want_q, want_s = ref.quantize_ref(x[k])
             want_x = ref.dequantize_ref(want_q, want_s, n)
@@ -736,86 +753,142 @@ def leaf_kernel_phase(torch, fails: list) -> list:
             if not (torch.equal(q, want_q) and torch.equal(s, want_s)
                     and torch.equal(back, want_x)):
                 bad.append((n, k))
-            errs['quantize'] = max(
-                errs['quantize'], (q.int() - want_q.int()).abs().max().item(),
-                (s - want_s).abs().max().item())
-            errs['dequantize'] = max(errs['dequantize'],
-                                     (back - want_x).abs().max().item())
+            err('quantize', q, want_q)
+            err('quantize', s, want_s)
+            err('dequantize', back, want_x)
+            flat.append((q, s, back))
+        want_q, want_s = ref.quantize_ref(x)
+        want_x = ref.dequantize_ref(want_q, want_s, n)
+        q, s = quantize_rows(x)
+        back = dequantize_rows(want_q, want_s, n=n)
+        fq, fs, fx = (torch.stack(t) for t in zip(*flat))
+        if not (torch.equal(q, want_q) and torch.equal(s, want_s)
+                and torch.equal(back, want_x) and torch.equal(q, fq)
+                and torch.equal(s, fs) and torch.equal(back, fx)):
+            bad_stacks.append(n)
+        err('quantize', q, want_q)
+        err('quantize', s, want_s)
+        err('dequantize', back, want_x)
     torch.cuda.synchronize()
     print(f'leaf kernels: quantize and dequantize on {len(CNN_LEAVES)} leaf '
           f'sizes x {M} row views, {len(bad)} rows differ from the plain '
-          f'versions')
+          f'versions; the rows entries on the {len(CNN_LEAVES)} [{M}, n] '
+          f'stacks, {len(bad_stacks)} stacks differ from the plain versions '
+          f'or the flat entries')
     if bad:
         fails.append(f'leaf kernels differ from their plain versions at '
                      f'(n, row) {bad[:8]}')
+    if bad_stacks:
+        fails.append(f'the rows entries differ from the plain versions or '
+                     f'the flat entries at n = {bad_stacks}')
     times = {}
     for n in (313_600, 10):
-        row = stacks[n][M // 2 + 1]
-        qs = ref.quantize_ref(row)
-        for name, kernel, plain in (
-                ('quantize', lambda: quantize(row),
-                 lambda: ref.quantize_ref(row)),
+        x = stacks[n]
+        row = x[M // 2 + 1]
+        qs, qs_rows = ref.quantize_ref(row), ref.quantize_ref(x)
+        for name, flat, rows, plain in (
+                ('quantize', lambda: quantize(row), lambda: quantize_rows(x),
+                 lambda: ref.quantize_ref(x)),
                 ('dequantize', lambda: dequantize(*qs, n=n),
-                 lambda: ref.dequantize_ref(*qs, n))):
-            times[name, n] = (_time_ms(torch, kernel),
-                              _time_ms(torch, plain, warm=2, timed=10))
-            print(f'leaf kernel {name} at n = {n}: {times[name, n][0]} ms a '
-                  f'launch (plain {times[name, n][1]} ms), bound '
+                 lambda: dequantize_rows(*qs_rows, n=n),
+                 lambda: ref.dequantize_ref(*qs_rows, n))):
+            times[name, n] = (_time_ms(torch, rows) / M,
+                              _time_ms(torch, plain, warm=2, timed=10) / M,
+                              _time_ms(torch, flat))
+            rows_ms, plain_ms, flat_ms = times[name, n]
+            print(f'leaf kernel {name} at n = {n}: rows entry {rows_ms} ms a '
+                  f'launch (events over {M} launches / {M}; plain {plain_ms} '
+                  f'ms a row), flat call {flat_ms} ms, bound '
                   f'{leaf_bytes(n) / PEAK_BYTES * 1e3} ms by bytes '
                   f'({leaf_bytes(n)} B)')
+    leaf_device_time(torch, stacks, times)
     n = 313_600
-    leaf_device_time(torch, stacks[n][M // 2 + 1], times)
     recs = [_record(name, 'src/repro_torch/csrc/comm_quant.cu',
                     f'src/repro/kernels/comm_quant.py:{line}', errs[name],
-                    *times[name, n], leaf_bytes(n), ops, leaf_bytes(n))
+                    *times[name, n][:2], leaf_bytes(n), ops, leaf_bytes(n))
             for name, line, ops in (('quantize', 47, 3 * n),
                                     ('dequantize', 57, n))]
     _print_records(recs)
     return recs
 
 
-def leaf_device_time(torch, row, times, launches=100):
-    """Kernels 5 and 6's device time a launch at the largest leaf: one
-    ``torch.profiler`` window over ``launches`` launches of each, printed
-    beside the CUDA-event time a launch (which the host's launch rate
-    sets).  A measurement only: a profiler that cannot trace the card
-    leaves the phase's verdict alone, but a kernel that fails to launch
-    raises."""
-    from torch.profiler import ProfilerActivity, profile
-
+def leaf_device_time(torch, stacks, times):
+    """Kernels 5 and 6's device time a launch at n = 313,600 and at
+    n = 10 (the card's floor for one launch), each from a
+    ``torch.profiler`` window over 100 launches of each kernel: one
+    rows-entry call (distinct rows, as the per-leaf path reads them),
+    then as a control the flat entry on the same distinct rows and on
+    one row 100 times (which the 50 MB L2 cache then holds).  Printed
+    beside the CUDA-event times.  A measurement only: a profiler that
+    cannot trace the card leaves the phase's verdict alone, but a kernel
+    that fails to launch raises."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.comm_quant import dequantize, quantize
-    n = row.numel()
-    qs = ref.quantize_ref(row)
+    from repro_torch.kernels.comm_quant import (dequantize, dequantize_rows,
+                                                quantize, quantize_rows)
+    for n in (313_600, 10):
+        x = stacks[n]
+        qs = ref.quantize_ref(x)
+        row, row_qs = x[M // 2 + 1], (qs[0][M // 2 + 1], qs[1][M // 2 + 1])
+
+        def rows():
+            quantize_rows(x)
+            dequantize_rows(*qs, n=n)
+
+        def flat_rows():
+            for k in range(M):
+                quantize(x[k])
+            for k in range(M):
+                dequantize(qs[0][k], qs[1][k], n=n)
+
+        def flat_one_row():
+            for _ in range(M):
+                quantize(row)
+            for _ in range(M):
+                dequantize(*row_qs, n=n)
+
+        for label, fn in (('rows entry', rows),
+                          ('flat entry, distinct rows', flat_rows),
+                          ('flat entry, one row', flat_one_row)):
+            spans = _device_spans(torch, fn)
+            if spans is None:
+                return
+            for name in ('quantize', 'dequantize'):
+                us = [t for k, t in spans if f'{name}_kernel' in k
+                      and (name == 'dequantize' or 'dequantize' not in k)]
+                if not us:
+                    print(f'leaf kernel {name} at n = {n}: device time not '
+                          f'measured (no such kernel in the trace)')
+                    continue
+                rows_ms, _, flat_ms = times[name, n]
+                print(f'leaf kernel {name} at n = {n}, {label}: device '
+                      f'{sum(us) / len(us)} us a launch '
+                      f'(torch.profiler, {len(us)} launches) beside '
+                      f'{rows_ms * 1e3} us a rows-entry launch and '
+                      f'{flat_ms * 1e3} us a flat call by CUDA events')
+
+
+def _device_spans(torch, fn):
+    """(kernel name, device microseconds) of every launch while ``fn()``
+    runs, from one ``torch.profiler`` window, or None (printed) if the
+    profiler cannot trace the card."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     try:
         prof.start()
     except Exception as e:  # noqa: BLE001 - report and go on
-        print(f'leaf kernels device time: not measured ({e!r})')
-        return
-    for _ in range(launches):
-        quantize(row)
-    for _ in range(launches):
-        dequantize(*qs, n=n)
+        print(f'device time: not measured ({e!r})')
+        return None
+    fn()
     torch.cuda.synchronize()
     try:
         prof.stop()
         spans = {(e.time_range.start, e.time_range.end, e.name)
                  for e in prof.events() if e.device_type.name == 'CUDA'}
     except Exception as e:  # noqa: BLE001 - report and go on
-        print(f'leaf kernels device time: not measured ({e!r})')
-        return
-    for name in ('quantize', 'dequantize'):
-        mine = [stop - start for start, stop, k in spans
-                if f'{name}_kernel' in k
-                and (name == 'dequantize' or 'dequantize' not in k)]
-        if not mine:
-            print(f'leaf kernel {name} at n = {n}: device time not measured '
-                  f'(no such kernel in the trace)')
-            continue
-        print(f'leaf kernel {name} at n = {n}: device {sum(mine) / len(mine)} '
-              f'us a launch (torch.profiler, {len(mine)} launches) beside '
-              f'{times[name, n][0] * 1e3} us a launch by CUDA events')
+        print(f'device time: not measured ({e!r})')
+        return None
+    return [(k, stop - start) for start, stop, k in spans]
 
 
 def scale_spec(seed=0, m=SCALE_M):
@@ -1454,6 +1527,14 @@ def cnn_setup(torch, spec=None):
     return spec, task
 
 
+def _counted(fn, calls: dict, key: str):
+    """``fn`` with its calls counted in ``calls[key]``."""
+    def wrapper(*args, **kwargs):
+        calls[key] += 1
+        return fn(*args, **kwargs)
+    return wrapper
+
+
 def _timed(torch, fn, into):
     """``fn`` with the host seconds of each call (synchronised on both
     sides) appended to ``into``."""
@@ -1573,6 +1654,8 @@ def _quantize_uploads_runs(torch, spec, task, fails: list) -> dict:
               'safa_aggregate_packed_q8': rounds})]
     wrap, server_step = federation._quantized_train_fn, \
         protocol.safa_server_step
+    entries = {k: getattr(federation, k)
+               for k in ('quantize_rows', 'dequantize_rows')}
     hists, launches = {}, {}
     for name, knob, ex, want in runs:
         exp = api.Experiment(task, spec,
@@ -1580,10 +1663,13 @@ def _quantize_uploads_runs(torch, spec, task, fails: list) -> dict:
                                           quantize_uploads=knob),
                              api.ExecSpec(eval_every=1, **ex), rounds=rounds)
         train_s, trip_s, server_s = [], [], []
+        calls = dict.fromkeys(entries, 0)
         task.local_train = _timed(torch, task.local_train, train_s)
         federation._quantized_train_fn = \
             lambda base: _timed(torch, wrap(base), trip_s)
         protocol.safa_server_step = _timed(torch, server_step, server_s)
+        for k, fn in entries.items():
+            setattr(federation, k, _counted(fn, calls, k))
         try:
             backend.reset_launches()
             t = time.perf_counter()
@@ -1594,15 +1680,22 @@ def _quantize_uploads_runs(torch, spec, task, fails: list) -> dict:
         finally:
             federation._quantized_train_fn = wrap
             protocol.safa_server_step = server_step
+            for k, fn in entries.items():
+                setattr(federation, k, fn)
             del task.local_train
         trip = [round(a - b, 4) for a, b in zip(trip_s, train_s)]
         print(f'quantize_uploads[{name}]: {wall:.2f} s for {rounds} rounds; '
               f'per round train {[round(v, 4) for v in train_s]} s, round '
               f'trip {trip or "none"} s, server step '
-              f'{[round(v, 4) for v in server_s]} s; launches {counts}')
+              f'{[round(v, 4) for v in server_s]} s; launches {counts}; '
+              f'host calls {calls}')
         if counts != want:
             fails.append(f'quantize_uploads[{name}]: launches {counts}, '
                          f'want {want}')
+        want_calls = rounds * len(CNN_LEAVES) if knob else 0
+        if calls != dict.fromkeys(entries, want_calls):
+            fails.append(f'quantize_uploads[{name}]: host calls {calls}, '
+                         f'want {want_calls} of each (one a leaf a round)')
         _check_losses(f'quantize_uploads[{name}]',
                       [e['loss'] for _, e in hist.evals()], init_loss, fails)
         hists[name] = hist

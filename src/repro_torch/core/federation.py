@@ -17,7 +17,6 @@ import warnings
 from typing import Optional
 
 import numpy as np
-import torch
 
 from repro_torch.core import protocol, schedules, selection
 from repro_torch.core.schedules import (FleetSchedule, LocalSchedule,
@@ -25,7 +24,7 @@ from repro_torch.core.schedules import (FleetSchedule, LocalSchedule,
                                         SweepMember, SyncFleetSchedule,
                                         SyncSchedule)
 from repro_torch.fedsim import Env
-from repro_torch.kernels.comm_quant import dequantize, quantize
+from repro_torch.kernels.comm_quant import dequantize_rows, quantize_rows
 
 __all__ = ['FleetSchedule', 'LocalSchedule', 'PROTOCOLS', 'RUNNERS',
            'SweepMember', 'SyncFleetSchedule', 'SyncSchedule', 'Task',
@@ -591,7 +590,10 @@ def _quantized_train_fn(base_fn):
     what a real compressed transfer carries, at 2 launches per leaf per
     client (2 m L a round).  This is the bit-identity ground truth for
     the packed wire (``wire='int8'``), which ships the same numbers in 2
-    launches a round, so the rows are not batched into fewer launches.
+    launches a round, so the rows are not batched into fewer launches:
+    every client row keeps its own launch.  Only the host's loop over the
+    rows moved into C: a leaf is one ``quantize_rows`` and one
+    ``dequantize_rows`` call, which launch the flat kernels once per row.
 
     PyTorch runs eagerly and nothing retraces, so unlike the JAX
     package's this wrapper is not memoised: a fresh closure per run costs
@@ -601,9 +603,8 @@ def _quantized_train_fn(base_fn):
 
         def per_leaf(x):
             flat = x.reshape(x.shape[0], -1)
-            rows = [dequantize(*quantize(flat[k]), n=flat.shape[1])
-                    for k in range(flat.shape[0])]
-            return torch.stack(rows).reshape(x.shape)
+            return dequantize_rows(*quantize_rows(flat),
+                                   n=flat.shape[1]).reshape(x.shape)
 
         return {k: per_leaf(v) for k, v in trained.items()}
 

@@ -19,6 +19,8 @@
 //     per-leaf reference path) -> quantize_f32 below;
 //   * src/repro/kernels/comm_quant.py:_dequant_kernel (dequantize)
 //     -> dequantize_f32 below.
+// The per-leaf path calls the last two through quantize_rows_f32 and
+// dequantize_rows_f32, which launch them once per client row of a leaf.
 // For every client row and every block of 128 values:
 //   scale = max(amax, 1e-30) / 127        (amax = max |x| over the block)
 //   q     = clip(round_half_even(x / scale), -127, 127)  as int8
@@ -52,6 +54,10 @@
 // JAX kernel's zero padding cannot raise it either).  The cost of this
 // path is the launch, not the bytes: the CNN's largest leaf (n = 313,600)
 // moves ~1.6 MB, 0.47 us at the memory rate, and its smallest 10 values.
+// So the rows entries issue a leaf's m launches from one C loop: the
+// Python work of a call (operand checks, allocation, the ctypes call) is
+// paid once a leaf and not once a row, and each row keeps its own launch,
+// as the reference's "2 dispatches per leaf per client" has it.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -227,6 +233,39 @@ int dequantize_f32(const int8_t* q, const float* scales, float* x,
   dequantize_kernel<<<grid_for(n_blocks), kThreads, 0, stream>>>(q, scales,
                                                                   x, n);
   return (int)cudaGetLastError();
+}
+
+// The rows entries: every row of a contiguous [m, n] stack (one leaf of m
+// clients' uploads) through the flat kernels, one launch per row, all
+// from this one call: x [m, n] f32 -> q [m, n] int8, scales
+// [m, ceil(n / 128)] f32.  Row k's launch is quantize_f32's on row k's
+// pointers, so its bits are the flat entry's; only the host's loop moves
+// from Python into C.  Returns the first non-zero cudaError_t, and
+// launches no row after it.
+int quantize_rows_f32(const float* x, int8_t* q, float* scales, int m,
+                      long long n, cudaStream_t stream) {
+  if (m <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  const long long n_scales = (n + kQBlock - 1) / kQBlock;
+  for (long long k = 0; k < m; ++k) {
+    const int err = quantize_f32(x + k * n, q + k * n, scales + k * n_scales,
+                                 n, stream);
+    if (err != (int)cudaSuccess) return err;
+  }
+  return (int)cudaSuccess;
+}
+
+// Its inverse: q [m, n] int8 and scales [m, ceil(n / 128)] f32 -> x [m, n]
+// f32, one dequantize_f32 launch per row.
+int dequantize_rows_f32(const int8_t* q, const float* scales, float* x, int m,
+                        long long n, cudaStream_t stream) {
+  if (m <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  const long long n_scales = (n + kQBlock - 1) / kQBlock;
+  for (long long k = 0; k < m; ++k) {
+    const int err = dequantize_f32(q + k * n, scales + k * n_scales,
+                                   x + k * n, n, stream);
+    if (err != (int)cudaSuccess) return err;
+  }
+  return (int)cudaSuccess;
 }
 
 }  // extern "C"

@@ -94,6 +94,8 @@ _SIGNATURES = {
                                               _I, _L, _P),
     'quantize_f32': (_P, _P, _P, _L, _P),
     'dequantize_f32': (_P, _P, _P, _L, _P),
+    'quantize_rows_f32': (_P, _P, _P, _I, _L, _P),
+    'dequantize_rows_f32': (_P, _P, _P, _I, _L, _P),
     'swa_attention_f32': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     'swa_attention_bf16': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
 }

@@ -5,8 +5,11 @@ int8 wire carries one f32 scale per ``QBLOCK`` values.  Two granularities,
 as in the JAX package:
 
 * ``quantize`` / ``dequantize`` — one flat [n] vector per call, any
-  n >= 1 (the last block may be partial): the per-leaf reference path
-  (``SafaSpec(quantize_uploads=True)``), two launches per leaf per client;
+  n >= 1 (the last block may be partial), one launch;
+* ``quantize_rows`` / ``dequantize_rows`` — every client row of one leaf's
+  [m, n] stack, one launch of the same kernel per row, all from one C
+  call: the per-leaf reference path (``SafaSpec(quantize_uploads=True)``),
+  two launches per leaf per client;
 * ``quantize_packed`` / ``dequantize_packed`` — a whole packed [m, N]
   upload buffer, each client row on its own, in one launch: the wire of
   ``ExecSpec(wire='int8')``.  Each has a fleet form (``*_fleet``) for a
@@ -148,4 +151,53 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor, *, n: int):
     backend.call('dequantize_f32', q.device, q.data_ptr(), scales.data_ptr(),
                  x.data_ptr(), n)
     backend.LAUNCHES['dequantize'] += 1
+    return x
+
+
+def _check_rows(t: torch.Tensor, name: str):
+    if t.ndim != 2 or t.shape[0] < 1 or t.shape[1] < 1:
+        raise ValueError(f'{name}: expected an [m, n] stack with m, n >= 1, '
+                         f'got shape {tuple(t.shape)}')
+
+
+def quantize_rows(x: torch.Tensor):
+    """x: [m, n] f32, any n >= 1 (one leaf of m clients' uploads) ->
+    (q [m, n] int8, scales [m, ceil(n / QBLOCK)] f32), each row bit for
+    bit ``quantize`` of it.  On the card: m launches of ``quantize``'s
+    kernel, one per row, from one C call (``LAUNCHES['quantize']`` grows
+    by m)."""
+    _check_rows(x, 'x')
+    m, n = x.shape
+    cuda = backend.is_cuda(x)
+    backend.check_operand(x, 'x', torch.float32, (m, n), x.device)
+    if not cuda:
+        return ref.quantize_ref(x)
+    q = torch.empty((m, n), dtype=torch.int8, device=x.device)
+    scales = torch.empty((m, -(-n // QBLOCK)), dtype=torch.float32,
+                         device=x.device)
+    backend.call('quantize_rows_f32', x.device, x.data_ptr(), q.data_ptr(),
+                 scales.data_ptr(), m, n)
+    backend.LAUNCHES['quantize'] += m
+    return q, scales
+
+
+def dequantize_rows(q: torch.Tensor, scales: torch.Tensor, *, n: int):
+    """Inverse of ``quantize_rows``; ``n`` is the rows' original length:
+    (q [m, n] int8, scales [m, ceil(n / QBLOCK)] f32) -> x [m, n] f32,
+    each row bit for bit ``dequantize`` of it.  On the card: m launches of
+    ``dequantize``'s kernel from one C call."""
+    _check_rows(q, 'q')
+    m = q.shape[0]
+    if q.shape[1] != n:
+        raise ValueError(f'q: expected {n} values a row, got {q.shape[1]}')
+    cuda = backend.is_cuda(q, scales)
+    backend.check_operand(q, 'q', torch.int8, (m, n), q.device)
+    backend.check_operand(scales, 'scales', torch.float32,
+                          (m, -(-n // QBLOCK)), q.device)
+    if not cuda:
+        return ref.dequantize_ref(q, scales, n)
+    x = torch.empty((m, n), dtype=torch.float32, device=q.device)
+    backend.call('dequantize_rows_f32', q.device, q.data_ptr(),
+                 scales.data_ptr(), x.data_ptr(), m, n)
+    backend.LAUNCHES['dequantize'] += m
     return x

@@ -54,21 +54,22 @@ def dequantize_packed_ref(q, scales, qblock: int = QBLOCK):
 
 
 def quantize_ref(x, qblock: int = QBLOCK):
-    """Block-quantise a flat [n] vector, any n >= 1: returns (q [n] int8,
-    scales [ceil(n / qblock)] f32).  The last block may be partial; its
+    """Block-quantise a flat [n] vector, any n >= 1, or each row of an
+    [m, n] stack on its own: returns (q [(m,) n] int8, scales
+    [(m,) ceil(n / qblock)] f32).  The last block may be partial; its
     amax is taken over the values that exist (zero padding cannot raise
     it), so it is ``quantize_packed_ref`` on the zero-padded vector, cut
     back to n."""
-    n = x.shape[0]
+    n = x.shape[-1]
     q, scales = quantize_packed_ref(F.pad(x.float(), (0, (-n) % qblock)),
                                     qblock)
-    return q[:n], scales
+    return q[..., :n].contiguous(), scales
 
 
 def dequantize_ref(q, scales, n: int, qblock: int = QBLOCK):
     """Inverse of ``quantize_ref``: q * scale per block, cut back to n."""
     x = dequantize_packed_ref(F.pad(q, (0, (-n) % qblock)), scales, qblock)
-    return x[:n]
+    return x[..., :n].contiguous()
 
 
 def safa_aggregate_q8_ref(q, scales, base, cache, global_prev, picked,

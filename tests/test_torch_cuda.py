@@ -24,9 +24,11 @@ import torch
 
 from repro_torch.kernels import backend, ref
 from repro_torch.kernels.comm_quant import (dequantize, dequantize_packed,
-                                            dequantize_packed_fleet, quantize,
+                                            dequantize_packed_fleet,
+                                            dequantize_rows, quantize,
                                             quantize_packed,
-                                            quantize_packed_fleet)
+                                            quantize_packed_fleet,
+                                            quantize_rows)
 from repro_torch.kernels.rows import (gather_rows, gather_rows_fleet,
                                      scatter_rows, scatter_rows_fleet)
 from repro_torch.kernels.safa_aggregate import (
@@ -1152,6 +1154,74 @@ def test_quantize_uploads_run_on_the_card(dev):
         assert hists[name].evals() == hists['wire'].evals()
         for k, v in hists['wire'].final_global.items():
             assert torch.equal(hists[name].final_global[k], v), (name, k)
+
+
+#: the Task 2 CNN's leaf sizes in sorted-key order (b1, b2, c1, c2, f1,
+#: fb1, f2, fb2), then odd widths around the 128-value block
+ROWS_LEAF_SIZES = (20, 50, 500, 25_000, 313_600, 128, 1280, 10,
+                   1, 13, 127, 129, 2049)
+
+
+@pytest.mark.parametrize('n', ROWS_LEAF_SIZES)
+def test_rows_entry_matches_flat_kernel_on_every_row(dev, n):
+    """The rows entries on a [100, n] stack (one leaf of the per-leaf
+    path at m = 100): every row bit for bit the flat kernel's launch on
+    it and the plain version; each call counts m launches."""
+    m = 100
+    rng = np.random.default_rng(n + 1)
+    x = torch.as_tensor(rng.normal(size=(m, n)).astype(np.float32) * 3,
+                        device=dev)
+    x[0, :128] = 0.0
+    q, s = quantize_rows(x)
+    assert backend.LAUNCHES['quantize'] == m
+    back = dequantize_rows(q, s, n=n)
+    assert backend.LAUNCHES['dequantize'] == m
+    want_q, want_s = ref.quantize_ref(x)
+    torch.cuda.synchronize()
+    assert torch.equal(q, want_q) and torch.equal(s, want_s)
+    assert torch.equal(back, ref.dequantize_ref(want_q, want_s, n))
+    for k in range(m):
+        fq, fs = quantize(x[k])
+        assert torch.equal(q[k], fq) and torch.equal(s[k], fs), k
+        assert torch.equal(back[k], dequantize(fq, fs, n=n)), k
+    assert backend.LAUNCHES['quantize'] == 2 * m
+    assert backend.LAUNCHES['dequantize'] == 2 * m
+
+
+class _FailingRows:
+    """The loaded library, with the rows entries returning
+    cudaErrorInvalidConfiguration (9) as a refused launch would."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        if name in ('quantize_rows_f32', 'dequantize_rows_f32'):
+            return lambda *args: 9
+        return getattr(self._lib, name)
+
+
+def test_rows_entry_launch_error_is_raised(dev, monkeypatch):
+    """A non-zero cudaError_t from the rows entries raises, and the
+    wrappers count no launch: the C entries refuse m = 0 and n = 0 before
+    launching, and a wrapper whose entry fails raises too."""
+    x = torch.ones(3, 300, device=dev)
+    q = torch.empty(3, 300, dtype=torch.int8, device=dev)
+    s = torch.empty(3, 3, device=dev)
+    for entry, ptrs in (
+            ('quantize_rows_f32', (x.data_ptr(), q.data_ptr(), s.data_ptr())),
+            ('dequantize_rows_f32',
+             (q.data_ptr(), s.data_ptr(), x.data_ptr()))):
+        for m, n in ((0, 300), (3, 0)):
+            with pytest.raises(RuntimeError, match=f'{entry} failed'):
+                backend.call(entry, dev, *ptrs, m, n)
+    lib, _ = backend.load_library()
+    monkeypatch.setattr(backend, '_lib', _FailingRows(lib))
+    with pytest.raises(RuntimeError, match='cudaError_t 9'):
+        quantize_rows(x)
+    with pytest.raises(RuntimeError, match='cudaError_t 9'):
+        dequantize_rows(q, s, n=300)
+    assert not any(backend.LAUNCHES.values())
 
 
 

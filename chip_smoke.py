@@ -44,8 +44,9 @@ Phases, each of which must pass:
              padding to K = 125): the whole buffer, scratch row included,
              bit for bit the plain version's, new_global and new_agg
              within 5e-7, every member of an S-axis launch bit for bit
-             its single launch, timed on round 2 against the bytes its
-             slot maps and roles need (no PyTorch call computes either).
+             its single launch, timed on both rounds against the bytes
+             its slot maps and roles need (no PyTorch call computes
+             either; the records are round 2's).
              The per-leaf reference's kernels 5 and 6 (``quantize``,
              ``dequantize``) run on every row view of seeded [100, n]
              stacks at the CNN's eight leaf sizes (10 to 313,600 values),
@@ -201,7 +202,16 @@ The line before the last is a JSON object of kernel records; the last
 line is ``{"ok": true, "device": {...}}``.  Without a visible card, or
 run from a directory that holds no ``src/repro_torch``, the script prints
 no result and exits non-zero.
+
+    python3 chip_smoke.py --tier-kernels [--src DIR]
+
+runs only the build and the lag tier's kernel phase (kernels 19 and 20,
+timed on both rounds), with the package under DIR (a checkout's
+``src/``; default this script's): two versions of the kernels compared
+in turns on one card, with the same phase timing both.  It exits 0 when
+every check passes and prints no ``ok`` line.
 """
+import argparse
 import json
 import math
 import pathlib
@@ -978,6 +988,62 @@ def tier_bytes(h_srcs, h_dsts, h_roles, n):
                     2 * k * row + k * wire_row + vectors)}
 
 
+def q8_tier_grid(torch, s: int, n: int):
+    """How kernel 20 launches for s members of width n on this card
+    (``safa_q8_tier_rows_grid``), or None where the library has no such
+    entry (the register-tiled kernel this ring replaced)."""
+    import ctypes
+
+    from repro_torch.kernels import backend
+    lib, _ = backend.load_library()
+    fn = getattr(lib, 'safa_q8_tier_rows_grid', None)
+    if fn is None:
+        return None
+    out = (ctypes.c_longlong * 6)()
+    err = fn(s, n, out)
+    if err != 0:
+        raise RuntimeError(f'safa_q8_tier_rows_grid: cudaError_t {err}')
+    keys = ('tile', 'stages', 'smem', 'per_sm', 'blocks', 'per_block')
+    return dict(zip(keys, out))
+
+
+def tier_in_flight(kernel, roles, grid):
+    """Bytes of loads a block keeps in flight by its design, for the
+    slots' roles (numpy [K] per member): kernels 19 and the register-tiled
+    20 issue kGroup = 4 slots' loads a thread, 256 threads a block (c0 16
+    bytes, and where the slot needs its trained row 16 bytes, or a char4
+    of q and a scale that the warp's 32 lanes share); the ring of kernel
+    20 holds ``stages`` slots' segments (c0 4 x tile bytes, q tile bytes
+    and tile / 32 of scales, or a 4 x tile base segment)."""
+    import numpy as np
+
+    from repro_torch.core import protocol
+    r = np.concatenate([np.asarray(x) for x in roles])
+    need = (r & (protocol.ROLE_PICKED | protocol.ROLE_UNDRAFTED)) != 0
+    done = (r & protocol.ROLE_COMMITTED) != 0
+    if kernel == 'tier':
+        return 256 * 4 * float(np.mean(16 + 16 * need))
+    if grid is None:
+        return 256 * 4 * float(np.mean(16 + (need & done) * (4 + 4 / 32)
+                                       + (need & ~done) * 16))
+    t = grid['tile']
+    return grid['stages'] * float(np.mean(4 * t + (need & done) * (t + t / 32)
+                                          + (need & ~done) * 4 * t))
+
+
+def _print_tier_time(name, t, ms, nbytes, kernel, roles, grid):
+    bound = nbytes / PEAK_BYTES * 1e3
+    line = (f'tier time {name} round {t + 1}: {ms} ms, bound {bound} ms '
+            f'({nbytes / 1e6:.1f} MB), {bound / ms:.1%} of it, achieved '
+            f'{nbytes / ms / 1e9:.3f} TB/s; design in flight '
+            f'{tier_in_flight(kernel, roles, grid) / 1e3:.1f} KB a block')
+    if kernel == 'q8_tier' and grid is not None:
+        line += (f' (ring: tile {grid["tile"]}, {grid["stages"]} stages, '
+                 f'{grid["smem"]} B shared, {grid["per_sm"]} blocks an SM, '
+                 f'{grid["blocks"]} blocks x {grid["per_block"]} items)')
+    print(line)
+
+
 def tier_kernel_phase(torch, n: int, fails: list) -> list:
     """Kernels 19 and 20 and their S-axis forms on the slot maps of the
     m = 1000 quota-bounded lag-tier schedule of two rounds (the tier
@@ -989,7 +1055,9 @@ def tier_kernel_phase(torch, n: int, fails: list) -> list:
     K = 125, capacity + 1 = 126 rows).  Each against its plain version
     (the whole buffer, scratch row included, bit for bit; new_global and
     new_agg within 5e-7), twice, each member of an S-axis launch bit for
-    bit its single launch; timed on round 2."""
+    bit its single launch; timed on both rounds (one line each: ms, bound,
+    share, achieved TB/s, the design's bytes in flight a block), the
+    records round 2's."""
     import numpy as np
 
     from repro_torch.core import protocol
@@ -1082,46 +1150,52 @@ def tier_kernel_phase(torch, n: int, fails: list) -> list:
                 safa_aggregate_packed_q8_tier_rows_fleet,
                 ref.safa_aggregate_q8_tier_rows_ref,
                 'src/repro/kernels/safa_aggregate.py:876')]
+    grids = {1: q8_tier_grid(torch, 1, n), S: q8_tier_grid(torch, S, n)}
     for kernel, single, s_axis, plain, replaces in kernels:
         name = f'safa_aggregate_packed_{kernel}_rows'
-        m1 = maps(sched, 0, weights)
-        hold(kernel, single, plain, (r, n), m1, f'{name} (round 1)')
-        m2 = maps(sched, 1, weights)
-        err, _, ops = hold(kernel, single, plain, (r, n), m2,
-                           f'{name} (round 2)')
-        args = args_of(kernel, ops[0], *ops[1:], m2)
-        ms = _time_ms(torch, lambda: single(*args))
-        plain_ms = _time_ms(torch, lambda: plain(*args), warm=2, timed=10)
-        need = tier_bytes(sched.cache_src[1], sched.cache_dst[1],
-                          sched.roles[1], n)[kernel]
-        recs.append(_record(name, 'src/repro_torch/csrc/safa_rows.cu',
-                            replaces, err, ms, plain_ms, *need))
-        del args, ops
+        for t in (0, 1):
+            m4 = maps(sched, t, weights)
+            err, _, ops = hold(kernel, single, plain, (r, n), m4,
+                               f'{name} (round {t + 1})')
+            args = args_of(kernel, ops[0], *ops[1:], m4)
+            ms = _time_ms(torch, lambda: single(*args))
+            need = tier_bytes(sched.cache_src[t], sched.cache_dst[t],
+                              sched.roles[t], n)[kernel]
+            _print_tier_time(name, t, ms, need[0], kernel,
+                             [sched.roles[t]], grids[1])
+            if t == 1:
+                plain_ms = _time_ms(torch, lambda: plain(*args), warm=2,
+                                    timed=10)
+                recs.append(_record(name, 'src/repro_torch/csrc/safa_rows.cu',
+                                    replaces, err, ms, plain_ms, *need))
+            del args, ops
 
         fr = fleet.capacity + 1
-        fm1 = maps(fleet, 0, f_weights)
-        hold(kernel, s_axis, plain, (S, fr, n), fm1,
-             f'{name}_fleet (round 1)')
-        fm = maps(fleet, 1, f_weights)
-        err, got, ops = hold(kernel, s_axis, plain, (S, fr, n), fm,
-                             f'{name}_fleet (round 2)')
-        base_args = args_of(kernel, ops[0], *ops[1:], fm)
-        for i in range(S):
-            one = single(*(a[i].clone() if a is ops[0] else a[i]
-                           for a in base_args))
-            check(all(torch.equal(g[i], w_) for g, w_ in zip(got, one)),
-                  f'{name}_fleet member {i} differs from the single '
-                  f'launch')
-        ms = _time_ms(torch, lambda: s_axis(*base_args))
-        plain_ms = _time_ms(torch, lambda: plain(*base_args), warm=2,
-                            timed=10)
-        per = [tier_bytes(fleet.cache_src[i, 1], fleet.cache_dst[i, 1],
-                          fleet.roles[i, 1], n)[kernel] for i in range(S)]
-        recs.append(_record(name + '_fleet',
-                            'src/repro_torch/csrc/safa_rows.cu', replaces,
-                            err, ms, plain_ms,
-                            *(sum(x[j] for x in per) for j in range(3))))
-        del base_args, ops, got
+        for t in (0, 1):
+            fm = maps(fleet, t, f_weights)
+            err, got, ops = hold(kernel, s_axis, plain, (S, fr, n), fm,
+                                 f'{name}_fleet (round {t + 1})')
+            base_args = args_of(kernel, ops[0], *ops[1:], fm)
+            for i in range(S):
+                one = single(*(a[i].clone() if a is ops[0] else a[i]
+                               for a in base_args))
+                check(all(torch.equal(g[i], w_) for g, w_ in zip(got, one)),
+                      f'{name}_fleet member {i} differs from the single '
+                      f'launch (round {t + 1})')
+            ms = _time_ms(torch, lambda: s_axis(*base_args))
+            per = [tier_bytes(fleet.cache_src[i, t], fleet.cache_dst[i, t],
+                              fleet.roles[i, t], n)[kernel]
+                   for i in range(S)]
+            need = [sum(x[j] for x in per) for j in range(3)]
+            _print_tier_time(name + '_fleet', t, ms, need[0], kernel,
+                             list(fleet.roles[:, t]), grids[S])
+            if t == 1:
+                plain_ms = _time_ms(torch, lambda: plain(*base_args),
+                                    warm=2, timed=10)
+                recs.append(_record(name + '_fleet',
+                                    'src/repro_torch/csrc/safa_rows.cu',
+                                    replaces, err, ms, plain_ms, *need))
+            del base_args, ops, got
     _print_records(recs)
     return recs
 
@@ -3072,13 +3146,19 @@ def profile_train(torch, label, train, top=6):
         print(f'{label}:   {tot / 1e3:9.1f} ms {n:6d}x  {name[:90]}')
 
 
-def main() -> int:
-    root = pathlib.Path(__file__).resolve().parent
-    if not (root / 'src' / 'repro_torch').is_dir():
-        print('chip_smoke: no src/repro_torch beside this script; run it '
-              'from a checkout of the repository', file=sys.stderr)
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--tier-kernels', action='store_true',
+                    help='run only the build and the lag tier kernel phase')
+    ap.add_argument('--src', type=pathlib.Path, default=None,
+                    help='the src/ directory whose repro_torch to load')
+    opts = ap.parse_args(argv)
+    src = (opts.src or pathlib.Path(__file__).resolve().parent / 'src')
+    if not (src / 'repro_torch').is_dir():
+        print(f'chip_smoke: no repro_torch under {src}; run it from a '
+              f'checkout of the repository', file=sys.stderr)
         return 2
-    sys.path.insert(0, str(root / 'src'))
+    sys.path.insert(0, str(src.resolve()))
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this check '
@@ -3102,6 +3182,12 @@ def main() -> int:
 
     fails = []
     n = ops.wire_spec(_cnn_init(torch.Generator().manual_seed(0))).n_padded
+    if opts.tier_kernels:
+        print(f'repro_torch from {src.resolve()}')
+        tier_kernel_phase(torch, n, fails)
+        for f in fails:
+            print(f'FAIL {f}')
+        return 1 if fails else 0
     recs = (kernel_phase(torch, n, fails) + leaf_kernel_phase(torch, fails)
             + fleet_kernel_phase(torch, n, fails)
             + merge_kernel_phase(torch, n, fails)

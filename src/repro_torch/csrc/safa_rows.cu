@@ -66,6 +66,10 @@
 // load of kGroup of its slots before their math and stores.  The outputs
 // are fresh buffers and the cache is only read (the engine scatters c2
 // back afterwards), so every pointer is __restrict__.  Offsets are 64-bit.
+// Kernel 20 (the int8 tier form) departs from this layout: a persistent
+// block streams each slot's row segments into a shared-memory ring with
+// Hopper's bulk copies, so its bytes in flight no longer depend on its
+// registers; it is described before its code, below.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -318,9 +322,9 @@ safa_q8_rows_kernel(const int8_t* __restrict__ q,
 // reading its cache row c0 = buf[srcs[j]] and writing its c2 to
 // buf[dsts[j]] in the same launch, in place (the TPU call aliases buf to
 // its output).  The math is the rows kernels', with no c2 output; the
-// int8 form dequantises its uploads in registers where the slot
-// committed, takes its base row elsewhere, and writes no local row (the
-// tier's local state is the version ring).
+// int8 form dequantises its uploads where the slot committed, takes its
+// base row elsewhere, and writes no local row (the tier's local state is
+// the version ring).
 //
 // In place, and the same bits as the plain version, which gathers every
 // c0 before it scatters:
@@ -340,8 +344,8 @@ safa_q8_rows_kernel(const int8_t* __restrict__ q,
 // trained row (int8: q and scales, or base) only where the slot is picked
 // or undrafted, one c2 row per distinct destination, global and agg read
 // once and the two new vectors written once.  The fleet forms are the
-// same code with blockIdx.y = s, member s's buffer [C + 1, n] at
-// s * (C + 1) * n.
+// same code with blockIdx.y = s (kernel 20: with the work items of every
+// member), member s's buffer [C + 1, n] at s * (C + 1) * n.
 
 // Shared state of a tier block: the staged slots and the partial sums.
 struct TierStage {
@@ -455,6 +459,174 @@ safa_tier_rows_kernel(float* buf, const float* __restrict__ trained,
          holds ? b4 + scratch + col : nullptr, held);
 }
 
+// ---------------------------------------------------------------------------
+// Kernel 20, the int8 tier form, on Hopper's bulk-copy engine.
+//
+// Why not kernel 19's layout: with every load of kGroup slots held in
+// registers (a float4 of c0, a char4 of q, a scale, a float4 of base), that
+// layout took 101 registers a thread, two blocks of 256 threads an SM and
+// about 41 KB of loads in flight an SM, where kernel 19 keeps about 98 KB
+// at 80 registers; on an H100 80GB HBM3 at 700 W it ran at 42 % of its
+// byte bound (0.156 ms at the main path's round of 124 slots), kernel 19
+// at 84 %.  Its bytes in flight were capped by the register file.
+//
+// Here they are set by a ring in shared memory instead.  A work item is
+// one member's tile of kTile adjacent columns.  One producer thread
+// streams, for every slot of the item in slot order, the slot's row
+// segments into the next stage of a ring of kStages: the c0 segment
+// (4 kTile bytes at buf[srcs[j]]) and, where the slot needs its trained
+// row, the q segment (kTile bytes) and its kTile / 128 scales if it
+// committed, else its base segment (4 kTile bytes).  Each is one 1-D bulk
+// copy (cp.async.bulk, the non-tensor form of TMA) completing on the
+// stage's full mbarrier; the consumers free the stage on its empty
+// mbarrier.  Bulk copies take 16-byte sizes at 16-byte-aligned addresses:
+// n is a multiple of kTile (the wrapper takes multiples of 2048), so every
+// segment is aligned, and kTile / 128 scales are 32 bytes.  The consumer
+// warps own the tile's columns, 4 a thread (16-byte shared-memory reads),
+// dequantise from shared memory, apply Eq. 6-8, store c2 to its row
+// straight from registers and add the two deltas in f32 registers, slot
+// after slot, so each column's sums are taken in slot order and every
+// launch, and every member of an S-axis launch, gives the same bits.
+//
+// Grid: persistent.  The launch asks the runtime how many blocks an SM
+// holds (three: 56,832 bytes of shared memory and 72 x 288 registers a
+// block), spreads the S x n / kTile items over at most that many blocks
+// an SM, and gives each block a run of ceil(items / capacity) adjacent
+// items, so every block has the same count but the last: at the main
+// path's width (n = 342,016: 334 tiles) 334 blocks of one item, one wave
+// of the card's 396 places; S = 4, 1,336 items: 334 blocks of 4.  The
+// producer runs ahead across the items of a block; a block stages its
+// member's slot maps (rows, roles, weights, the last-writer flags: an
+// O(K) scan in shared memory a slot) once, and again only when its run
+// enters another member or K exceeds kSlotChunk slots.
+//
+// Resources (nvcc -Xptxas -v, sm_90a): the register-tiled kernel took 101
+// registers, no spills, 13,568 bytes of static shared memory, 256 threads
+// a block; this one takes 72 registers, no spills, 56,832 bytes of
+// dynamic shared memory (6 stages of 8 KB, each holding c0 and either q
+// and its scales or a base segment, and the staged slots), 288 threads.
+// In flight: 6 stages of 5,152 bytes (c0, q, scales) a block, 30.9 KB, and
+// 92.7 KB an SM at three blocks.  What bounds it, from the card (H100
+// 80GB HBM3, 700 W): device memory.  At the main path's round of 124
+// slots it moves 2.6-2.7 TB/s, about kernel 19's rate on the same round;
+// rings of 5, 6 and 8 stages at three or four blocks an SM all took
+// 0.081-0.084 ms, twelve stages at two blocks 0.096, twenty at one
+// 0.107, and 512-column tiles (twice the copies) 0.089-0.115.
+//
+// Bound: device-memory bytes, as above.  The in-place semantics are
+// kernel 19's: rows written other than the scratch row are never read in
+// the round, a shared destination goes to the last slot, and the scratch
+// row's write, the last such slot's, is held in the consumer's registers
+// until the item's last slot is consumed, when every bulk copy of the
+// item, the scratch row's included, has landed (the copies read only the
+// item's columns, and no other item has them).
+namespace q8tier {
+
+constexpr int kTile = 1024;                   // columns of a work item
+constexpr int kCons = kTile / kVec;           // consumer threads
+constexpr int kConsWarps = kCons / 32;
+constexpr int kThreads = kCons + 32;          // and one producer warp
+constexpr int kStages = 6;                    // ring depth
+constexpr int kSlotChunk = 512;               // slots staged at a time
+constexpr int kSeg = 4 * kTile;               // bytes of an f32 segment
+constexpr int kQBytes = kTile;                // bytes of a q segment
+constexpr int kScaleBytes = kTile / kQBlock * 4;
+constexpr int kStageBytes = 2 * kSeg;         // c0, then q + scales or base
+constexpr int kBarBytes = 512;
+constexpr int kSmem = kBarBytes + kStages * kStageBytes + kSlotChunk * 14;
+static_assert(kCons % 32 == 0, "whole consumer warps");
+static_assert(2048 % kTile == 0, "a tile divides the wrapper's 2048");
+static_assert(kScaleBytes % 16 == 0, "bulk copies move 16-byte multiples");
+static_assert(kQBytes + kScaleBytes <= kSeg, "q and scales fit a segment");
+static_assert(2 * kStages * 8 <= kBarBytes, "the barriers fit");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar,
+                                              uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// Until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
+// `bytes` bytes from global `src` to shared `dst`, completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The staged slots of a block: each slot's source and destination rows
+// (fixed into [0, R)), whether it is the last to write its destination,
+// its role and its weight.
+struct Slots {
+  int* src;
+  int* dst;
+  float* w;
+  uint8_t* role;
+  uint8_t* last;
+  __device__ explicit Slots(unsigned char* p)
+      : src(reinterpret_cast<int*>(p)), dst(src + kSlotChunk),
+        w(reinterpret_cast<float*>(dst + kSlotChunk)),
+        role(reinterpret_cast<uint8_t*>(w + kSlotChunk)),
+        last(role + kSlotChunk) {}
+};
+
+// Stage slots k0 .. k0 + kn of one member; every thread of the block
+// calls it, between barriers.
+__device__ __forceinline__ void stage(const Slots& sl, int k0, int kn, int k,
+                                      const int* srcs, const int* dsts,
+                                      const uint8_t* roles,
+                                      const float* w_rows, int n_rows) {
+  for (int i = threadIdx.x; i < kn; i += kThreads) {
+    const int j = k0 + i;
+    sl.src[i] = (int)fix_row(srcs[j], n_rows);
+    sl.dst[i] = (int)fix_row(dsts[j], n_rows);
+    sl.role[i] = roles[j];
+    sl.w[i] = w_rows[j];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kn; i += kThreads) {
+    const int d = sl.dst[i];
+    bool last = true;
+#pragma unroll 8
+    for (int l = i + 1; l < kn; ++l) last &= sl.dst[l] != d;
+    for (int l = k0 + kn; l < k; ++l) last &= fix_row(dsts[l], n_rows) != d;
+    sl.last[i] = last;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 safa_q8_tier_rows_kernel(const int8_t* __restrict__ q,
                          const float* __restrict__ scales,
@@ -467,80 +639,173 @@ safa_q8_tier_rows_kernel(const int8_t* __restrict__ q,
                          const float* __restrict__ w_rows,
                          float* __restrict__ new_global,
                          float* __restrict__ new_agg, int n_rows, int k,
-                         long long n4) {
-  __shared__ TierStage s;
-  const Member mb(n_rows, k, n4 * kVec);
-  q += mb.rows;
-  scales += mb.rows / kQBlock;
-  base += mb.rows;
-  buf += mb.cache;
-  global += mb.vec;
-  agg += mb.vec;
-  new_global += mb.vec;
-  new_agg += mb.vec;
-  srcs += mb.slots;
-  dsts += mb.slots;
-  roles += mb.slots;
-  w_rows += mb.slots;
-  const long long col = (long long)blockIdx.x * kLanes + threadIdx.x;
-  const bool active = col < n4;
-  const long long scratch = (long long)(n_rows - 1) * n4;
-  const long long n_scales = n4 / (kQBlock / kVec);   // scales per row
-  const long long sblk = col / (kQBlock / kVec);      // this thread's block
+                         long long n, long long tiles, long long items,
+                         long long per_block) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kStages;
+  unsigned char* ring = smem + kBarBytes;
+  const Slots sl(ring + kStages * kStageBytes);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool producer = warp == kConsWarps;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(smem_u32(full + i), 1);
+      mbar_init(smem_u32(empty + i), kConsWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const long long n4 = n / kVec, n_scales = n / kQBlock;
+  const long long scratch = n_rows - 1;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  const float4 g =
-      active ? reinterpret_cast<const float4*>(global)[col] : zero;
-  const char4* q4 = reinterpret_cast<const char4*>(q);
-  const float4* bs4 = reinterpret_cast<const float4*>(base);
-  float4* b4 = reinterpret_cast<float4*>(buf);
-  float4 dg = zero, da = zero, held = zero;
-  bool holds = false;
-  for (int k0 = 0; k0 < k; k0 += kChunk) {
-    const int kn = min(kChunk, k - k0);
-    __syncthreads();
-    stage_tier_slots(s, k0, kn, k, srcs, dsts, roles, w_rows, n_rows, n4);
-    __syncthreads();
-    if (!active) continue;
-    for (int i0 = threadIdx.y; i0 < kn; i0 += kSlices * kGroup) {
-      char4 qv[kGroup];
-      float sc[kGroup];
-      float4 b[kGroup], c[kGroup];
-#pragma unroll
-      for (int u = 0; u < kGroup; ++u) {
-        const int i = i0 + u * kSlices;
-        if (i >= kn) continue;
-        const long long j = k0 + i;
-        const uint8_t f = s.role[i];
-        const bool need = f & (kPicked | kUndrafted);
-        const bool done = f & kCommitted;
-        qv[u] = (need && done) ? q4[j * n4 + col] : make_char4(0, 0, 0, 0);
-        sc[u] = (need && done) ? scales[j * n_scales + sblk] : 0.f;
-        b[u] = (need && !done) ? bs4[j * n4 + col] : zero;
-        c[u] = b4[s.src[i] + col];
+  const long long first = (long long)blockIdx.x * per_block;
+  const long long stop = min(first + per_block, items);
+  int staged = -1;     // the member whose slots are staged
+  uint32_t it = 0;     // ring position, kept alike by every thread
+  for (long long item = first; item < stop; ++item) {
+    const int s = (int)(item / tiles);
+    const long long col0 = (item % tiles) * kTile;   // first column
+    // member s's operands (the S-axis layout; s = 0 for a single run)
+    float* mbuf = buf + (long long)s * n_rows * n;
+    const long long rows0 = (long long)s * k;        // its first slot row
+    const long long col = (long long)s * n4 + col0 / kVec + threadIdx.x;
+    float4 g = zero, dg = zero, da = zero, held = zero;
+    bool holds = false;
+    if (!producer) g = reinterpret_cast<const float4*>(global)[col];
+    for (int k0 = 0; k0 < k; k0 += kSlotChunk) {
+      const int kn = min(kSlotChunk, k - k0);
+      if (s != staged || k > kSlotChunk) {
+        __syncthreads();   // every thread is done with the staged slots
+        stage(sl, k0, kn, k, srcs + rows0, dsts + rows0, roles + rows0,
+              w_rows + rows0, n_rows);
+        __syncthreads();
+        staged = s;
       }
-#pragma unroll
-      for (int u = 0; u < kGroup; ++u) {
-        const int i = i0 + u * kSlices;
-        if (i >= kn) continue;
-        const uint8_t f = s.role[i];
-        const float x = sc[u];
-        const float4 t = (f & kCommitted)
-            ? make_float4((float)qv[u].x * x, (float)qv[u].y * x,
-                          (float)qv[u].z * x, (float)qv[u].w * x)
-            : b[u];
-        const float4 c1 = (f & kPicked) ? t : (f & kDeprecated) ? g : c[u];
-        const float4 cc = (f & kUndrafted) ? t : c1;
-        tier_store(b4, s.dst[i], scratch, col, cc, held, holds);
-        add_delta(dg, c1, c[u], s.w[i]);
-        add_delta(da, cc, c[u], s.w[i]);
+      if (producer) {
+        if (lane == 0) {
+          for (int i = 0; i < kn; ++i) {
+            const uint32_t p = it + i, st = p % kStages;
+            const uint32_t full_b = smem_u32(full + st);
+            const uint8_t f = sl.role[i];
+            const long long src = sl.src[i];
+            mbar_wait(smem_u32(empty + st), ((p / kStages) & 1) ^ 1);
+            const bool need = f & (kPicked | kUndrafted);
+            const bool done = f & kCommitted;
+            mbar_expect_tx(full_b, kSeg + (!need ? 0
+                                           : done ? kQBytes + kScaleBytes
+                                                  : kSeg));
+            const uint32_t dst = smem_u32(ring + st * kStageBytes);
+            bulk_load(dst, mbuf + src * n + col0, kSeg, full_b);
+            const long long j = rows0 + k0 + i;
+            if (need && done) {
+              bulk_load(dst + kSeg, q + j * n + col0, kQBytes, full_b);
+              bulk_load(dst + kSeg + kQBytes,
+                        scales + j * n_scales + col0 / kQBlock, kScaleBytes,
+                        full_b);
+            } else if (need) {
+              bulk_load(dst + kSeg, base + j * n + col0, kSeg, full_b);
+            }
+          }
+        }
+        __syncwarp();
+      } else {
+        float4* b4 = reinterpret_cast<float4*>(mbuf) + col0 / kVec +
+                     threadIdx.x;
+        for (int i = 0; i < kn; ++i) {
+          const uint32_t p = it + i, st = p % kStages;
+          // the slot's staged fields, read before the wait
+          const uint8_t f = sl.role[i];
+          const float w = sl.w[i];
+          const long long d = sl.last[i] ? sl.dst[i] : -1;
+          mbar_wait(smem_u32(full + st), (p / kStages) & 1);
+          const unsigned char* stg = ring + st * kStageBytes;
+          const float4 c = reinterpret_cast<const float4*>(stg)[threadIdx.x];
+          float4 t = zero;
+          if (f & (kPicked | kUndrafted)) {
+            if (f & kCommitted) {
+              const char4 qv =
+                  reinterpret_cast<const char4*>(stg + kSeg)[threadIdx.x];
+              const float x = reinterpret_cast<const float*>(
+                  stg + kSeg + kQBytes)[threadIdx.x / (kQBlock / kVec)];
+              t = make_float4((float)qv.x * x, (float)qv.y * x,
+                              (float)qv.z * x, (float)qv.w * x);
+            } else {
+              t = reinterpret_cast<const float4*>(stg + kSeg)[threadIdx.x];
+            }
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(smem_u32(empty + st));
+          const float4 c1 = (f & kPicked) ? t : (f & kDeprecated) ? g : c;
+          const float4 cc = (f & kUndrafted) ? t : c1;
+          if (d == scratch) {
+            held = cc;
+            holds = true;
+          } else if (d >= 0) {
+            b4[d * n4] = cc;
+          }
+          add_delta(dg, c1, c, w);
+          add_delta(da, cc, c, w);
+        }
+      }
+      it += kn;
+    }
+    if (!producer) {
+      const float4 a = reinterpret_cast<const float4*>(agg)[col];
+      reinterpret_cast<float4*>(new_global)[col] = add4(a, dg);
+      reinterpret_cast<float4*>(new_agg)[col] = add4(a, da);
+      if (holds) {
+        reinterpret_cast<float4*>(mbuf)[scratch * n4 + col0 / kVec +
+                                        threadIdx.x] = held;
       }
     }
   }
-  finish(s, dg, da, active, reinterpret_cast<const float4*>(agg),
-         reinterpret_cast<float4*>(new_global),
-         reinterpret_cast<float4*>(new_agg), col,
-         holds ? b4 + scratch + col : nullptr, held);
 }
+
+// The launch's shape for S members of width n: {tile, stages, shared
+// bytes a block, blocks an SM, blocks, items a block}.
+struct Grid {
+  int tile, stages, smem, per_sm;
+  long long blocks, per_block;
+};
+
+int grid_of(int s, long long n, Grid* out) {
+  constexpr int kMaxDevices = 64;
+  static int per_sm[kMaxDevices], sms[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (per_sm[dev] == 0) {
+    err = cudaFuncSetAttribute(safa_q8_tier_rows_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmem);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                   dev);
+    }
+    int blocks = 0;
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, safa_q8_tier_rows_kernel, kThreads, kSmem);
+    }
+    if (err != cudaSuccess) return (int)err;
+    if (blocks == 0) return (int)cudaErrorInvalidConfiguration;
+    per_sm[dev] = blocks;
+  }
+  const long long items = (long long)s * (n / kTile);
+  const long long cap = (long long)per_sm[dev] * sms[dev];
+  out->tile = kTile;
+  out->stages = kStages;
+  out->smem = kSmem;
+  out->per_sm = per_sm[dev];
+  out->per_block = items == 0 ? 0 : (items + cap - 1) / cap;
+  out->blocks =
+      items == 0 ? 0 : (items + out->per_block - 1) / out->per_block;
+  return (int)cudaSuccess;
+}
+
+}  // namespace q8tier
 
 inline dim3 grid_for(long long n4, int s) {
   return dim3((unsigned int)((n4 + kLanes - 1) / kLanes), (unsigned int)s);
@@ -594,12 +859,22 @@ int launch_q8_tier_rows(const int8_t* q, const float* scales,
                         const uint8_t* roles, const float* w,
                         float* new_global, float* new_agg, int s, int r,
                         int k, long long n, cudaStream_t stream) {
-  const long long n4 = n / kVec;
-  if (n4 == 0 || s == 0) return (int)cudaSuccess;
-  safa_q8_tier_rows_kernel<<<grid_for(n4, s), dim3(kLanes, kSlices), 0,
-                             stream>>>(
+  if (n == 0 || s == 0) return (int)cudaSuccess;
+  if (n % q8tier::kTile != 0) return (int)cudaErrorInvalidValue;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) |
+                        reinterpret_cast<uintptr_t>(scales) |
+                        reinterpret_cast<uintptr_t>(base) |
+                        reinterpret_cast<uintptr_t>(buf);
+  if (ptrs % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  q8tier::Grid g;
+  const int err = q8tier::grid_of(s, n, &g);
+  if (err != (int)cudaSuccess) return err;
+  const long long tiles = n / q8tier::kTile;
+  q8tier::safa_q8_tier_rows_kernel<<<(unsigned int)g.blocks,
+                                     q8tier::kThreads, q8tier::kSmem,
+                                     stream>>>(
       q, scales, base, buf, global, agg, srcs, dsts, roles, w, new_global,
-      new_agg, r, k, n4);
+      new_agg, r, k, n, tiles, (long long)s * tiles, g.per_block);
   return (int)cudaGetLastError();
 }
 
@@ -679,7 +954,8 @@ int safa_aggregate_tier_rows_f32(float* buf, const float* trained,
 }
 
 // The int8 form: q: [k, n] int8; scales: [k, n / 128] f32; base: [k, n]
-// f32; the rest as above.  n must be a multiple of 128.
+// f32; the rest as above.  n must be a multiple of 1024 (q8tier::kTile),
+// and q, scales, base and buf must start 16-byte aligned.
 int safa_aggregate_q8_tier_rows_f32(const int8_t* q, const float* scales,
                                     const float* base, float* buf,
                                     const float* global, const float* agg,
@@ -715,6 +991,20 @@ int safa_aggregate_q8_tier_rows_fleet_f32(
   return launch_q8_tier_rows(q, scales, base, buf, global, agg, srcs, dsts,
                              roles, w, new_global, new_agg, s, r, k, n,
                              stream);
+}
+
+// How the int8 tier forms launch for s members of width n on the current
+// device, into out[6]: columns a work item, ring stages, shared-memory
+// bytes a block, blocks an SM holds, blocks, items a block.  Returns the
+// cudaError_t of the runtime's queries.
+int safa_q8_tier_rows_grid(int s, long long n, long long* out) {
+  q8tier::Grid g;
+  const int err = q8tier::grid_of(s, n, &g);
+  if (err != (int)cudaSuccess) return err;
+  const long long v[6] = {g.tile, g.stages, g.smem, g.per_sm, g.blocks,
+                          g.per_block};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return (int)cudaSuccess;
 }
 
 }  // extern "C"

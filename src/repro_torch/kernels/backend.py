@@ -92,6 +92,7 @@ _SIGNATURES = {
     'safa_aggregate_q8_tier_rows_fleet_f32': (_P, _P, _P, _P, _P, _P, _P,
                                               _P, _P, _P, _P, _P, _I, _I,
                                               _I, _L, _P),
+    'safa_q8_tier_rows_grid': (_I, _L, _P),
     'quantize_f32': (_P, _P, _P, _L, _P),
     'dequantize_f32': (_P, _P, _P, _L, _P),
     'quantize_rows_f32': (_P, _P, _P, _I, _L, _P),

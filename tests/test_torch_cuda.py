@@ -1079,6 +1079,145 @@ def test_tier_sweep_on_the_card(dev, cell):
 
 
 # ---------------------------------------------------------------------------
+# Kernel 20's ring (a persistent block streams slot segments of 1,024
+# columns through a 6-stage shared-memory ring; slots staged 512 at a time)
+# ---------------------------------------------------------------------------
+
+#: case -> (R buffer rows, K slots, N, layout): one slot; K not a multiple
+#: of the ring's depth; past the 256-slot chunk of the register-tiled
+#: kernel and past the ring's 512-slot staging chunk; one pack tile; the
+#: main path's width at its K; every c2 aimed at the scratch row (round
+#: 2's shape); slots sharing non-scratch destinations; every slot that
+#: needs a trained row without an upload (base rows)
+RING_CASES = {
+    'k1': (10, 1, 4096, 'mixed'),
+    'k13': (20, 13, 4096, 'mixed'),
+    'k300': (301, 300, 2048, 'mixed'),
+    'k700': (701, 700, 2048, 'mixed'),
+    'n2048': (123, 124, 2048, 'mixed'),
+    'n342016': (123, 124, 342_016, 'mixed'),
+    'all-scratch': (123, 124, 6144, 'scratch'),
+    'dup-dst': (40, 60, 4096, 'dup'),
+    'base-rows': (40, 60, 4096, 'base'),
+}
+
+
+def _ring_case(r, k, n, dev, seed, layout, real=None):
+    """Seeded kernel 20 operands laid out as a tier round: ``real`` slots
+    (all K unless given) read rows of the lower half of the buffer
+    (repeats allowed; the scratch row where no role reads the cache) and
+    write as ``layout`` says: 'mixed' distinct rows of the upper half for
+    half of them and the scratch row for the rest, 'scratch' the scratch
+    row all, 'dup' two or three upper rows shared by all, 'base' as
+    'mixed' with every slot picked or undrafted and none committed.  The
+    slots past ``real`` are sentinels (role 0, weight 0, the scratch row),
+    as a fleet pads a narrower member."""
+    rng = np.random.default_rng(seed)
+    cap = r - 1
+    real = k if real is None else real
+    live = max(cap // 2, 1)
+    roles = np.zeros(k, np.uint8)
+    if layout == 'base':
+        roles[:real] = rng.choice(np.array([4, 5, 8, 9, 12, 20, 24],
+                                           np.uint8), real)
+    else:
+        roles[:real] = rng.integers(1, 32, real)
+    srcs = np.full(k, cap, np.int32)
+    dsts = np.full(k, cap, np.int32)
+    reads = (roles[:real] & (4 | 8 | 16)) != 0
+    srcs[:real] = np.where(reads, rng.integers(0, live, real), cap)
+    if layout == 'dup':
+        dsts[:real] = live + rng.integers(0, min(3, cap - live), real)
+    elif layout != 'scratch':
+        n_w = min(real // 2, cap - live)
+        who = rng.choice(real, n_w, replace=False)
+        dsts[who] = live + rng.choice(cap - live, n_w, replace=False)
+    w = np.zeros(k)
+    w[:real] = rng.dirichlet(np.ones(real))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t = {'srcs': torch.as_tensor(srcs, device=dev),
+         'dsts': torch.as_tensor(dsts, device=dev),
+         'roles': torch.as_tensor(roles, device=dev),
+         'w': torch.as_tensor(w, dtype=torch.float32, device=dev)}
+    for name, shape in (('buf', (r, n)), ('trained', (k, n)),
+                        ('base', (k, n)), ('global_prev', (n,)),
+                        ('agg', (n,))):
+        t[name] = torch.randn(shape, generator=gen, device=dev)
+    return t
+
+
+def _assert_tier_launches_match(got, want):
+    """Each launch's buffer bit for bit the plain version's, its vectors
+    within rtol 1e-5 / atol 1e-6, and every launch the same bits."""
+    for g in got:
+        assert torch.equal(g[2], want[2])
+        for a, b in zip(g[:2], want[:2]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    assert all(torch.equal(a, b) for a, b in zip(*got))
+
+
+@pytest.mark.parametrize('case', sorted(RING_CASES))
+def test_q8_tier_ring_matches_plain(dev, case):
+    r, k, n, layout = RING_CASES[case]
+    t = _ring_case(r, k, n, dev, 11, layout)
+    want = ref.safa_aggregate_q8_tier_rows_ref(
+        *_tier_args(t, 'q8_tier', t['buf'].clone()))
+    got = []
+    for _ in range(2):
+        buf = t['buf'].clone()
+        got.append(safa_aggregate_packed_q8_tier_rows(
+            *_tier_args(t, 'q8_tier', buf)))
+        torch.cuda.synchronize()
+        assert got[-1][2] is buf
+    _assert_tier_launches_match(got, want)
+    assert backend.LAUNCHES['safa_aggregate_packed_q8_tier_rows'] == 2
+
+
+@pytest.mark.parametrize('case', sorted(RING_CASES))
+def test_q8_tier_ring_fleet_matches_plain_and_single_run(dev, case):
+    """The S-axis form on members of different real K, each padded with
+    sentinel slots to the launch's K: against the plain version, twice,
+    and each member bit for bit its single launch."""
+    r, k, n, layout = RING_CASES[case]
+    reals = [k, max(1, k // 2), max(1, k - 7)][:2 if n > 100_000 else 3]
+    cases = [_ring_case(r, k, n, dev, 30 + i, layout, real)
+             for i, real in enumerate(reals)]
+    t = {name: torch.stack([c[name] for c in cases]) for name in cases[0]}
+    want = ref.safa_aggregate_q8_tier_rows_ref(
+        *_tier_args(t, 'q8_tier', t['buf'].clone()))
+    got = [safa_aggregate_packed_q8_tier_rows_fleet(
+        *_tier_args(t, 'q8_tier', t['buf'].clone())) for _ in range(2)]
+    torch.cuda.synchronize()
+    _assert_tier_launches_match(got, want)
+    args = _tier_args(t, 'q8_tier', t['buf'])
+    for i in range(len(reals)):
+        one = safa_aggregate_packed_q8_tier_rows(
+            *(a[i].clone() if a is t['buf'] else a[i] for a in args))
+        for g, w in zip(got[0], one):
+            assert torch.equal(g[i], w), i
+    assert backend.LAUNCHES[
+        'safa_aggregate_packed_q8_tier_rows_fleet'] == 2
+
+
+def test_q8_tier_ring_refuses_misaligned_operands(dev):
+    """The bulk copies need 16-byte-aligned rows: a q whose data starts 4
+    bytes past an aligned address is refused at launch, and nothing is
+    written."""
+    t = _ring_case(10, 8, 2048, dev, 12, 'mixed')
+    q, sc = ref.quantize_packed_ref(t['trained'])
+    q_off = torch.empty(q.numel() + 16, dtype=torch.int8, device=dev)
+    q_off = q_off[4:4 + q.numel()].view(q.shape)
+    q_off.copy_(q)
+    buf = t['buf'].clone()
+    with pytest.raises(RuntimeError, match='cudaError_t'):
+        safa_aggregate_packed_q8_tier_rows(
+            q_off, sc, t['base'], buf, t['global_prev'], t['agg'],
+            t['srcs'], t['dsts'], t['roles'], t['w'])
+    torch.cuda.synchronize()
+    assert torch.equal(buf, t['buf'])
+
+
+# ---------------------------------------------------------------------------
 # The per-leaf int8 reference: kernels 5 and 6 and quantize_uploads=True
 # ---------------------------------------------------------------------------
 

@@ -185,6 +185,13 @@ Phases, each of which must pass:
              4 D flops a (query, key) pair at the bf16 tensor-core rate.
              Timed only, at ``INPUT_SHAPES['prefill_32k']``'s length (B 1,
              S 32,768, bf16) beside SDPA: no plain version fits there.
+             Also in bf16 at the families' prefill shapes (S 8192, no
+             window: llama4-scout's 40 heads over 8 KV heads of 128,
+             zamba2-1.2b's 32 over 32 of 64), held to the plain version
+             with the same gates and timed beside SDPA (``is_causal``)
+             against the same bound; and the f32 entry timed at the
+             prefill shape beside SDPA in f32, against its bound at the
+             f32 CUDA-core rate.
 11. serve  — h2o-danube-3-4b at full width and depth (3,961,839,360
              parameters, bf16, random init on the card): ``prefill_step``
              on B 1 x S 8192 tokens with ``attn_impl='pallas'`` must
@@ -197,6 +204,30 @@ Phases, each of which must pass:
              tokens.  Prints seconds per prefill and its attention share,
              decode tokens/s, peak device memory and a profile of one
              prefill and one decode step.  bf16 products reduce in f32.
+12. families — the MoE, SSM and hybrid families at full width, one after
+             the other, random init on the card: llama4-scout-17b-a16e
+             (8 of 48 layers, 19,687,756,800 parameters),
+             llama4-maverick-400b-a17b (one super-block, a dense and a
+             128-expert MoE layer: 18,555,233,280), mamba2-130m (24
+             layers) and zamba2-1.2b (38 layers, 6 applications of its
+             shared attention block); only the MoE models' depth is cut.
+             Each as the serve phase: ``prefill_step`` on B 1 x S 8192 on
+             both ``attn_impl``s where it has attention (kernel 21 once
+             per attention application; the published capacity 1.25, its
+             ``dropped_frac`` and ``load_balance_loss`` printed), the
+             two ``attn_impl``s' logits at the no-drop capacity
+             ``capacity_factor = n_experts`` (an MoE model's on the
+             first ``NODROP_S`` tokens) within ``PREFILL_GAP`` at the
+             positions whose expert routes agree, the others counted
+             within ``ROUTE_FLIPS``, the teacher-forced ``Model.prefill``
+             on 64 tokens within ``TEACHER_TOL`` at that capacity (route
+             flips within ``TEACHER_FLIPS``), greedy decode through
+             ``serve_step`` at
+             B 4, and ``serve.run`` at the JAX CLI's defaults for
+             mamba2-130m and zamba2-1.2b, equal to that decode.  Prints
+             init and peak device memory, prefill tokens/s, kernel 21's
+             share, decode ms a step and tokens/s, and profiles of one
+             prefill and one decode step.
 
 The line before the last is a JSON object of kernel records; the last
 line is ``{"ok": true, "device": {...}}``.  Without a visible card, or
@@ -250,7 +281,9 @@ TEACHER_LEN = 64        # the teacher-forced prefill's prompt
 #: bounds at full width in bf16 (24 layers of bf16 rounding, in another
 #: order on each side): the largest |logit| gap of the bulk prefill's
 #: kernel path against 'flash_jnp', and of the teacher-forced decode-step
-#: prefill against forward_logits
+#: prefill against forward_logits.  The families phase holds its four
+#: models to the same two (on an H100 before the final run: up to 0.156
+#: and 0.199, zamba2's 38 SSM layers the largest teacher-forced gap)
 PREFILL_GAP, TEACHER_TOL = 0.25, 0.25
 #: kernel 21's bf16 gate, elementwise: |out - plain| <= BF16_RTOL (|plain|
 #: + spread) + BF16_ATOL, inside the JAX package's flat BF16_OUTER.  The
@@ -267,6 +300,11 @@ ATTN_ODD = ((1, 64, 2, 2, 16, None), (2, 100, 4, 2, 32, 17),
             (1, 100, 4, 1, 128, None), (2, 300, 8, 2, 120, 50),
             (1, 70, 2, 1, 256, 33), (1, 1, 4, 2, 64, None),
             (1, 200, 4, 4, 8, 1))
+#: kernel 21 at the MoE and hybrid families' bulk-prefill shapes (B, S, H,
+#: KH, D, window): llama4-scout's 40 query heads over 8 KV heads of 128,
+#: zamba2-1.2b's shared block's 32 over 32 of 64; neither has a window
+FAMILY_ATTN = {'llama4-scout-17b-a16e': (1, 8192, 40, 8, 128, None),
+               'zamba2-1.2b': (1, 8192, 32, 32, 64, None)}
 
 
 def _card_line() -> str:
@@ -2804,10 +2842,15 @@ def attention_kernel_phase(torch, fails: list) -> list:
     version computed in f32 from the same inputs (the JAX package's
     tolerances, ``tests/test_kernels.py``), bf16 also elementwise within
     ``BF16_RTOL`` of the plain output and its spread, plus ``BF16_ATOL``
-    (printed as the worst ratio of error to that bound).  Timed at the
-    prefill shape in
-    bf16 beside the plain version and ``scaled_dot_product_attention``
-    with a boolean band mask (``enable_gqa=True``; timed only)."""
+    (printed as the worst ratio of error to that bound); and in bf16 at
+    the families' prefill shapes (``FAMILY_ATTN``: llama4-scout's and
+    zamba2-1.2b's shared block's heads, S 8192, no window).  Timed in
+    bf16 at the prefill shape and the families' shapes beside the plain
+    version and ``scaled_dot_product_attention`` (a boolean band mask
+    where there is a window, else ``is_causal``; ``enable_gqa=True``;
+    timed only), and the f32 entry at the prefill shape beside SDPA in
+    f32.  Returns the records: the prefill shape's (``swa_attention``),
+    then one for each family shape."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels.swa_attention import swa_attention
@@ -2817,13 +2860,16 @@ def attention_kernel_phase(torch, fails: list) -> list:
     gen = torch.Generator(device=dev)
     main = (PREFILL_B, PREFILL_S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
             cfg.window)
+    f32 = ((torch.float32, 2e-5),)
+    bf16 = ((torch.bfloat16, BF16_OUTER),)
     errs, ratios = {}, {}
-    for B, S, H, KH, D, win in (main,) + ATTN_ODD:
+    for (B, S, H, KH, D, win), dtypes in (
+            [(shape, f32 + bf16) for shape in (main,) + ATTN_ODD]
+            + [(shape, bf16) for shape in FAMILY_ATTN.values()]):
         gen.manual_seed(S + (win or 0))
         qkv = [torch.randn((B, S, h, D), generator=gen, device=dev)
                for h in (H, KH, KH)]
-        for dtype, tol in ((torch.float32, 2e-5),
-                           (torch.bfloat16, BF16_OUTER)):
+        for dtype, tol in dtypes:
             q, k, v = (t.to(dtype) for t in qkv)
             out = swa_attention(q, k, v, window=win)
             want = ref.swa_attention_ref(q.float(), k.float(), v.float(),
@@ -2843,65 +2889,105 @@ def attention_kernel_phase(torch, fails: list) -> list:
                              f'{dtype}: max abs err {err:.3e} (tolerance '
                              f'{tol}), worst error / bf16 bound {ratio:.3f} '
                              f'(bf16 only, at most 1), dtype {out.dtype}')
-            del out, want, diff
+            del out, want, diff, q, k, v
+        del qkv
+        torch.cuda.empty_cache()
     for key, err in errs.items():
         scaled = (f'; worst error / ({BF16_RTOL} (|plain| + spread) + '
                   f'{BF16_ATOL}) {ratios[key]:.3f}' if key in ratios else '')
         print(f'attention: {key} max abs err vs plain {err:.3e}{scaled}')
 
+    recs = [_attention_record(torch, 'swa_attention', main,
+                              errs[main + (str(torch.bfloat16),)])]
+    for arch, shape in FAMILY_ATTN.items():
+        recs.append(_attention_record(
+            torch, family_attn_record(arch), shape,
+            errs[shape + (str(torch.bfloat16),)], plain_timed=1))
+    # the f32 entry (the CUDA-core kernel), timed only: no path of the
+    # smoke runs f32 at full width, so it has no record of its own
+    _attention_record(torch, 'swa_attention f32 entry', main,
+                      errs[main + (str(torch.float32),)], plain_timed=0,
+                      dtype=torch.float32, peak_flops=PEAK_FLOPS)
     B, S, H, KH, D, win = main
-    gen.manual_seed(0)
-    q = torch.randn((B, S, H, D), generator=gen, device=dev).bfloat16()
-    k = torch.randn((B, S, KH, D), generator=gen, device=dev).bfloat16()
-    v = torch.randn((B, S, KH, D), generator=gen, device=dev).bfloat16()
+    long_attention(torch, H, KH, D, win)
+    return recs
+
+
+def family_attn_record(arch: str) -> str:
+    """The name of kernel 21's record at ``arch``'s prefill shape."""
+    return 'swa_attention_' + arch.split('-')[0]
+
+
+def _attention_inputs(torch, shape, dtype, seed=0):
+    B, S, H, KH, D, _ = shape
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    return [torch.randn((B, S, h, D), generator=gen, device='cuda').to(dtype)
+            for h in (H, KH, KH)]
+
+
+def _attention_record(torch, name, shape, err, plain_timed=3,
+                      dtype=None, peak_flops=PEAK_BF16_FLOPS):
+    """Kernel 21 timed at ``shape`` in ``dtype`` (bf16 if None) beside its
+    plain version (not timed where ``plain_timed`` is 0) and SDPA, against
+    its bound: 4 D flops a band pair at ``peak_flops`` (the bf16
+    tensor-core rate; the f32 entry runs on the CUDA cores)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.swa_attention import swa_attention
+
+    dtype = dtype or torch.bfloat16
+    B, S, H, KH, D, win = shape
+    q, k, v = _attention_inputs(torch, shape, dtype)
     ms = _time_ms(torch, lambda: swa_attention(q, k, v, window=win), 2, 10)
-    plain = _time_ms(torch, lambda: ref.swa_attention_ref(q, k, v,
-                                                          window=win), 1, 3)
+    plain = (_time_ms(torch, lambda: ref.swa_attention_ref(q, k, v,
+                                                           window=win),
+                      1, plain_timed) if plain_timed else None)
     sdpa, backend_name = _sdpa_band(torch, q, k, v, win)
     lib = _time_ms(torch, sdpa, 2, 10)
     lib_err = (sdpa().transpose(1, 2).float() - ref.swa_attention_ref(
         q, k, v, window=win).float()).abs().max().item()
     pairs = band_pairs(S, win) * B * H
     flops = 4 * D * pairs
-    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * KH * D)
-    rec = _record('swa_attention', 'src/repro_torch/csrc/swa_attention.cu',
-                  'src/repro/kernels/swa_attention.py:45', errs[
-                      (B, S, H, KH, D, win, str(torch.bfloat16))],
-                  ms, plain, nbytes, flops, nbytes, library_ms=lib,
-                  peak_flops=PEAK_BF16_FLOPS)
-    print(f'kernel swa_attention (B {B}, S {S}, H {H}, KH {KH}, D {D}, '
-          f'window {win}, bf16): {ms} ms (plain {plain} ms, '
-          f'scaled_dot_product_attention {lib} ms on the {backend_name} '
-          f'backend, max abs diff to plain {lib_err:.3e}); bound '
-          f'{rec["bound_ms"]} ms by {rec["bound_by"]} ({pairs} band '
-          f'pairs, {flops / 1e9:.1f} GFLOP at {PEAK_BF16_FLOPS / 1e12:.0f} '
+    nbytes = q.element_size() * (2 * B * S * H * D + 2 * B * S * KH * D)
+    rec = _record(name, 'src/repro_torch/csrc/swa_attention.cu',
+                  'src/repro/kernels/swa_attention.py:45', err, ms, plain,
+                  nbytes, flops, nbytes, library_ms=lib,
+                  peak_flops=peak_flops)
+    print(f'kernel {name} (B {B}, S {S}, H {H}, KH {KH}, D {D}, '
+          f'window {win}, {str(dtype).split(".")[-1]}): {ms} ms (plain '
+          f'{plain} ms, scaled_dot_product_attention {lib} ms on the '
+          f'{backend_name} backend, max abs diff to plain {lib_err:.3e}); '
+          f'bound {rec["bound_ms"]} ms by {rec["bound_by"]} ({pairs} band '
+          f'pairs, {flops / 1e9:.1f} GFLOP at {peak_flops / 1e12:.0f} '
           f'TFLOP/s; {nbytes / 1e6:.1f} MB at {PEAK_BYTES / 1e12} TB/s); '
           f'{flops / ms / 1e9:.1f} TFLOP/s achieved, '
           f'{rec["bound_ms"] / ms:.1%} of the bound')
     del q, k, v, sdpa
     torch.cuda.empty_cache()
-    long_attention(torch, H, KH, D, win)
-    return [rec]
+    return rec
 
 
 def _sdpa_band(torch, q, k, v, win):
     """``scaled_dot_product_attention`` on q [B, S, H, D], k, v [B, S, KH,
-    D] with a boolean causal band mask and ``enable_gqa=True``: the
-    library call timed beside kernel 21 (never called by the port).
-    Returns the call and the name of the backend PyTorch picks for it."""
+    D] with a boolean causal band mask (``is_causal`` where there is no
+    window inside S) and ``enable_gqa=True``: the library call timed
+    beside kernel 21 (never called by the port).  Returns the call and
+    the name of the backend PyTorch picks for it."""
     import torch.nn.functional as F
-    pos = torch.arange(q.shape[1], device=q.device)
-    band = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :]
-                                             < win)
+    S = q.shape[1]
+    kw = {'is_causal': True}
+    if win is not None and win < S:
+        pos = torch.arange(S, device=q.device)
+        kw = {'attn_mask': (pos[:, None] >= pos[None, :])
+              & (pos[:, None] - pos[None, :] < win)}
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
     def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
-                                              enable_gqa=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                              **kw)
     try:
         from torch.nn.attention import SDPBackend
         backend_name = SDPBackend(torch._fused_sdp_choice(
-            qt, kt, vt, attn_mask=band, enable_gqa=True)).name
+            qt, kt, vt, enable_gqa=True, **kw)).name
     except Exception as e:  # noqa: BLE001 - a private API: report only
         backend_name = f'not known ({e!r})'
     return sdpa, backend_name
@@ -3094,6 +3180,325 @@ def _serve_runs(torch, attn_ms: float, fails: list) -> dict:
     return launches
 
 
+#: phase 12's models: (arch, depth on the card, None for the published
+#: depth, parameters at that depth: the reference's ``n_params``).  Only
+#: the MoE models' depth is cut, never a width, an expert or the
+#: vocabulary: llama4-scout's 48 layers hold 107,771,827,200 parameters
+#: (200.7 GiB in bf16) and llama4-maverick's 397,693,916,160, more than
+#: one card; maverick keeps one whole super-block (a dense layer and a
+#: 128-expert MoE layer)
+FAMILIES = (('llama4-scout-17b-a16e', 8, 19_687_756_800),
+            ('llama4-maverick-400b-a17b', 2, 18_555_233_280),
+            ('mamba2-130m', None, 167_832_000),
+            ('zamba2-1.2b', None, 1_170_473_856))
+#: an MoE model's pallas against flash_jnp logit comparison runs at the
+#: no-drop capacity (``capacity_factor = n_experts``) on the first NODROP_S
+#: tokens of the bulk prefill's S 8192: at that capacity an expert's queue
+#: holds a whole group, so llama4-maverick's dispatch holds 128 x S slots,
+#: and at S 8192 its [128, 8192, 8192] bf16 SwiGLU products (17.2 GB each)
+#: do not fit beside its 34.6 GiB of weights
+NODROP_S = 2048
+#: bounds on the positions left out of an MoE model's logit comparison:
+#: those whose top-1 route differs in some MoE layer between two bf16
+#: paths.  A route is the argmax of 16 (128) router logits, and the two
+#: paths' bf16 rounding in another order moves a near-tie to the other
+#: expert.  With no drops a flip changes no other token's route or slot.
+#: Of the NODROP_S positions (pallas against flash_jnp: 139 for
+#: llama4-scout's 8 MoE layers, 8 for maverick's one) an eighth; of the
+#: teacher-forced 64 (decode steps against forward_logits: 0-5) an eighth;
+#: all measured on an H100 before these bounds were set
+ROUTE_FLIPS, TEACHER_FLIPS = NODROP_S // 8, 8
+
+
+def families_phase(torch, attn_ms: dict, fails: list) -> dict:
+    """The MoE (llama4-scout at 8 of 48 layers, llama4-maverick at one
+    super-block), SSM (mamba2-130m) and hybrid (zamba2-1.2b) families at
+    full width, one after the other, random init on the card, through
+    the port's serving entry points, as the serve phase drives
+    h2o-danube-3-4b: ``prefill_step`` on B 1 x S 8192 on both
+    ``attn_impl``s where the model has attention (kernel 21 once per
+    attention application; published capacity 1.25, its ``dropped_frac``
+    and ``load_balance_loss`` printed); at ``capacity_factor = n_experts``
+    (no drops, as a decode step has none) the two ``attn_impl``s' logits
+    (an MoE model's on the first ``NODROP_S`` tokens) within
+    ``PREFILL_GAP`` at the positions whose routes agree in every MoE
+    layer, the count of the others within ``ROUTE_FLIPS``, and the
+    teacher-forced ``Model.prefill`` on 64 tokens within ``TEACHER_TOL``
+    of ``forward_logits``; greedy decode through ``serve_step`` at
+    B 4; ``serve.run`` at the JAX CLI's defaults with ``full_size=True``
+    for mamba2-130m and zamba2-1.2b, which must give that decode's
+    tokens.  Returns kernel 21's launches in llama4-scout's and
+    zamba2-1.2b's prefill under their records' names."""
+    matmul = torch.backends.cuda.matmul
+    reduced = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    launches = {}
+    try:
+        for arch, depth, n_want in FAMILIES:
+            launches.update(_family_run(torch, arch, depth, n_want, attn_ms,
+                                        fails))
+            torch.cuda.empty_cache()
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+    return launches
+
+
+def _recorded(fn):
+    """Call ``fn()`` with ``models.moe.apply_moe`` recording each MoE
+    call's top-1 expert per token (on the device) and the call's aux;
+    returns (fn's result, [(routes [N], aux), ...] in call order)."""
+    from repro_torch.models import moe
+    seen, apply = [], moe.apply_moe
+
+    def wrapper(p, x, **kw):
+        y, aux = apply(p, x, **kw)
+        seen.append((moe.route(p, x.reshape(-1, x.shape[-1]))[0], aux))
+        return y, aux
+    moe.apply_moe = wrapper
+    try:
+        return fn(), seen
+    finally:
+        moe.apply_moe = apply
+
+
+def _agree(a, b, shape):
+    """Positions [B, S] whose route is the same in every MoE call of two
+    runs."""
+    ok = None
+    for (ra, _), (rb, _) in zip(a, b):
+        eq = (ra == rb).reshape(shape)
+        ok = eq if ok is None else ok & eq
+    return ok
+
+
+def _logit_gap(a, b, agree, rows=1024):
+    """The largest |a - b| over the positions where ``agree`` (or all), a
+    block of rows at a time (a full-vocabulary f32 copy would take 6.6
+    GB)."""
+    gap = 0.0
+    for i in range(0, a.shape[1], rows):
+        d = (a[:, i:i + rows].float() - b[:, i:i + rows].float()).abs()
+        d = d.amax(-1)
+        if agree is not None:
+            d = d[agree[:, i:i + rows]]
+        if d.numel():
+            gap = max(gap, d.max().item())
+    return gap
+
+
+def _family_run(torch, arch, depth, n_want, attn_ms, fails) -> dict:
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import backend
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import transformer as tfm
+
+    dev = torch.device('cuda')
+    tag = f'families: {arch}'
+    cfg = get_config(arch)
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    moe = cfg.n_experts > 0
+    n_attn = (0 if not cfg.n_heads else len(tfm.hybrid_groups(cfg)) - 1
+              if cfg.family == 'hybrid' else cfg.n_layers)
+    impls = ('pallas', 'flash_jnp') if n_attn else ('flash_jnp',)
+    models = {i: model_mod.build_model(dataclasses.replace(cfg, attn_impl=i))
+              for i in impls}
+    main = models[impls[0]]
+    n = main.n_params()
+    print(f'{tag}: {cfg.family}, {cfg.n_layers} layers'
+          f'{f" (of {get_config(arch).n_layers})" if depth else ""}, '
+          f'd_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of '
+          f'{cfg.head_dim}, d_ff {cfg.d_ff}, experts {cfg.n_experts} (MoE '
+          f'every {cfg.moe_every}), ssm state {cfg.ssm_state}, attention '
+          f'applications {n_attn}, vocab {cfg.vocab_size}, {cfg.dtype}: '
+          f'{n:,} parameters')
+    if n != n_want:
+        fails.append(f'{tag}: {n:,} parameters, want {n_want:,}')
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    params = main.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    print(f'{tag}: init on the card {time.perf_counter() - t:.2f} s, '
+          f'{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, '
+          f'peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB')
+
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
+                           generator=torch.Generator().manual_seed(1))
+    batch = {'tokens': tokens.to(dev)}
+    shape = (PREFILL_B, PREFILL_S)
+    setup = steps.ServeSetup(main)
+    backend.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    nxt = setup.prefill_step(params, batch)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t
+    counts = dict(backend.LAUNCHES)
+    out = {}
+    if arch in FAMILY_ATTN:
+        out[family_attn_record(arch)] = counts['swa_attention']
+    others = {k: c for k, c in counts.items() if c and k != 'swa_attention'}
+    if counts['swa_attention'] != n_attn or others:
+        fails.append(f'{tag}: prefill_step launched swa_attention '
+                     f'{counts["swa_attention"]} times (want {n_attn}), '
+                     f'others {others}')
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        setup.prefill_step(params, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    rate = PREFILL_B * PREFILL_S / min(secs)
+    # llama4-maverick's heads are llama4-scout's: the same record's time
+    ms = attn_ms.get(family_attn_record(arch))
+    share = (f'; kernel 21 {n_attn} launches x {ms:.4f} ms = '
+             f'{n_attn * ms / 1e3 / min(secs):.1%} of it' if n_attn else '')
+    print(f'{tag}: prefill_step [{PREFILL_B}, {PREFILL_S}] {impls[0]}: '
+          f'first {first:.4f} s, then {[round(x, 4) for x in secs]} s '
+          f'({rate:.0f} tokens/s){share}')
+    profile_train(torch, f'{tag} profile (one prefill_step, {impls[0]})',
+                  lambda: setup.prefill_step(params, batch))
+
+    (lk, aux), rk = _recorded(lambda: main.logits(params, batch))
+    if moe:
+        drop = [round(a['dropped_frac'].item(), 4) for _, a in rk]
+        print(f'{tag}: capacity factor {cfg.capacity_factor}: '
+              f'load_balance_loss {aux["load_balance_loss"].item():.5f} '
+              f'(summed over {len(rk)} MoE layers), dropped_frac by layer '
+              f'{drop}')
+    if not (tuple(lk.shape) == shape + (cfg.padded_vocab,)
+            and bool(torch.isfinite(lk).all())
+            and torch.equal(lk[:, -1].argmax(-1), nxt)):
+        fails.append(f'{tag}: prefill logits {tuple(lk.shape)} not finite '
+                     f'or not prefill_step\'s next tokens')
+    del lk, rk
+
+    # no drops from here on, as a decode step has none: a route alone
+    # decides a token's expert
+    tcfg = (dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+            if moe else cfg)
+    tmodels = {i: model_mod.build_model(dataclasses.replace(tcfg,
+                                                            attn_impl=i))
+               for i in impls}
+    if n_attn:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        nxt_flash = steps.ServeSetup(models['flash_jnp']).prefill_step(
+            params, batch)
+        torch.cuda.synchronize()
+        flash_s = time.perf_counter() - t
+        cmp = {'tokens': batch['tokens'][:, :NODROP_S] if moe
+               else batch['tokens']}
+        (lp, _), rp = _recorded(lambda: tmodels['pallas'].logits(params,
+                                                                 cmp))
+        (lf, _), rf = _recorded(lambda: tmodels['flash_jnp'].logits(params,
+                                                                    cmp))
+        agree = _agree(rp, rf, tuple(cmp['tokens'].shape)) if moe else None
+        flips = 0 if agree is None else int((~agree).sum())
+        gap = _logit_gap(lp, lf, agree)
+        last = True if agree is None else bool(agree[:, -1].all())
+        same = torch.equal(lp[:, -1].argmax(-1), lf[:, -1].argmax(-1))
+        print(f'{tag}: prefill_step flash_jnp {flash_s:.4f} s '
+              f'({PREFILL_B * PREFILL_S / flash_s:.0f} tokens/s); next '
+              f'tokens {nxt.tolist()} / {nxt_flash.tolist()} (capacity '
+              f'factor {cfg.capacity_factor}); at capacity factor '
+              f'{tcfg.capacity_factor} on {cmp["tokens"].numel()} tokens: '
+              f'routes differ at {flips} positions (bound {ROUTE_FLIPS}); '
+              f'logits pallas vs flash_jnp max abs gap {gap:.4e} at the '
+              f'others (bound {PREFILL_GAP}; largest |logit| '
+              f'{lf.abs().max().item():.3f}); last next token equal: '
+              f'{same} (route agrees: {last})')
+        if not (gap <= PREFILL_GAP and flips <= ROUTE_FLIPS
+                and (same or not last)):
+            fails.append(f'{tag}: pallas vs flash_jnp: gap {gap:.4e} (bound '
+                         f'{PREFILL_GAP}), {flips} route flips (bound '
+                         f'{ROUTE_FLIPS}), last next token equal {same}')
+        del lp, lf, rp, rf
+
+    prompt = batch['tokens'][:, :TEACHER_LEN]
+    tmain = tmodels[impls[0]]
+    (_, step), rd = _recorded(lambda: tmain.prefill(
+        params, tmain.init_cache(PREFILL_B, TEACHER_LEN, device=dev),
+        prompt))
+    n_moe = len(rd) // TEACHER_LEN
+    for impl in impls:
+        (full, _), rfw = _recorded(lambda: tmodels[impl].logits(
+            params, {'tokens': prompt}))
+        agree = None
+        if moe:
+            by_layer = [(torch.stack([rd[t * n_moe + j][0]
+                                      for t in range(TEACHER_LEN)], 1), None)
+                        for j in range(n_moe)]
+            agree = _agree(by_layer, rfw, (PREFILL_B, TEACHER_LEN))
+        flips = 0 if agree is None else int((~agree).sum())
+        diff = _logit_gap(step, full, agree)
+        print(f'{tag}: teacher-forced Model.prefill vs forward_logits '
+              f'({impl}) on {TEACHER_LEN} tokens: routes differ at {flips} '
+              f'(bound {TEACHER_FLIPS}); max abs diff {diff:.4e} at the '
+              f'others (tolerance {TEACHER_TOL})')
+        if not (diff <= TEACHER_TOL and flips <= TEACHER_FLIPS):
+            fails.append(f'{tag}: teacher-forced prefill vs forward_logits '
+                         f'({impl}) {diff:.4e} > {TEACHER_TOL} or {flips} '
+                         f'route flips > {TEACHER_FLIPS}')
+        del full
+    del step, rd, batch
+
+    # greedy decode through ServeSetup.serve_step on serve.run's params
+    # (the same seed and draws) and prompts
+    B, P, G = SERVE['batch'], SERVE['prompt_len'], SERVE['gen']
+    prompts = torch.randint(0, cfg.vocab_size, (B, P),
+                            generator=torch.Generator().manual_seed(0))
+    cache = main.init_cache(B, P + G, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cache, logits = main.prefill(params, cache, prompts.to(dev))
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t
+    tok = logits[:, -1].argmax(-1)
+    greedy, dec = [tok], []
+    for _ in range(G - 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cache, tok = setup.serve_step(params, cache, tok[:, None])
+        torch.cuda.synchronize()
+        dec.append(time.perf_counter() - t)
+        greedy.append(tok)
+    greedy = torch.stack(greedy, dim=1)
+    step_ms = sum(dec) / len(dec) * 1e3
+    print(f'{tag}: decode B {B}: Model.prefill {B}x{P} tokens {pre_s:.4f} s; '
+          f'{G - 1} serve_steps {step_ms:.2f} ms a step (fastest '
+          f'{min(dec) * 1e3:.2f}), {B * 1e3 / step_ms:.1f} tokens/s; ids '
+          f'{greedy[0].tolist()}')
+    if not (int(greedy.min()) >= 0
+            and int(greedy.max()) < cfg.padded_vocab):
+        fails.append(f'{tag}: greedy ids out of range {greedy.tolist()}')
+    profile_train(torch, f'{tag} profile (one serve_step, B {B})',
+                  lambda: setup.serve_step(params, cache, tok[:, None]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f'{tag}: peak device memory {peak:.3f} GiB')
+    del params, cache, logits
+    torch.cuda.empty_cache()
+
+    if depth is None:
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        toks = serve.run(arch, full_size=True, **SERVE)
+        torch.cuda.synchronize()
+        print(f'{tag}: serve.run({arch!r}, full_size=True, {SERVE}): '
+              f'{time.perf_counter() - t:.2f} s wall; peak device memory '
+              f'{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; ids '
+              f'{toks[0].tolist()}')
+        if not (tuple(toks.shape) == (B, G) and torch.equal(toks, greedy)):
+            fails.append(f'{tag}: serve.run tokens {toks.tolist()} are not '
+                         f'the serve_step greedy decode {greedy.tolist()}')
+    return out
+
+
 def one_epoch(task):
     """A shallow copy of ``task`` that trains one epoch of its five: the
     profiles' window.  A whole fleet train call launches ~350,000 device
@@ -3221,6 +3626,9 @@ def main(argv=None) -> int:
     lap('attention kernel')
     launches.update(serve_phase(torch, attn[0]['ms'], fails))
     lap('serve')
+    launches.update(families_phase(torch, {r['name']: r['ms'] for r in attn},
+                                   fails))
+    lap('families')
     for r in recs:
         r['launches'] = launches.get(r['name'], 0)
         del r['bytes'], r['flops'], r['dense_bytes']

@@ -1,14 +1,15 @@
 """Batched serving: token-by-token prefill, then greedy decode
-against a ring-buffer KV cache, from random init.
+against the model's caches (ring-buffer KV, conv and SSM state), from
+random init.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-3-4b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
         --full-size --batch 4 --prompt-len 32 --gen 16
 
 Runs on the card unless ``--device cpu`` is given.  Prompts are drawn by
 a CPU ``torch.Generator`` seeded with ``seed``, so every device serves the
 same prompts; the params by a generator on the device, seeded the same.
-Only the dense family is ported; checkpoint restore is not (ROADMAP
-item 7).
+The dense, MoE, SSM and hybrid families are ported (VLM and audio are
+ROADMAP item 26); checkpoint restore is not (item 7).
 """
 from __future__ import annotations
 
@@ -76,7 +77,7 @@ def run(arch: str, *, batch: int, prompt_len: int, gen: int,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument('--arch', choices=ARCH_IDS, default='h2o-danube-3-4b')
+    ap.add_argument('--arch', choices=ARCH_IDS, default='mamba2-130m')
     ap.add_argument('--batch', type=int, default=4)
     ap.add_argument('--prompt-len', type=int, default=32)
     ap.add_argument('--gen', type=int, default=16)

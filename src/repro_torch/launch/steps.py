@@ -3,7 +3,8 @@
 ``ServeSetup`` is the reference's, without the shardings (the port runs
 on one card): ``prefill_step`` is the bulk prefill through
 ``forward_logits`` (with ``attn_impl='pallas'`` it launches kernel 21 once
-per layer), ``serve_step`` one decode step against the KV cache.  The
+per attention layer, or application of the hybrid family's shared block),
+``serve_step`` one decode step against the model's caches.  The
 ``*_batch`` methods describe their inputs as ``meta`` tensors, as the
 reference's give ``ShapeDtypeStruct``s.
 """

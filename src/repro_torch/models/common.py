@@ -19,14 +19,27 @@ import torch
 # ---------------------------------------------------------------------------
 
 
+#: the most f32 values drawn at once: a tensor is drawn in slices of its
+#: first axis of at most this many values (llama4-maverick's [128, 5120,
+#: 8192] expert stack would take 21.5 GB in f32 beside the 10.7 GB it fills)
+DRAW_LIMIT = 1 << 28
+
+
 def _trunc_normal(generator, shape, dtype, stddev, device):
     """``stddev * truncated_normal(-2, 2)`` drawn in f32, then cast, as the
     reference draws it.  ``trunc_normal_``'s bounds are absolute, so they
     are ``±2 * stddev`` here."""
-    t = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(t, mean=0.0, std=stddev, a=-2.0 * stddev,
-                                b=2.0 * stddev, generator=generator)
-    return t.to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = max(1, DRAW_LIMIT // math.prod(shape[1:]))
+    for i in range(0, shape[0], rows):
+        t = torch.empty((min(rows, shape[0] - i),) + tuple(shape[1:]),
+                        dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(t, mean=0.0, std=stddev,
+                                    a=-2.0 * stddev, b=2.0 * stddev,
+                                    generator=generator)
+        out[i:i + rows] = t
+        del t   # before the next slice is drawn
+    return out
 
 
 def dense_init(generator, shape, dtype, device):
@@ -45,6 +58,23 @@ def zeros_init(generator, shape, dtype, device):  # noqa: ARG001
 
 def ones_init(generator, shape, dtype, device):  # noqa: ARG001
     return torch.ones(shape, dtype=dtype, device=device)
+
+
+def normal_init(scale):
+    """``scale * normal`` (not truncated), drawn in f32, then cast."""
+    def init(generator, shape, dtype, device):
+        return (torch.randn(shape, generator=generator, device=device)
+                * scale).to(dtype)
+    return init
+
+
+def uniform_init(lo, hi, fn):
+    """``fn(U(lo, hi))`` in f32, then cast (the SSM's ``A_log`` and
+    ``dt_bias``)."""
+    def init(generator, shape, dtype, device):
+        u = torch.rand(shape, generator=generator, device=device)
+        return fn(u * (hi - lo) + lo).to(dtype)
+    return init
 
 
 def param(generator, shape, dtype=torch.float32, init=dense_init, lead=()):

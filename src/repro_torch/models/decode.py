@@ -1,5 +1,5 @@
-"""Serving path of the dense family: the KV cache and single-token decode
-steps.
+"""Serving path: KV / conv / SSM caches and single-token decode steps of
+the dense, MoE, SSM and hybrid families.
 
 ``decode_step`` consumes a cache representing ``length`` already
 processed tokens and produces logits for one new token.  Sliding-window
@@ -9,10 +9,14 @@ position, -1 for an empty slot), so their decode memory is O(window),
 independent of context length.
 
 The cache is a dict as the reference's: ``k``, ``v`` [L, B, slots, KH, hd]
-in the model's dtype, ``positions`` [slots] int32 on the device, and
+in the model's dtype (the hybrid family: one slice per application of
+its shared attention block), ``positions`` [slots] int32 on the device;
+for the SSM and hybrid families ``conv`` [L, B, CONV_K - 1, ch] in the
+model's dtype and ``ssm`` [L, B, heads, headdim, state] in f32; and
 ``length``, a host-side Python int (the reference keeps a device scalar).
 ``decode_step`` updates the cache IN PLACE and returns it (the JAX code
-donates it and returns a new one).
+donates it and returns a new one).  An MoE layer decodes with a capacity
+of no drops, ``max(capacity_factor, n_experts)``, as the reference does.
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import common as cm
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 
@@ -41,14 +47,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, length: int = 0,
     dev = torch.device(device)
     if dev.type != 'meta':
         dev = resolve_device(dev)
-    hd = cfg.head_dim
-    S = kv_cache_slots(cfg, max_len)
-    shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, hd)
-    slots = torch.arange(S, dtype=torch.int32, device=dev)
-    return {'length': int(length),
-            'k': torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            'v': torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            'positions': torch.where(slots < length, slots, -1)}
+    c = {'length': int(length)}
+    if cfg.family in ('ssm', 'hybrid'):
+        one = ssm_mod.init_mamba_cache(batch, cfg.d_model, cfg.ssm_state,
+                                       cfg.ssm_headdim, cfg.dtype,
+                                       device=dev)
+        for key, t in one.items():
+            c[key] = t.new_zeros((cfg.n_layers,) + t.shape)
+    if cfg.family != 'ssm':
+        n_kv = (cfg.n_layers if cfg.family != 'hybrid'
+                else len(tfm.hybrid_groups(cfg)) - 1)
+        S = kv_cache_slots(cfg, max_len)
+        shape = (n_kv, batch, S, cfg.n_kv_heads, cfg.head_dim)
+        slots = torch.arange(S, dtype=torch.int32, device=dev)
+        c.update(k=torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                 v=torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                 positions=torch.where(slots < length, slots, -1))
+    return c
 
 
 def _attn_decode(layer_attn, h, kc, vc, positions, length: int,
@@ -72,23 +87,61 @@ def _attn_decode(layer_attn, h, kc, vc, positions, length: int,
     return o.reshape(B, 1, -1) @ layer_attn['wo'], kc, vc, positions
 
 
+def _layer_decode(layer, x, cache, i: int, cfg: ModelConfig):
+    """One attention layer (dense or MoE feed-forward) against KV slice
+    ``i`` of the cache."""
+    o, _, _, _ = _attn_decode(layer['attn'], cm.rms_norm(x, layer['ln1']),
+                              cache['k'][i], cache['v'][i],
+                              cache['positions'], cache['length'], cfg)
+    h = x + o
+    pre = cm.rms_norm(h, layer['ln2'])
+    if 'moe' in layer:
+        # no-drop capacity at decode time: a single-token routing group
+        # would otherwise drop tokens that competed fine in the full
+        # prefill group (train/serve capacity mismatch)
+        y, _ = moe_mod.apply_moe(
+            layer['moe'], pre,
+            capacity_factor=float(max(cfg.capacity_factor, cfg.n_experts)))
+    else:
+        y = mlp_mod.apply_mlp(layer['mlp'], pre, cfg.mlp_kind)
+    return h + y
+
+
+def _ssm_decode(layers, x, cache, lo: int, hi: int, cfg: ModelConfig):
+    """SSM layers ``lo``..``hi - 1`` one step, their conv and SSM caches
+    updated in place."""
+    for i in range(lo, hi):
+        layer = tfm.layer_slice(layers, i)
+        nc, y = ssm_mod.step_mamba_block(
+            layer['mamba'], {'conv': cache['conv'][i], 'ssm': cache['ssm'][i]},
+            cm.rms_norm(x, layer['ln1']), d_state=cfg.ssm_state,
+            headdim=cfg.ssm_headdim)
+        cache['conv'][i] = nc['conv']
+        cache['ssm'][i] = nc['ssm']
+        x = x + y
+    return x
+
+
 def decode_step(params, cache, tokens, cfg: ModelConfig):
     """tokens: [B, 1] -> (cache, logits [B, V_padded]); the cache is
     updated in place."""
     tfm.check_ported(cfg)
     x = tfm.embed_tokens(params, tokens, cfg)
-    length = cache['length']
     layers = params['layers']
-    for i in range(cache['k'].shape[0]):
-        layer = tfm.layer_slice(layers, i)
-        xn = cm.rms_norm(x, layer['ln1'])
-        o, _, _, _ = _attn_decode(layer['attn'], xn, cache['k'][i],
-                                  cache['v'][i], cache['positions'], length,
-                                  cfg)
-        h = x + o
-        pre = cm.rms_norm(h, layer['ln2'])
-        x = h + mlp_mod.apply_mlp(layer['mlp'], pre, cfg.mlp_kind)
-    cache['length'] = length + 1
+    if cfg.family == 'ssm':
+        x = _ssm_decode(layers, x, cache, 0, cfg.n_layers, cfg)
+    elif cfg.family == 'hybrid':
+        groups = tfm.hybrid_groups(cfg)
+        for gi, (s, e) in enumerate(groups):
+            x = _ssm_decode(layers, x, cache, s, e, cfg)
+            if gi < len(groups) - 1:
+                x = _layer_decode(params['shared_attn'], x, cache, gi, cfg)
+    else:
+        # with super-blocks, layer i of the cache is sub-layer
+        # i % moe_every of block i // moe_every, its MoE layer the last
+        for i, layer in enumerate(tfm.dense_layers(layers)):
+            x = _layer_decode(layer, x, cache, i, cfg)
+    cache['length'] += 1
     x = cm.rms_norm(x, params['ln_f'])
     return cache, (x @ params['unembed'])[:, 0]
 

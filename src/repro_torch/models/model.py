@@ -55,7 +55,8 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    """The model of ``cfg``; raises ``NotImplementedError`` naming the
-    ROADMAP item for a family the port does not have yet."""
+    """The model of ``cfg`` (the dense, MoE, SSM and hybrid families);
+    raises ``NotImplementedError`` naming the ROADMAP item for a family
+    the port does not have yet (VLM, audio)."""
     tfm.check_ported(cfg)
     return Model(cfg)

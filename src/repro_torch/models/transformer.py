@@ -1,13 +1,18 @@
-"""Decoder stack of the dense family: parameters, the prefill forward and
-its primitives.
+"""Decoder stacks of the dense, MoE, SSM and hybrid families: parameters,
+the prefill forward and its primitives.
 
 Parameters keep the reference's tree: a nested dict with the layers
-stacked on a leading ``[L, ...]`` axis, dense weights ``[in, out]``.  A
-Python loop over the layers takes the place of ``lax.scan``; there is no
-remat (forward only).  The other families (MoE, SSM, hybrid, VLM, audio)
-are not ported yet: ``check_ported`` names the ROADMAP item of each.
+stacked on a leading ``[L, ...]`` axis, dense weights ``[in, out]``;
+llama4-maverick's interleaved super-blocks are ``{'dense': [nb,
+moe_every - 1, ...], 'moe': [nb, ...]}``, and the hybrid family's one
+shared attention block is ``shared_attn``.  A Python loop over the layers
+takes the place of ``lax.scan``; there is no remat (forward only).  The
+VLM and audio families are not ported yet: ``check_ported`` names their
+ROADMAP item.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -15,25 +20,24 @@ from repro_torch.kernels.swa_attention import swa_attention
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import common as cm
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 
 #: family not ported yet -> the ROADMAP queue-1 item that ports it
-FAMILY_ITEMS = {'moe': 24, 'ssm': 25, 'hybrid': 25, 'vlm': 26, 'audio': 26}
+FAMILY_ITEMS = {'vlm': 26, 'audio': 26}
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for a model
-    the port cannot build yet (any family but dense, or experts)."""
-    if cfg.family != 'dense':
+    """Raise ``NotImplementedError`` naming the ROADMAP item for a family
+    the port cannot build yet (VLM, audio)."""
+    if cfg.family in FAMILY_ITEMS:
         raise NotImplementedError(
             f'the {cfg.family!r} family ({cfg.arch_id}) is not ported to '
             f'repro_torch yet (ROADMAP queue 1, item '
-            f'{FAMILY_ITEMS.get(cfg.family, 24)})')
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f'mixture-of-experts layers ({cfg.arch_id}, n_experts='
-            f'{cfg.n_experts}) are not ported to repro_torch yet (ROADMAP '
-            f'queue 1, item {FAMILY_ITEMS["moe"]})')
+            f'{FAMILY_ITEMS[cfg.family]})')
+    if cfg.family not in ('dense', 'moe', 'ssm', 'hybrid'):
+        raise ValueError(cfg.family)
 
 
 # ---------------------------------------------------------------------------
@@ -61,37 +65,97 @@ def init_attn_layer(generator, cfg: ModelConfig, lead=()):
 
 
 def init_dense_layer(generator, cfg: ModelConfig, lead=()):
-    """One dense layer's params, or ``lead=(L,)`` of them stacked."""
-    check_ported(cfg)
-    return {
+    """One dense layer's params (its feed-forward an MoE when
+    ``cfg.n_experts``), or ``lead`` of them stacked."""
+    layer = {
         'ln1': cm.param(generator, (cfg.d_model,), torch.float32,
                         init=cm.zeros_init, lead=lead),
         'attn': init_attn_layer(generator, cfg, lead),
         'ln2': cm.param(generator, (cfg.d_model,), torch.float32,
                         init=cm.zeros_init, lead=lead),
-        'mlp': mlp_mod.init_mlp(generator, cfg.d_model, cfg.d_ff,
-                                cfg.mlp_kind, cfg.dtype, lead),
+    }
+    if cfg.n_experts:
+        layer['moe'] = moe_mod.init_moe(generator, cfg.d_model, cfg.d_ff,
+                                        cfg.n_experts, cfg.dtype,
+                                        cfg.moe_shared_expert, lead)
+    else:
+        layer['mlp'] = mlp_mod.init_mlp(generator, cfg.d_model, cfg.d_ff,
+                                        cfg.mlp_kind, cfg.dtype, lead)
+    return layer
+
+
+def init_ssm_layer(generator, cfg: ModelConfig, lead=()):
+    return {
+        'ln1': cm.param(generator, (cfg.d_model,), torch.float32,
+                        init=cm.zeros_init, lead=lead),
+        'mamba': ssm_mod.init_mamba_block(generator, cfg.d_model,
+                                          cfg.ssm_state, cfg.ssm_headdim,
+                                          cfg.dtype, lead=lead),
     }
 
 
 def init_params(generator, cfg: ModelConfig):
     """The whole model's params on ``generator``'s device, drawn from it
     (``generator=None``: ``meta`` tensors, shapes and dtypes only)."""
-    return {
+    check_ported(cfg)
+    p = {
         'embed': cm.param(generator, (cfg.padded_vocab, cfg.d_model),
                           cfg.dtype, init=cm.embed_init),
         'ln_f': cm.param(generator, (cfg.d_model,), torch.float32,
                          init=cm.zeros_init),
         'unembed': cm.param(generator, (cfg.d_model, cfg.padded_vocab),
                             cfg.dtype),
-        'layers': init_dense_layer(generator, cfg, lead=(cfg.n_layers,)),
     }
+    if cfg.family in ('dense', 'moe'):
+        if cfg.n_experts and cfg.moe_every > 1:
+            # interleaved dense/MoE blocks (llama4-maverick style):
+            # super-blocks of (moe_every - 1) dense layers + 1 MoE layer
+            if cfg.n_layers % cfg.moe_every:
+                raise ValueError(f'n_layers {cfg.n_layers} is not a multiple '
+                                 f'of moe_every {cfg.moe_every}')
+            nb = cfg.n_layers // cfg.moe_every
+            dense_cfg = dataclasses.replace(cfg, n_experts=0)
+            p['layers'] = {
+                'dense': init_dense_layer(generator, dense_cfg,
+                                          lead=(nb, cfg.moe_every - 1)),
+                'moe': init_dense_layer(generator, cfg, lead=(nb,)),
+            }
+        else:
+            p['layers'] = init_dense_layer(generator, cfg,
+                                           lead=(cfg.n_layers,))
+    else:   # ssm, hybrid
+        p['layers'] = init_ssm_layer(generator, cfg, lead=(cfg.n_layers,))
+        if cfg.family == 'hybrid':
+            p['shared_attn'] = init_dense_layer(generator, cfg)
+    return p
 
 
-def layer_slice(stacked, i: int):
-    """Layer ``i`` of a stacked ``[L, ...]`` tree (views, no copy)."""
+def layer_slice(stacked, i):
+    """Layer ``i`` (an int or a slice) of a stacked ``[L, ...]`` tree
+    (views, no copy)."""
     return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
             for k, v in stacked.items()}
+
+
+def n_stacked(stacked) -> int:
+    """The leading axis of a stacked tree."""
+    v = next(iter(stacked.values()))
+    return n_stacked(v) if isinstance(v, dict) else v.shape[0]
+
+
+def dense_layers(stacked):
+    """The attention layers of a dense or MoE stack, in order, as views:
+    for interleaved super-blocks (``{'dense', 'moe'}``) each block's dense
+    layers, then its MoE layer, so that layer ``i`` of the list is layer
+    ``i`` of the KV cache."""
+    if not ('dense' in stacked and 'moe' in stacked):
+        return [layer_slice(stacked, i) for i in range(n_stacked(stacked))]
+    layers = []
+    for b in range(n_stacked(stacked['moe'])):
+        block = layer_slice(stacked['dense'], b)
+        layers += [layer_slice(block, j) for j in range(n_stacked(block))]
+        layers.append(layer_slice(stacked['moe'], b))
+    return layers
 
 
 # ---------------------------------------------------------------------------
@@ -133,21 +197,68 @@ def attn_block(p, x, cfg: ModelConfig, *, causal=True, positions=None,
 
 def dense_layer_fwd(layer, x, cfg: ModelConfig, *, causal=True,
                     positions=None):
-    """One layer; returns (output, aux) as the reference does (aux is
-    empty: a dense layer has no load-balance loss)."""
+    """One layer; returns (output, aux) as the reference does (aux is the
+    MoE's stats, empty for a dense feed-forward)."""
     h = x + attn_block(layer['attn'], cm.rms_norm(x, layer['ln1']), cfg,
                        causal=causal, positions=positions, window=cfg.window)
     pre = cm.rms_norm(h, layer['ln2'])
-    return h + mlp_mod.apply_mlp(layer['mlp'], pre, cfg.mlp_kind), {}
+    if 'moe' in layer:
+        y, aux = moe_mod.apply_moe(layer['moe'], pre,
+                                   capacity_factor=cfg.capacity_factor)
+    else:
+        y, aux = mlp_mod.apply_mlp(layer['mlp'], pre, cfg.mlp_kind), {}
+    return h + y, aux
 
+
+def ssm_layer_fwd(layer, x, cfg: ModelConfig):
+    return x + ssm_mod.apply_mamba_block(
+        layer['mamba'], cm.rms_norm(x, layer['ln1']),
+        d_state=cfg.ssm_state, headdim=cfg.ssm_headdim, chunk=cfg.ssm_chunk)
+
+
+# ---------------------------------------------------------------------------
+# Stacks
+# ---------------------------------------------------------------------------
 
 def run_dense_stack(stacked, x, cfg: ModelConfig, *, causal=True,
                     positions=None):
-    """The layers in order; returns (h, summed load-balance loss = 0)."""
-    for i in range(stacked['ln1'].shape[0]):
-        x, _ = dense_layer_fwd(layer_slice(stacked, i), x, cfg,
-                               causal=causal, positions=positions)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    """The layers in order (super-blocks: each block's dense layers, then
+    its MoE layer); returns (h, summed load-balance loss, f32)."""
+    lb = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in dense_layers(stacked):
+        x, aux = dense_layer_fwd(layer, x, cfg, causal=causal,
+                                 positions=positions)
+        if 'load_balance_loss' in aux:
+            lb = lb + aux['load_balance_loss']
+    return x, lb
+
+
+def run_ssm_stack(stacked, x, cfg: ModelConfig):
+    for i in range(n_stacked(stacked)):
+        x = ssm_layer_fwd(layer_slice(stacked, i), x, cfg)
+    return x
+
+
+def hybrid_groups(cfg: ModelConfig):
+    """Split cfg.n_layers ssm layers into groups; a shared attention block
+    runs between consecutive groups (zamba2-style)."""
+    k = cfg.attn_every
+    bounds, start = [], 0
+    while start < cfg.n_layers:
+        end = min(start + k, cfg.n_layers)
+        bounds.append((start, end))
+        start = end
+    return bounds  # attention after every group except the last
+
+
+def run_hybrid_stack(params, x, cfg: ModelConfig, *, positions=None):
+    groups = hybrid_groups(cfg)
+    for gi, (s, e) in enumerate(groups):
+        x = run_ssm_stack(layer_slice(params['layers'], slice(s, e)), x, cfg)
+        if gi < len(groups) - 1:
+            x, _ = dense_layer_fwd(params['shared_attn'], x, cfg,
+                                   causal=True, positions=positions)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -160,12 +271,21 @@ def embed_tokens(params, tokens, cfg: ModelConfig):  # noqa: ARG001
 
 def forward_logits(params, batch, cfg: ModelConfig):
     """batch: dict with 'tokens' [B, S].  Returns (logits [B, S, V_padded],
-    aux)."""
+    aux); aux holds the summed ``load_balance_loss`` for the dense and MoE
+    families and is empty for SSM and hybrid, as in the reference."""
     check_ported(cfg)
     tokens = batch['tokens']
     x = embed_tokens(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=x.device)
-    x, lb = run_dense_stack(params['layers'], x, cfg, positions=positions)
+    aux = {}
+    if cfg.family in ('dense', 'moe'):
+        x, aux['load_balance_loss'] = run_dense_stack(params['layers'], x,
+                                                      cfg,
+                                                      positions=positions)
+    elif cfg.family == 'ssm':
+        x = run_ssm_stack(params['layers'], x, cfg)
+    else:
+        x = run_hybrid_stack(params, x, cfg, positions=positions)
     x = cm.rms_norm(x, params['ln_f'])
-    return x @ params['unembed'], {'load_balance_loss': lb}
+    return x @ params['unembed'], aux

@@ -1508,3 +1508,136 @@ def test_full_depth_model_kernel_path_equals_plain(dev):
     torch.testing.assert_close(kern.logits(params, batch)[0],
                                plain.logits(params, batch)[0], atol=1e-4,
                                rtol=0)
+
+
+#: the reduced MoE, SSM and hybrid models (f32), as the CPU parity tests
+#: build them: scout, maverick with two super-blocks, mamba2, zamba2 with
+#: three groups (two applications of its shared attention block)
+FAMILY_CASES = {'scout': ('llama4-scout-17b-a16e', {}),
+                'maverick': ('llama4-maverick-400b-a17b', dict(n_layers=4)),
+                'mamba2': ('mamba2-130m', {}),
+                'zamba2': ('zamba2-1.2b', dict(n_layers=5))}
+
+
+def _family(case, impl='flash_jnp'):
+    """(model config, its params on the CPU, its params on the card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    arch, kw = FAMILY_CASES[case]
+    cfg = get_config(arch).reduced(attn_impl=impl, **kw)
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    return cfg, params, _to(params, torch.device('cuda'))
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+@pytest.fixture
+def moe_routes(monkeypatch):
+    """Each ``apply_moe`` call's top-1 expert per token, on the host."""
+    from repro_torch.models import moe
+    seen, apply = [], moe.apply_moe
+
+    def wrap(p, x, **kw):
+        seen.append(moe.route(p, x.reshape(-1, x.shape[-1]))[0].cpu())
+        return apply(p, x, **kw)
+    monkeypatch.setattr(moe, 'apply_moe', wrap)
+    return seen
+
+
+@pytest.mark.parametrize('impl', ['flash_jnp', 'pallas'])
+@pytest.mark.parametrize('case', sorted(FAMILY_CASES))
+def test_family_forward_logits_on_the_card_equal_the_cpu(dev, moe_routes,
+                                                         case, impl):
+    """``forward_logits`` of the reduced model in f32 on the card against
+    the same model on the CPU: logits within 1e-4 (f32 products in
+    another order), every MoE layer's routes equal; with ``'pallas'`` on
+    the card kernel 21 launches once per attention application."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.model import build_model
+    cfg, host, card = _family(case, impl)
+    model = build_model(cfg)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40)))
+    want, want_aux = model.logits(host, {'tokens': tokens})
+    host_routes = list(moe_routes)
+    moe_routes.clear()
+    backend.reset_launches()
+    got, aux = model.logits(card, {'tokens': tokens.to(dev)})
+    torch.cuda.synchronize()
+    n_attn = (0 if cfg.family == 'ssm' else len(tfm.hybrid_groups(cfg)) - 1
+              if cfg.family == 'hybrid' else cfg.n_layers)
+    assert backend.LAUNCHES['swa_attention'] == (
+        n_attn if impl == 'pallas' else 0)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+    assert set(aux) == set(want_aux)
+    for key in aux:
+        torch.testing.assert_close(aux[key].cpu(), want_aux[key], atol=1e-5,
+                                   rtol=0)
+    assert len(moe_routes) == len(host_routes)
+    for a, b in zip(moe_routes, host_routes):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('case', sorted(FAMILY_CASES))
+def test_family_decode_on_the_card_equals_the_cpu(dev, case):
+    """A 12-token prefill through the caches (KV, conv, SSM) and 4 greedy
+    ``serve_step``s on the card against the CPU: the prefill's logits and
+    every cache within 1e-4, the same tokens."""
+    from repro_torch.launch.steps import ServeSetup
+    from repro_torch.models.model import build_model
+    cfg, host, card = _family(case)
+    model = build_model(cfg)
+    setup = ServeSetup(model)
+    prompts = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 12)))
+    out = {}
+    for where, params, d in (('cpu', host, torch.device('cpu')),
+                             ('cuda', card, dev)):
+        cache, logits = model.prefill(params, model.init_cache(2, 16,
+                                                               device=d),
+                                      prompts.to(d))
+        tok = logits[:, -1].argmax(-1)
+        toks = [tok]
+        for _ in range(4):
+            cache, tok = setup.serve_step(params, cache, tok[:, None])
+            toks.append(tok)
+        out[where] = (logits.cpu(), _to({k: v for k, v in cache.items()
+                                         if k != 'length'},
+                                        torch.device('cpu')),
+                      torch.stack(toks, 1).cpu())
+    torch.testing.assert_close(out['cuda'][0], out['cpu'][0], atol=1e-4,
+                               rtol=0)
+    for key, v in out['cpu'][1].items():
+        torch.testing.assert_close(out['cuda'][1][key], v, atol=1e-4,
+                                   rtol=0)
+    assert torch.equal(out['cuda'][2], out['cpu'][2])
+
+
+#: kernel 21 at the head shapes of the MoE and hybrid families, at S 2048:
+#: llama4-scout (40 query heads over 8 KV heads of 128) and zamba2-1.2b's
+#: shared block (32 over 32 of 64), no window
+FAMILY_SWA_SHAPES = [(1, 2048, 40, 8, 128, None), (1, 2048, 32, 32, 64, None),
+                     (2, 300, 40, 8, 128, None)]
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('B,S,H,KH,D,win', FAMILY_SWA_SHAPES)
+def test_swa_attention_at_family_shapes_matches_plain(dev, B, S, H, KH, D,
+                                                      win, dtype):
+    """As ``test_swa_attention_matches_plain``: f32 within 2e-5, bf16 within
+    3e-2 and the elementwise bf16 bound."""
+    from repro_torch.kernels.swa_attention import swa_attention
+    dt = getattr(torch, dtype)
+    q, k, v = (t.to(dt) for t in _swa_inputs(dev, B, S, H, KH, D, seed=S))
+    out = swa_attention(q, k, v, window=win)
+    want = ref.swa_attention_ref(q.float(), k.float(), v.float(), window=win)
+    torch.cuda.synchronize()
+    assert out.dtype == dt and out.shape == q.shape
+    if dt == torch.float32:
+        torch.testing.assert_close(out, want, atol=2e-5, rtol=0)
+    else:
+        _assert_bf16_close(out, want, q, k, v, win)
+    assert backend.LAUNCHES['swa_attention'] == 1

@@ -1,4 +1,6 @@
-"""The port's dense model path against the JAX package on the CPU: the
+"""The port's dense model path against the JAX package on the CPU (the
+MoE, SSM and hybrid families: ``tests/test_torch_moe.py``,
+``tests/test_torch_ssm.py``): the
 configurations, the converter, the attention functions and kernel 21's
 plain version, ``forward_logits`` on both ``attn_impl`` paths and the
 teacher-forced ``Model.prefill``, on the same seeded inputs and the
@@ -91,15 +93,26 @@ def test_n_params_match_reference_at_full_size(arch):
     ('mamba2-130m', 25), ('zamba2-1.2b', 25), ('internvl2-26b', 26),
     ('whisper-medium', 26)])
 def test_families_not_ported_name_their_item(arch, item):
-    with pytest.raises(NotImplementedError, match=f'item {item}\\)'):
-        build_model(tcfgs.get_config(arch))
+    """The VLM and audio families (item 26) are refused; the MoE (item
+    24), SSM and hybrid (item 25) families build, and their full-size
+    parameter count is the reference's (counted on meta tensors)."""
+    if item == 26:
+        with pytest.raises(NotImplementedError, match=f'item {item}\\)'):
+            build_model(tcfgs.get_config(arch))
+        return
+    assert build_model(tcfgs.get_config(arch)).n_params() == \
+        j_build_model(jcfgs.get_config(arch)).n_params()
 
 
 def test_experts_in_a_dense_config_name_their_item():
+    """A dense configuration with experts builds MoE layers (item 24), as
+    the reference's does: the same parameter count."""
     cfg = dataclasses.replace(tcfgs.get_config('h2o-danube-3-4b').reduced(),
                               n_experts=4)
-    with pytest.raises(NotImplementedError, match='item 24\\)'):
-        build_model(cfg)
+    jcfg = dataclasses.replace(jcfgs.get_config('h2o-danube-3-4b').reduced(),
+                               n_experts=4)
+    assert 'moe' in build_model(cfg).param_shapes()['layers']
+    assert build_model(cfg).n_params() == j_build_model(jcfg).n_params()
 
 
 # -- params ------------------------------------------------------------------

@@ -185,9 +185,12 @@ Phases, each of which must pass:
              4 D flops a (query, key) pair at the bf16 tensor-core rate.
              Timed only, at ``INPUT_SHAPES['prefill_32k']``'s length (B 1,
              S 32,768, bf16) beside SDPA: no plain version fits there.
-             Also in bf16 at the families' prefill shapes (S 8192, no
-             window: llama4-scout's 40 heads over 8 KV heads of 128,
-             zamba2-1.2b's 32 over 32 of 64), held to the plain version
+             Also in bf16 at the families' prefill shapes (no window:
+             llama4-scout's 40 heads over 8 KV heads of 128 and
+             zamba2-1.2b's 32 over 32 of 64 at S 8192, internvl2-26b's
+             48 over 8 of 128 at S 8448 = 256 patches + 8192 tokens,
+             whisper-medium's decoder's 16 over 16 of 64 at S 8192),
+             held to the plain version
              with the same gates and timed beside SDPA (``is_causal``)
              against the same bound; and the f32 entry timed at the
              prefill shape beside SDPA in f32, against its bound at the
@@ -204,16 +207,21 @@ Phases, each of which must pass:
              tokens.  Prints seconds per prefill and its attention share,
              decode tokens/s, peak device memory and a profile of one
              prefill and one decode step.  bf16 products reduce in f32.
-12. families — the MoE, SSM and hybrid families at full width, one after
-             the other, random init on the card: llama4-scout-17b-a16e
-             (8 of 48 layers, 19,687,756,800 parameters),
-             llama4-maverick-400b-a17b (one super-block, a dense and a
-             128-expert MoE layer: 18,555,233,280), mamba2-130m (24
-             layers) and zamba2-1.2b (38 layers, 6 applications of its
-             shared attention block); only the MoE models' depth is cut.
-             Each as the serve phase: ``prefill_step`` on B 1 x S 8192 on
-             both ``attn_impl``s where it has attention (kernel 21 once
-             per attention application; the published capacity 1.25, its
+12. families — the MoE, SSM, hybrid, VLM and audio families at full
+             width, one after the other, random init on the card:
+             llama4-scout-17b-a16e (8 of 48 layers, 19,687,756,800
+             parameters), llama4-maverick-400b-a17b (one super-block, a
+             dense and a 128-expert MoE layer: 18,555,233,280),
+             mamba2-130m (24 layers), zamba2-1.2b (38 layers, 6
+             applications of its shared attention block), internvl2-26b
+             (48 layers, 19,900,471,296) and whisper-medium (24 encoder
+             and 24 decoder layers, 812,734,464); only the MoE models'
+             depth is cut.  Each as the serve phase: ``prefill_step`` on
+             B 1 x S 8192 (internvl2-26b: plus 256 seeded patch
+             embeddings, whisper-medium: 1500 seeded frame embeddings)
+             on both ``attn_impl``s where it has attention (kernel 21
+             once per causal attention application; the published
+             capacity 1.25, its
              ``dropped_frac`` and ``load_balance_loss`` printed), the
              two ``attn_impl``s' logits at the no-drop capacity
              ``capacity_factor = n_experts`` (an MoE model's on the
@@ -221,10 +229,13 @@ Phases, each of which must pass:
              positions whose expert routes agree, the others counted
              within ``ROUTE_FLIPS``, the teacher-forced ``Model.prefill``
              on 64 tokens within ``TEACHER_TOL`` at that capacity (route
-             flips within ``TEACHER_FLIPS``), greedy decode through
-             ``serve_step`` at
-             B 4, and ``serve.run`` at the JAX CLI's defaults for
-             mamba2-130m and zamba2-1.2b, equal to that decode.  Prints
+             flips within ``TEACHER_FLIPS``; whisper's cross caches filled
+             from the encoder first; not for internvl2-26b, whose
+             forward always prepends patches and whose decode has none),
+             greedy decode through ``serve_step`` at B 4 (whisper against
+             zero cross caches, as the JAX CLI serves it), and
+             ``serve.run`` at the JAX CLI's defaults for mamba2-130m,
+             zamba2-1.2b and whisper-medium, equal to that decode.  Prints
              init and peak device memory, prefill tokens/s, kernel 21's
              share, decode ms a step and tokens/s, and profiles of one
              prefill and one decode step.
@@ -300,11 +311,15 @@ ATTN_ODD = ((1, 64, 2, 2, 16, None), (2, 100, 4, 2, 32, 17),
             (1, 100, 4, 1, 128, None), (2, 300, 8, 2, 120, 50),
             (1, 70, 2, 1, 256, 33), (1, 1, 4, 2, 64, None),
             (1, 200, 4, 4, 8, 1))
-#: kernel 21 at the MoE and hybrid families' bulk-prefill shapes (B, S, H,
-#: KH, D, window): llama4-scout's 40 query heads over 8 KV heads of 128,
-#: zamba2-1.2b's shared block's 32 over 32 of 64; neither has a window
+#: kernel 21 at the families' bulk-prefill shapes (B, S, H, KH, D,
+#: window): llama4-scout's 40 query heads over 8 KV heads of 128,
+#: zamba2-1.2b's shared block's 32 over 32 of 64, internvl2-26b's 48 over
+#: 8 of 128 over its 256 patches and 8192 tokens, whisper-medium's
+#: decoder's 16 over 16 of 64; none has a window
 FAMILY_ATTN = {'llama4-scout-17b-a16e': (1, 8192, 40, 8, 128, None),
-               'zamba2-1.2b': (1, 8192, 32, 32, 64, None)}
+               'zamba2-1.2b': (1, 8192, 32, 32, 64, None),
+               'internvl2-26b': (1, 8448, 48, 8, 128, None),
+               'whisper-medium': (1, 8192, 16, 16, 64, None)}
 
 
 def _card_line() -> str:
@@ -2843,8 +2858,9 @@ def attention_kernel_phase(torch, fails: list) -> list:
     tolerances, ``tests/test_kernels.py``), bf16 also elementwise within
     ``BF16_RTOL`` of the plain output and its spread, plus ``BF16_ATOL``
     (printed as the worst ratio of error to that bound); and in bf16 at
-    the families' prefill shapes (``FAMILY_ATTN``: llama4-scout's and
-    zamba2-1.2b's shared block's heads, S 8192, no window).  Timed in
+    the families' prefill shapes (``FAMILY_ATTN``: llama4-scout's,
+    zamba2-1.2b's shared block's, internvl2-26b's and whisper-medium's
+    decoder's heads, no window).  Timed in
     bf16 at the prefill shape and the families' shapes beside the plain
     version and ``scaled_dot_product_attention`` (a boolean band mask
     where there is a window, else ``is_causal``; ``enable_gqa=True``;
@@ -3186,11 +3202,17 @@ def _serve_runs(torch, attn_ms: float, fails: list) -> dict:
 #: vocabulary: llama4-scout's 48 layers hold 107,771,827,200 parameters
 #: (200.7 GiB in bf16) and llama4-maverick's 397,693,916,160, more than
 #: one card; maverick keeps one whole super-block (a dense layer and a
-#: 128-expert MoE layer)
+#: 128-expert MoE layer).  internvl2-26b (37.1 GiB in bf16) fits whole
 FAMILIES = (('llama4-scout-17b-a16e', 8, 19_687_756_800),
             ('llama4-maverick-400b-a17b', 2, 18_555_233_280),
             ('mamba2-130m', None, 167_832_000),
-            ('zamba2-1.2b', None, 1_170_473_856))
+            ('zamba2-1.2b', None, 1_170_473_856),
+            ('internvl2-26b', None, 19_900_471_296),
+            ('whisper-medium', None, 812_734_464))
+#: the models whose ``serve.run`` the phase drives at full size: those at
+#: their published depth but internvl2-26b, whose run would draw its 37.1
+#: GiB again for the text-only decode the phase runs through ``serve_step``
+SERVE_RUNS = ('mamba2-130m', 'zamba2-1.2b', 'whisper-medium')
 #: an MoE model's pallas against flash_jnp logit comparison runs at the
 #: no-drop capacity (``capacity_factor = n_experts``) on the first NODROP_S
 #: tokens of the bulk prefill's S 8192: at that capacity an expert's queue
@@ -3212,23 +3234,26 @@ ROUTE_FLIPS, TEACHER_FLIPS = NODROP_S // 8, 8
 
 def families_phase(torch, attn_ms: dict, fails: list) -> dict:
     """The MoE (llama4-scout at 8 of 48 layers, llama4-maverick at one
-    super-block), SSM (mamba2-130m) and hybrid (zamba2-1.2b) families at
-    full width, one after the other, random init on the card, through
-    the port's serving entry points, as the serve phase drives
-    h2o-danube-3-4b: ``prefill_step`` on B 1 x S 8192 on both
-    ``attn_impl``s where the model has attention (kernel 21 once per
-    attention application; published capacity 1.25, its ``dropped_frac``
+    super-block), SSM (mamba2-130m), hybrid (zamba2-1.2b), VLM
+    (internvl2-26b) and audio (whisper-medium) families at full width,
+    one after the other, random init on the card, through the port's
+    serving entry points, as the serve phase drives h2o-danube-3-4b:
+    ``prefill_step`` on B 1 x S 8192 (with the VLM's seeded patch or the
+    audio family's frame embeddings) on both ``attn_impl``s where the
+    model has attention (kernel 21 once per causal attention
+    application; published capacity 1.25, its ``dropped_frac``
     and ``load_balance_loss`` printed); at ``capacity_factor = n_experts``
     (no drops, as a decode step has none) the two ``attn_impl``s' logits
     (an MoE model's on the first ``NODROP_S`` tokens) within
     ``PREFILL_GAP`` at the positions whose routes agree in every MoE
     layer, the count of the others within ``ROUTE_FLIPS``, and the
     teacher-forced ``Model.prefill`` on 64 tokens within ``TEACHER_TOL``
-    of ``forward_logits``; greedy decode through ``serve_step`` at
-    B 4; ``serve.run`` at the JAX CLI's defaults with ``full_size=True``
-    for mamba2-130m and zamba2-1.2b, which must give that decode's
-    tokens.  Returns kernel 21's launches in llama4-scout's and
-    zamba2-1.2b's prefill under their records' names."""
+    of ``forward_logits`` (whisper's cross caches filled from the
+    encoder; none for the VLM, whose decode has no patch context);
+    greedy decode through ``serve_step`` at B 4; ``serve.run`` at the JAX
+    CLI's defaults with ``full_size=True`` for ``SERVE_RUNS``, which must
+    give that decode's tokens.  Returns kernel 21's launches in the
+    prefill of each model of ``FAMILY_ATTN`` under its record's name."""
     matmul = torch.backends.cuda.matmul
     reduced = matmul.allow_bf16_reduced_precision_reduction
     matmul.allow_bf16_reduced_precision_reduction = False
@@ -3312,7 +3337,9 @@ def _family_run(torch, arch, depth, n_want, attn_ms, fails) -> dict:
           f'{f" (of {get_config(arch).n_layers})" if depth else ""}, '
           f'd_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of '
           f'{cfg.head_dim}, d_ff {cfg.d_ff}, experts {cfg.n_experts} (MoE '
-          f'every {cfg.moe_every}), ssm state {cfg.ssm_state}, attention '
+          f'every {cfg.moe_every}), ssm state {cfg.ssm_state}, patches '
+          f'{cfg.n_patches}, encoder layers {cfg.enc_layers} over '
+          f'{cfg.enc_seq if cfg.enc_layers else 0} frames, causal attention '
           f'applications {n_attn}, vocab {cfg.vocab_size}, {cfg.dtype}: '
           f'{n:,} parameters')
     if n != n_want:
@@ -3326,11 +3353,9 @@ def _family_run(torch, arch, depth, n_want, attn_ms, fails) -> dict:
           f'{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, '
           f'peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB')
 
-    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
-                           generator=torch.Generator().manual_seed(1))
-    batch = {'tokens': tokens.to(dev)}
-    shape = (PREFILL_B, PREFILL_S)
     setup = steps.ServeSetup(main)
+    batch = _family_batch(torch, setup, dev)
+    shape = (PREFILL_B, PREFILL_S)
     backend.reset_launches()
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -3392,8 +3417,8 @@ def _family_run(torch, arch, depth, n_want, attn_ms, fails) -> dict:
             params, batch)
         torch.cuda.synchronize()
         flash_s = time.perf_counter() - t
-        cmp = {'tokens': batch['tokens'][:, :NODROP_S] if moe
-               else batch['tokens']}
+        cmp = (dict(batch, tokens=batch['tokens'][:, :NODROP_S]) if moe
+               else batch)
         (lp, _), rp = _recorded(lambda: tmodels['pallas'].logits(params,
                                                                  cmp))
         (lf, _), rf = _recorded(lambda: tmodels['flash_jnp'].logits(params,
@@ -3420,33 +3445,46 @@ def _family_run(torch, arch, depth, n_want, attn_ms, fails) -> dict:
                          f'{ROUTE_FLIPS}), last next token equal {same}')
         del lp, lf, rp, rf
 
-    prompt = batch['tokens'][:, :TEACHER_LEN]
+    prompt = dict(batch, tokens=batch['tokens'][:, :TEACHER_LEN])
     tmain = tmodels[impls[0]]
-    (_, step), rd = _recorded(lambda: tmain.prefill(
-        params, tmain.init_cache(PREFILL_B, TEACHER_LEN, device=dev),
-        prompt))
-    n_moe = len(rd) // TEACHER_LEN
-    for impl in impls:
-        (full, _), rfw = _recorded(lambda: tmodels[impl].logits(
-            params, {'tokens': prompt}))
-        agree = None
-        if moe:
-            by_layer = [(torch.stack([rd[t * n_moe + j][0]
-                                      for t in range(TEACHER_LEN)], 1), None)
-                        for j in range(n_moe)]
-            agree = _agree(by_layer, rfw, (PREFILL_B, TEACHER_LEN))
-        flips = 0 if agree is None else int((~agree).sum())
-        diff = _logit_gap(step, full, agree)
-        print(f'{tag}: teacher-forced Model.prefill vs forward_logits '
-              f'({impl}) on {TEACHER_LEN} tokens: routes differ at {flips} '
-              f'(bound {TEACHER_FLIPS}); max abs diff {diff:.4e} at the '
-              f'others (tolerance {TEACHER_TOL})')
-        if not (diff <= TEACHER_TOL and flips <= TEACHER_FLIPS):
-            fails.append(f'{tag}: teacher-forced prefill vs forward_logits '
-                         f'({impl}) {diff:.4e} > {TEACHER_TOL} or {flips} '
-                         f'route flips > {TEACHER_FLIPS}')
-        del full
-    del step, rd, batch
+    if cfg.family == 'vlm':
+        # forward_logits always prepends the patches, and a decode step
+        # has no patch context (the reference's): nothing to hold the
+        # decode to here; the CPU suite holds it to the reference's
+        print(f'{tag}: teacher-forced Model.prefill not compared: '
+              f'forward_logits prepends {cfg.n_patches} patches, the '
+              f'decode has none')
+    else:
+        cache = tmain.init_cache(PREFILL_B, TEACHER_LEN, device=dev)
+        if cfg.family == 'audio':
+            cache = _fill_cross(tfm, params, cache, prompt['frame_embeds'],
+                                cfg)
+        (_, step), rd = _recorded(lambda: tmain.prefill(params, cache,
+                                                        prompt['tokens']))
+        n_moe = len(rd) // TEACHER_LEN
+        for impl in impls:
+            (full, _), rfw = _recorded(lambda: tmodels[impl].logits(params,
+                                                                    prompt))
+            agree = None
+            if moe:
+                by_layer = [(torch.stack([rd[t * n_moe + j][0]
+                                          for t in range(TEACHER_LEN)], 1),
+                             None) for j in range(n_moe)]
+                agree = _agree(by_layer, rfw, (PREFILL_B, TEACHER_LEN))
+            flips = 0 if agree is None else int((~agree).sum())
+            diff = _logit_gap(step, full, agree)
+            print(f'{tag}: teacher-forced Model.prefill vs '
+                  f'forward_logits ({impl}) on {TEACHER_LEN} tokens: routes '
+                  f'differ at {flips} (bound {TEACHER_FLIPS}); max abs diff '
+                  f'{diff:.4e} at the others (tolerance {TEACHER_TOL})')
+            if not (diff <= TEACHER_TOL and flips <= TEACHER_FLIPS):
+                fails.append(f'{tag}: teacher-forced prefill vs '
+                             f'forward_logits ({impl}) {diff:.4e} > '
+                             f'{TEACHER_TOL} or {flips} route flips > '
+                             f'{TEACHER_FLIPS}')
+            del full
+        del step, rd, cache
+    del batch, prompt
 
     # greedy decode through ServeSetup.serve_step on serve.run's params
     # (the same seed and draws) and prompts
@@ -3479,12 +3517,14 @@ def _family_run(torch, arch, depth, n_want, attn_ms, fails) -> dict:
         fails.append(f'{tag}: greedy ids out of range {greedy.tolist()}')
     profile_train(torch, f'{tag} profile (one serve_step, B {B})',
                   lambda: setup.serve_step(params, cache, tok[:, None]))
+    if cfg.family == 'audio':
+        cross_padding(torch, tfm, params, cache, cfg, tag)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f'{tag}: peak device memory {peak:.3f} GiB')
     del params, cache, logits
     torch.cuda.empty_cache()
 
-    if depth is None:
+    if arch in SERVE_RUNS:
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         toks = serve.run(arch, full_size=True, **SERVE)
@@ -3497,6 +3537,55 @@ def _family_run(torch, arch, depth, n_want, attn_ms, fails) -> dict:
             fails.append(f'{tag}: serve.run tokens {toks.tolist()} are not '
                          f'the serve_step greedy decode {greedy.tolist()}')
     return out
+
+
+def cross_padding(torch, tfm, params, cache, cfg, tag):
+    """What the reference's blocking costs a whisper decode step (printed
+    only): one decoder layer's ``cross_attn_block`` on a decode step's
+    query against its cross caches, with the model's blocks (the 1-row
+    query padded to ``q_block`` rows, the ``enc_seq`` keys to a multiple
+    of ``kv_block``) and with blocks that pad nothing, CUDA events."""
+    import dataclasses
+    xattn = tfm.layer_slice(params['dec_layers'], 0)['xattn']
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    x = torch.randn((cache['xk'].shape[1], 1, cfg.d_model), generator=gen,
+                    device='cuda').to(cfg.dtype)
+    kv = (cache['xk'][0], cache['xv'][0])
+    tight = dataclasses.replace(cfg, q_block=1, kv_block=cfg.enc_seq)
+    ms = [_time_ms(torch, lambda c=c: tfm.cross_attn_block(xattn, x, kv, c),
+                   3, 20) for c in (cfg, tight)]
+    print(f'{tag}: cross-attention of one decode step, one layer: '
+          f'{ms[0]:.4f} ms with q_block {cfg.q_block}, kv_block '
+          f'{cfg.kv_block} (the reference\'s), {ms[1]:.4f} ms unpadded '
+          f'(q_block 1, kv_block {cfg.enc_seq}); x {cfg.n_layers} layers: '
+          f'{cfg.n_layers * (ms[0] - ms[1]):.3f} ms a step of padding')
+
+
+def _family_batch(torch, setup, dev):
+    """The bulk prefill's batch on the card, shaped by
+    ``setup.prefill_batch`` at B 1 x S 8192: seeded tokens and, for the
+    VLM and the audio family, its patch or frame embeddings (the stubbed
+    vision tower's and mel front end's outputs), 0.1 N(0, 1) in f32, all
+    drawn by a CPU generator."""
+    from repro_torch.configs import InputShape
+    gen = torch.Generator().manual_seed(1)
+    vocab = setup.model.cfg.vocab_size
+    shape = InputShape('prefill', PREFILL_S, PREFILL_B, 'prefill')
+    return {k: (torch.randint(0, vocab, m.shape, generator=gen)
+                if k == 'tokens' else 0.1 * torch.randn(m.shape,
+                                                        generator=gen)
+                ).to(dev) for k, m in setup.prefill_batch(shape).items()}
+
+
+def _fill_cross(tfm, params, cache, frames, cfg):
+    """Whisper's ``xk``/``xv`` from the encoder's output, layer by layer,
+    as the JAX package's test fills them (no entry point does)."""
+    enc = tfm.encode(params, frames, cfg)
+    for i in range(cfg.n_layers):
+        layer = tfm.layer_slice(params['dec_layers'], i)
+        cache['xk'][i], cache['xv'][i] = tfm.project_enc_kv(layer['xattn'],
+                                                            enc, cfg)
+    return cache
 
 
 def one_epoch(task):

@@ -8,8 +8,10 @@ random init.
 Runs on the card unless ``--device cpu`` is given.  Prompts are drawn by
 a CPU ``torch.Generator`` seeded with ``seed``, so every device serves the
 same prompts; the params by a generator on the device, seeded the same.
-The dense, MoE, SSM and hybrid families are ported (VLM and audio are
-ROADMAP item 26); checkpoint restore is not (item 7).
+Every family serves, as the JAX CLI serves it: tokens-only prompts, so the
+VLM decodes text with no patch context and whisper against zero cross
+caches (no encoder pass fills them).  Checkpoint restore is not ported
+(item 7).
 """
 from __future__ import annotations
 

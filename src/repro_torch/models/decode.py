@@ -1,5 +1,5 @@
-"""Serving path: KV / conv / SSM caches and single-token decode steps of
-the dense, MoE, SSM and hybrid families.
+"""Serving path: KV / cross / conv / SSM caches and single-token decode
+steps of every family.
 
 ``decode_step`` consumes a cache representing ``length`` already
 processed tokens and produces logits for one new token.  Sliding-window
@@ -11,12 +11,18 @@ independent of context length.
 The cache is a dict as the reference's: ``k``, ``v`` [L, B, slots, KH, hd]
 in the model's dtype (the hybrid family: one slice per application of
 its shared attention block), ``positions`` [slots] int32 on the device;
-for the SSM and hybrid families ``conv`` [L, B, CONV_K - 1, ch] in the
+for the audio family ``xk``, ``xv`` [L, B, enc_seq, KH, hd] in the
+model's dtype, the cross-attention's keys and values of the encoder's
+output, zero-filled as the reference's (its ``serve.run`` never fills
+them, so its whisper decodes against zeros; a caller that wants the
+encoder's context fills them with ``transformer.project_enc_kv``); for
+the SSM and hybrid families ``conv`` [L, B, CONV_K - 1, ch] in the
 model's dtype and ``ssm`` [L, B, heads, headdim, state] in f32; and
 ``length``, a host-side Python int (the reference keeps a device scalar).
 ``decode_step`` updates the cache IN PLACE and returns it (the JAX code
 donates it and returns a new one).  An MoE layer decodes with a capacity
 of no drops, ``max(capacity_factor, n_experts)``, as the reference does.
+The VLM decodes text only, with no patch context, as the reference's.
 """
 from __future__ import annotations
 
@@ -43,7 +49,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, length: int = 0,
     """Zero-initialised cache.  ``length`` marks how many tokens the cache
     is considered to already hold (the decode shapes set it to seq_len).
     ``device='meta'`` gives shapes and dtypes only."""
-    tfm.check_ported(cfg)
+    tfm.check_family(cfg)
     dev = torch.device(device)
     if dev.type != 'meta':
         dev = resolve_device(dev)
@@ -63,6 +69,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, length: int = 0,
         c.update(k=torch.zeros(shape, dtype=cfg.dtype, device=dev),
                  v=torch.zeros(shape, dtype=cfg.dtype, device=dev),
                  positions=torch.where(slots < length, slots, -1))
+    if cfg.family == 'audio':
+        shape = (cfg.n_layers, batch, cfg.enc_seq, cfg.n_kv_heads,
+                 cfg.head_dim)
+        c.update(xk=torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                 xv=torch.zeros(shape, dtype=cfg.dtype, device=dev))
     return c
 
 
@@ -88,12 +99,19 @@ def _attn_decode(layer_attn, h, kc, vc, positions, length: int,
 
 
 def _layer_decode(layer, x, cache, i: int, cfg: ModelConfig):
-    """One attention layer (dense or MoE feed-forward) against KV slice
-    ``i`` of the cache."""
+    """One attention layer (dense or MoE feed-forward; audio: a decoder
+    layer, its cross-attention against slice ``i`` of ``xk``/``xv``)
+    against KV slice ``i`` of the cache."""
     o, _, _, _ = _attn_decode(layer['attn'], cm.rms_norm(x, layer['ln1']),
                               cache['k'][i], cache['v'][i],
                               cache['positions'], cache['length'], cfg)
     h = x + o
+    if 'xattn' in layer:
+        h = h + tfm.cross_attn_block(layer['xattn'],
+                                     cm.rms_norm(h, layer['ln_x']),
+                                     (cache['xk'][i], cache['xv'][i]), cfg)
+        return h + mlp_mod.apply_mlp(layer['mlp'],
+                                     cm.rms_norm(h, layer['ln2']), 'gelu')
     pre = cm.rms_norm(h, layer['ln2'])
     if 'moe' in layer:
         # no-drop capacity at decode time: a single-token routing group
@@ -125,9 +143,9 @@ def _ssm_decode(layers, x, cache, lo: int, hi: int, cfg: ModelConfig):
 def decode_step(params, cache, tokens, cfg: ModelConfig):
     """tokens: [B, 1] -> (cache, logits [B, V_padded]); the cache is
     updated in place."""
-    tfm.check_ported(cfg)
+    tfm.check_family(cfg)
     x = tfm.embed_tokens(params, tokens, cfg)
-    layers = params['layers']
+    layers = params['dec_layers' if cfg.family == 'audio' else 'layers']
     if cfg.family == 'ssm':
         x = _ssm_decode(layers, x, cache, 0, cfg.n_layers, cfg)
     elif cfg.family == 'hybrid':
@@ -137,8 +155,9 @@ def decode_step(params, cache, tokens, cfg: ModelConfig):
             if gi < len(groups) - 1:
                 x = _layer_decode(params['shared_attn'], x, cache, gi, cfg)
     else:
-        # with super-blocks, layer i of the cache is sub-layer
-        # i % moe_every of block i // moe_every, its MoE layer the last
+        # dense, MoE, VLM, audio's decoder; with super-blocks, layer i of
+        # the cache is sub-layer i % moe_every of block i // moe_every, its
+        # MoE layer the last
         for i, layer in enumerate(tfm.dense_layers(layers)):
             x = _layer_decode(layer, x, cache, i, cfg)
     cache['length'] += 1

@@ -55,8 +55,7 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    """The model of ``cfg`` (the dense, MoE, SSM and hybrid families);
-    raises ``NotImplementedError`` naming the ROADMAP item for a family
-    the port does not have yet (VLM, audio)."""
-    tfm.check_ported(cfg)
+    """The model of ``cfg``: any of the reference's families (dense, MoE,
+    SSM, hybrid, VLM, audio); raises ``ValueError`` for another."""
+    tfm.check_family(cfg)
     return Model(cfg)

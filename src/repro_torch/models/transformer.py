@@ -1,14 +1,17 @@
-"""Decoder stacks of the dense, MoE, SSM and hybrid families: parameters,
-the prefill forward and its primitives.
+"""Decoder stacks of every assigned family (dense, MoE, SSM, hybrid, VLM,
+audio): parameters, the prefill forward and its primitives.
 
 Parameters keep the reference's tree: a nested dict with the layers
 stacked on a leading ``[L, ...]`` axis, dense weights ``[in, out]``;
 llama4-maverick's interleaved super-blocks are ``{'dense': [nb,
-moe_every - 1, ...], 'moe': [nb, ...]}``, and the hybrid family's one
-shared attention block is ``shared_attn``.  A Python loop over the layers
-takes the place of ``lax.scan``; there is no remat (forward only).  The
-VLM and audio families are not ported yet: ``check_ported`` names their
-ROADMAP item.
+moe_every - 1, ...], 'moe': [nb, ...]}``, the hybrid family's one
+shared attention block is ``shared_attn``, the VLM's projector of the
+(stubbed) patch embeddings is ``patch_proj`` ``[d_model, d_model]``, and
+the audio family's encoder-decoder holds ``enc_layers`` (dense layers),
+``dec_layers`` (self-attention, cross-attention ``xattn`` and a gelu
+MLP, each with its pre-norm), ``enc_ln_f`` and ``enc_pos`` ``[enc_seq,
+d_model]``.  A Python loop over the layers takes the place of
+``lax.scan``; there is no remat (forward only).
 """
 from __future__ import annotations
 
@@ -24,19 +27,12 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 
-#: family not ported yet -> the ROADMAP queue-1 item that ports it
-FAMILY_ITEMS = {'vlm': 26, 'audio': 26}
+FAMILIES = ('dense', 'moe', 'ssm', 'hybrid', 'vlm', 'audio')
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for a family
-    the port cannot build yet (VLM, audio)."""
-    if cfg.family in FAMILY_ITEMS:
-        raise NotImplementedError(
-            f'the {cfg.family!r} family ({cfg.arch_id}) is not ported to '
-            f'repro_torch yet (ROADMAP queue 1, item '
-            f'{FAMILY_ITEMS[cfg.family]})')
-    if cfg.family not in ('dense', 'moe', 'ssm', 'hybrid'):
+def check_family(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for a family the reference does not have."""
+    if cfg.family not in FAMILIES:
         raise ValueError(cfg.family)
 
 
@@ -94,10 +90,27 @@ def init_ssm_layer(generator, cfg: ModelConfig, lead=()):
     }
 
 
+def init_dec_layer(generator, cfg: ModelConfig, lead=()):
+    """Encoder-decoder (whisper) decoder layer: self-attention,
+    cross-attention and a gelu MLP, or ``lead`` of them stacked."""
+    return {
+        'ln1': cm.param(generator, (cfg.d_model,), torch.float32,
+                        init=cm.zeros_init, lead=lead),
+        'attn': init_attn_layer(generator, cfg, lead),
+        'ln_x': cm.param(generator, (cfg.d_model,), torch.float32,
+                         init=cm.zeros_init, lead=lead),
+        'xattn': init_attn_layer(generator, cfg, lead),
+        'ln2': cm.param(generator, (cfg.d_model,), torch.float32,
+                        init=cm.zeros_init, lead=lead),
+        'mlp': mlp_mod.init_mlp(generator, cfg.d_model, cfg.d_ff, 'gelu',
+                                cfg.dtype, lead),
+    }
+
+
 def init_params(generator, cfg: ModelConfig):
     """The whole model's params on ``generator``'s device, drawn from it
     (``generator=None``: ``meta`` tensors, shapes and dtypes only)."""
-    check_ported(cfg)
+    check_family(cfg)
     p = {
         'embed': cm.param(generator, (cfg.padded_vocab, cfg.d_model),
                           cfg.dtype, init=cm.embed_init),
@@ -106,7 +119,7 @@ def init_params(generator, cfg: ModelConfig):
         'unembed': cm.param(generator, (cfg.d_model, cfg.padded_vocab),
                             cfg.dtype),
     }
-    if cfg.family in ('dense', 'moe'):
+    if cfg.family in ('dense', 'moe', 'vlm'):
         if cfg.n_experts and cfg.moe_every > 1:
             # interleaved dense/MoE blocks (llama4-maverick style):
             # super-blocks of (moe_every - 1) dense layers + 1 MoE layer
@@ -123,10 +136,24 @@ def init_params(generator, cfg: ModelConfig):
         else:
             p['layers'] = init_dense_layer(generator, cfg,
                                            lead=(cfg.n_layers,))
+    elif cfg.family == 'audio':
+        p['enc_layers'] = init_dense_layer(generator, cfg,
+                                           lead=(cfg.enc_layers,))
+        p['dec_layers'] = init_dec_layer(generator, cfg,
+                                         lead=(cfg.n_layers,))
+        p['enc_ln_f'] = cm.param(generator, (cfg.d_model,), torch.float32,
+                                 init=cm.zeros_init)
+        p['enc_pos'] = cm.param(generator, (cfg.enc_seq, cfg.d_model),
+                                cfg.dtype, init=cm.embed_init)
     else:   # ssm, hybrid
         p['layers'] = init_ssm_layer(generator, cfg, lead=(cfg.n_layers,))
         if cfg.family == 'hybrid':
             p['shared_attn'] = init_dense_layer(generator, cfg)
+    if cfg.family == 'vlm':
+        # projector from the (stubbed) vision encoder into the LLM
+        # embedding
+        p['patch_proj'] = cm.param(generator, (cfg.d_model, cfg.d_model),
+                                   cfg.dtype)
     return p
 
 
@@ -193,6 +220,30 @@ def attn_block(p, x, cfg: ModelConfig, *, causal=True, positions=None,
                                      q_block=cfg.q_block,
                                      kv_block=cfg.kv_block)
     return o.reshape(B, S, -1) @ p['wo']
+
+
+def cross_attn_block(p, x, enc_kv, cfg: ModelConfig):
+    """x: [B, S, D]; enc_kv: (k, v) each [B, S_enc, KH, hd], already
+    projected (``project_enc_kv``).  q is not roped; non-causal."""
+    B, S, _ = x.shape
+    q = (x @ p['wq']).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = cm.rms_norm(q, p['q_norm'])
+    k, v = enc_kv
+    o = attn_mod.flash_attention(q, k, v, causal=False, q_block=cfg.q_block,
+                                 kv_block=cfg.kv_block)
+    return o.reshape(B, S, -1) @ p['wo']
+
+
+def project_enc_kv(p, enc_out, cfg: ModelConfig):
+    """The cross-attention's (k, v) [B, S_enc, KH, hd] of the encoder's
+    output (``k_norm`` on k only)."""
+    B, Se, _ = enc_out.shape
+    k = (enc_out @ p['wk']).reshape(B, Se, cfg.n_kv_heads, cfg.head_dim)
+    v = (enc_out @ p['wv']).reshape(B, Se, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        k = cm.rms_norm(k, p['k_norm'])
+    return k, v
 
 
 def dense_layer_fwd(layer, x, cfg: ModelConfig, *, causal=True,
@@ -269,23 +320,57 @@ def embed_tokens(params, tokens, cfg: ModelConfig):  # noqa: ARG001
     return params['embed'][tokens]
 
 
+def encode(params, frame_embeds, cfg: ModelConfig):
+    """The audio encoder: ``frame_embeds`` [B, enc_seq, D] (any float
+    dtype) cast to the model's, plus ``enc_pos``, through the non-causal,
+    unroped dense stack, then ``enc_ln_f``."""
+    frames = frame_embeds.to(cfg.dtype) + params['enc_pos'][None]
+    enc, _ = run_dense_stack(params['enc_layers'], frames, cfg, causal=False)
+    return cm.rms_norm(enc, params['enc_ln_f'])
+
+
+def dec_layer_fwd(layer, x, enc, cfg: ModelConfig, *, positions=None):
+    """One decoder layer of the audio family over the encoder's output
+    ``enc``: causal self-attention, cross-attention, gelu MLP."""
+    h = x + attn_block(layer['attn'], cm.rms_norm(x, layer['ln1']), cfg,
+                       causal=True, positions=positions)
+    kv = project_enc_kv(layer['xattn'], enc, cfg)
+    h = h + cross_attn_block(layer['xattn'], cm.rms_norm(h, layer['ln_x']),
+                             kv, cfg)
+    return h + mlp_mod.apply_mlp(layer['mlp'], cm.rms_norm(h, layer['ln2']),
+                                 'gelu')
+
+
 def forward_logits(params, batch, cfg: ModelConfig):
-    """batch: dict with 'tokens' [B, S].  Returns (logits [B, S, V_padded],
-    aux); aux holds the summed ``load_balance_loss`` for the dense and MoE
-    families and is empty for SSM and hybrid, as in the reference."""
-    check_ported(cfg)
+    """batch: dict with 'tokens' [B, S]; the VLM adds 'patch_embeds'
+    [B, n_patches, D], prepended after ``patch_proj`` (early fusion); audio
+    adds 'frame_embeds' [B, enc_seq, D] for the encoder.  Returns (logits
+    [B, S, V_padded], aux); aux holds the summed ``load_balance_loss`` for
+    the dense, MoE and VLM families and is empty for the others, as in
+    the reference."""
+    check_family(cfg)
     tokens = batch['tokens']
+    S = tokens.shape[1]
     x = embed_tokens(params, tokens, cfg)
-    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                             device=x.device)
+    if cfg.family == 'vlm':
+        patches = batch['patch_embeds'].to(cfg.dtype) @ params['patch_proj']
+        x = torch.cat([patches, x], dim=1)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = {}
-    if cfg.family in ('dense', 'moe'):
+    if cfg.family in ('dense', 'moe', 'vlm'):
         x, aux['load_balance_loss'] = run_dense_stack(params['layers'], x,
                                                       cfg,
                                                       positions=positions)
     elif cfg.family == 'ssm':
         x = run_ssm_stack(params['layers'], x, cfg)
-    else:
+    elif cfg.family == 'hybrid':
         x = run_hybrid_stack(params, x, cfg, positions=positions)
+    else:   # audio
+        enc = encode(params, batch['frame_embeds'], cfg)
+        for i in range(cfg.n_layers):
+            x = dec_layer_fwd(layer_slice(params['dec_layers'], i), x, enc,
+                              cfg, positions=positions)
+    if cfg.family == 'vlm':
+        x = x[:, -S:]   # logits for the text positions only
     x = cm.rms_norm(x, params['ln_f'])
     return x @ params['unembed'], aux

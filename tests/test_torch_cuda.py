@@ -1629,6 +1629,10 @@ def test_swa_attention_at_family_shapes_matches_plain(dev, B, S, H, KH, D,
                                                       win, dtype):
     """As ``test_swa_attention_matches_plain``: f32 within 2e-5, bf16 within
     3e-2 and the elementwise bf16 bound."""
+    _swa_matches_plain(dev, B, S, H, KH, D, win, dtype)
+
+
+def _swa_matches_plain(dev, B, S, H, KH, D, win, dtype):
     from repro_torch.kernels.swa_attention import swa_attention
     dt = getattr(torch, dtype)
     q, k, v = (t.to(dt) for t in _swa_inputs(dev, B, S, H, KH, D, seed=S))
@@ -1641,3 +1645,109 @@ def test_swa_attention_at_family_shapes_matches_plain(dev, B, S, H, KH, D,
     else:
         _assert_bf16_close(out, want, q, k, v, win)
     assert backend.LAUNCHES['swa_attention'] == 1
+
+
+#: kernel 21 at the VLM's and the audio decoder's head shapes, at a few
+#: hundred rows: internvl2-26b's 48 query heads over 8 KV heads of 128 (6
+#: a KV head, at 264 = 256 patches + 8 tokens and a ragged 300), and
+#: whisper-medium's 16 over 16 of 64; no window
+VLM_AUDIO_SWA_SHAPES = [(1, 264, 48, 8, 128, None), (1, 300, 48, 8, 128, None),
+                        (2, 300, 16, 16, 64, None)]
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('B,S,H,KH,D,win', VLM_AUDIO_SWA_SHAPES)
+def test_swa_attention_at_vlm_audio_shapes_matches_plain(dev, B, S, H, KH, D,
+                                                         win, dtype):
+    """As ``test_swa_attention_matches_plain``: f32 within 2e-5, bf16 within
+    3e-2 and the elementwise bf16 bound."""
+    _swa_matches_plain(dev, B, S, H, KH, D, win, dtype)
+
+
+def _vlm_audio(arch, impl='flash_jnp'):
+    """(reduced model config, its params on the CPU, on the card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    cfg = get_config(arch).reduced(attn_impl=impl)
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    return cfg, params, _to(params, torch.device('cuda'))
+
+
+def _vlm_audio_batch(cfg, B, S, seed=0):
+    """Seeded tokens and 0.1 N(0, 1) patch or frame embeddings (CPU)."""
+    rng = np.random.default_rng(seed)
+    batch = {'tokens': torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                    (B, S)))}
+    key, n = (('patch_embeds', cfg.n_patches) if cfg.family == 'vlm'
+              else ('frame_embeds', cfg.enc_seq))
+    batch[key] = torch.as_tensor(
+        0.1 * rng.normal(size=(B, n, cfg.d_model)), dtype=torch.float32)
+    return batch
+
+
+@pytest.mark.parametrize('arch', ['internvl2-26b', 'whisper-medium'])
+def test_vlm_audio_forward_logits_kernel_path_equals_plain(dev, arch):
+    """Reduced internvl2-26b and whisper-medium (f32) on the card:
+    ``'pallas'`` launches kernel 21 once per causal self-attention layer
+    (whisper's encoder and cross-attention take the plain path) and its
+    logits are within 1e-4 of ``'flash_jnp'``'s on the card, which are
+    within 1e-4 of the CPU's."""
+    import dataclasses
+
+    from repro_torch.models.model import build_model
+    cfg, host, card = _vlm_audio(arch)
+    plain = build_model(cfg)
+    kern = build_model(dataclasses.replace(cfg, attn_impl='pallas'))
+    batch = _vlm_audio_batch(cfg, 2, 100)
+    on_card = {k: v.to(dev) for k, v in batch.items()}
+    want, _ = plain.logits(host, batch)
+    got_plain, _ = plain.logits(card, on_card)
+    backend.reset_launches()
+    got, _ = kern.logits(card, on_card)
+    torch.cuda.synchronize()
+    assert backend.LAUNCHES['swa_attention'] == cfg.n_layers
+    assert got.shape == (2, 100, cfg.padded_vocab)
+    torch.testing.assert_close(got, got_plain, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got_plain.cpu(), want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize('arch', ['internvl2-26b', 'whisper-medium'])
+def test_vlm_audio_decode_on_the_card_equals_the_cpu(dev, arch):
+    """A 12-token prefill through the caches and 4 greedy ``serve_step``s
+    on the card against the CPU (whisper's cross caches filled from the
+    encoder's output): the prefill's logits and every cache within 1e-4,
+    the same tokens."""
+    from repro_torch.launch.steps import ServeSetup
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.model import build_model
+    cfg, host, card = _vlm_audio(arch)
+    model = build_model(cfg)
+    setup = ServeSetup(model)
+    batch = _vlm_audio_batch(cfg, 2, 12, seed=1)
+    out = {}
+    for where, params, d in (('cpu', host, torch.device('cpu')),
+                             ('cuda', card, dev)):
+        cache = model.init_cache(2, 16, device=d)
+        if cfg.family == 'audio':
+            enc = tfm.encode(params, batch['frame_embeds'].to(d), cfg)
+            for i in range(cfg.n_layers):
+                layer = tfm.layer_slice(params['dec_layers'], i)
+                cache['xk'][i], cache['xv'][i] = tfm.project_enc_kv(
+                    layer['xattn'], enc, cfg)
+        cache, logits = model.prefill(params, cache,
+                                      batch['tokens'].to(d))
+        tok = logits[:, -1].argmax(-1)
+        toks = [tok]
+        for _ in range(4):
+            cache, tok = setup.serve_step(params, cache, tok[:, None])
+            toks.append(tok)
+        out[where] = (logits.cpu(), _to({k: v for k, v in cache.items()
+                                         if k != 'length'},
+                                        torch.device('cpu')),
+                      torch.stack(toks, 1).cpu())
+    torch.testing.assert_close(out['cuda'][0], out['cpu'][0], atol=1e-4,
+                               rtol=0)
+    for key, v in out['cpu'][1].items():
+        torch.testing.assert_close(out['cuda'][1][key], v, atol=1e-4,
+                                   rtol=0)
+    assert torch.equal(out['cuda'][2], out['cpu'][2])

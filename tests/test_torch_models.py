@@ -93,13 +93,9 @@ def test_n_params_match_reference_at_full_size(arch):
     ('mamba2-130m', 25), ('zamba2-1.2b', 25), ('internvl2-26b', 26),
     ('whisper-medium', 26)])
 def test_families_not_ported_name_their_item(arch, item):
-    """The VLM and audio families (item 26) are refused; the MoE (item
-    24), SSM and hybrid (item 25) families build, and their full-size
-    parameter count is the reference's (counted on meta tensors)."""
-    if item == 26:
-        with pytest.raises(NotImplementedError, match=f'item {item}\\)'):
-            build_model(tcfgs.get_config(arch))
-        return
+    """The families of ROADMAP items 24 (MoE), 25 (SSM, hybrid) and 26
+    (VLM, audio) build, and their full-size parameter count is the
+    reference's (counted on meta tensors)."""
     assert build_model(tcfgs.get_config(arch)).n_params() == \
         j_build_model(jcfgs.get_config(arch)).n_params()
 

@@ -157,9 +157,6 @@ def test_serve_refusals(monkeypatch):
     with pytest.raises(NotImplementedError, match='item 7\\)'):
         serve.run('h2o-danube-3-4b', batch=1, prompt_len=2, gen=1,
                   ckpt='ckpt.npz', device='cpu')
-    with pytest.raises(NotImplementedError, match='item 26\\)'):
-        serve.run('whisper-medium', batch=1, prompt_len=2, gen=1,
-                  device='cpu')
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.run('h2o-danube-3-4b', batch=1, prompt_len=2, gen=1)

@@ -240,6 +240,27 @@ Phases, each of which must pass:
              share, decode ms a step and tokens/s, and profiles of one
              prefill and one decode step.
 
+13. train  — federated LLM training (silo-mode SAFA) on the card, random
+             init, bf16, no kernel on the path (every launch count must
+             stay 0): qwen3-1.7b at full width and depth (28 layers,
+             2,032,264,192 parameters) through ``train.run(...,
+             full_size=True)`` at the JAX CLI's defaults (4 clients,
+             fraction 0.5, tau 5, crash 0.2, batch 4, seq 64, 2 local
+             steps, lr 0.05), rounds cut to 3; one ``SiloSetup.train_step``
+             round at ``INPUT_SHAPES['train_4k']``'s length S 4096, its
+             global batch cut from 256 to 4 (one sequence a client), one
+             local step, remat on; mamba2-130m (24 layers) through
+             ``train.run`` at the same defaults.  Each prints seconds a
+             round (local train, server step), trained tokens/s and peak
+             device memory; profiles give the busy share of a round and
+             launches a client step.  Checks: every loss finite; 8 SGD
+             steps on one batch lower its loss; one client batch's bf16
+             loss and gradients against an f32 recompute on the card
+             (``F32_LOSS_GAP``, ``F32_GRAD_COS``); at 4 of 28 layers the
+             in-place ``train_step`` bit for bit the out-of-place
+             ``protocol.safa_round`` with per-client SGD (global, local,
+             cache); the peak under the card's memory.
+
 The line before the last is a JSON object of kernel records; the last
 line is ``{"ok": true, "device": {...}}``.  Without a visible card, or
 run from a directory that holds no ``src/repro_torch``, the script prints
@@ -252,6 +273,11 @@ timed on both rounds), with the package under DIR (a checkout's
 ``src/``; default this script's): two versions of the kernels compared
 in turns on one card, with the same phase timing both.  It exits 0 when
 every check passes and prints no ``ok`` line.
+
+    python3 chip_smoke.py --train
+
+runs only the build and the train phase (13), with the same exit
+contract.
 """
 import argparse
 import json
@@ -3588,6 +3614,331 @@ def _fill_cross(tfm, params, cache, frames, cfg):
     return cache
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: federated LLM training (silo-mode SAFA)
+# ---------------------------------------------------------------------------
+
+#: the train phase's model: qwen3-1.7b at full width and depth (28 layers,
+#: d_model 2048, 16/8 heads of 128, d_ff 6144, vocab 151,936)
+TRAIN_ARCH = 'qwen3-1.7b'
+#: the JAX CLI's defaults (``repro.launch.train.main``), rounds cut to 3
+TRAIN_CLI = dict(rounds=3, n_clients=4, fraction=0.5, lag_tolerance=5,
+                 crash_prob=0.2, batch=4, seq=64, local_steps=2, lr=0.05)
+#: the compute-heavy round: INPUT_SHAPES['train_4k']'s sequence length with
+#: its global batch cut from 256 to 4 (one sequence a client), SiloSetup's
+#: one local step, remat on
+LONG_BATCH = 4
+#: test_system.py's masks of a four-client round
+TRAIN_MASKS = {'sync': [1, 1, 0, 1], 'picked': [1, 0, 0, 1],
+               'undrafted': [0, 1, 0, 0], 'deprecated': [0, 0, 1, 0],
+               'completed': [1, 1, 0, 1]}
+TRAIN_WEIGHTS = [0.3, 0.3, 0.2, 0.2]
+#: depth of the in-place against out-of-place check (of 28 layers)
+CUT_DEPTH = 4
+#: bounds of one client batch's bf16 loss and gradient against an f32
+#: recompute of the same params on the card: |loss - f32 loss| and the
+#: least cosine of a gradient leaf with its f32 twin (on an H100 before
+#: the final run: 0.00019 and 0.99967)
+F32_LOSS_GAP, F32_GRAD_COS = 0.01, 0.999
+SGD_CHECK_STEPS = 8     # SGD steps on one fixed batch that must lower it
+
+
+def train_phase(torch, fails: list) -> dict:
+    """Silo-mode SAFA over qwen3-1.7b at full width and depth, then
+    mamba2-130m, through the port's training entry points (``train.run``,
+    ``SiloSetup.train_step``), random init on the card, bf16, with bf16
+    products reduced in f32 (as the reference accumulates) and TF32 off.
+    No kernel lies on this path: the phase holds every launch count at
+    0 (training runs ``attn_impl='flash_jnp'``; the kernels refuse a
+    gradient).  Returns {}."""
+    from repro_torch.kernels import backend
+    matmul = torch.backends.cuda.matmul
+    saved = (matmul.allow_bf16_reduced_precision_reduction,
+             matmul.allow_tf32)
+    matmul.allow_bf16_reduced_precision_reduction = False
+    matmul.allow_tf32 = False
+    backend.reset_launches()
+    try:
+        _train_runs(torch, fails)
+    finally:
+        (matmul.allow_bf16_reduced_precision_reduction,
+         matmul.allow_tf32) = saved
+    launched = {k: v for k, v in backend.LAUNCHES.items() if v}
+    print(f'train: kernel launches {launched or 0}')
+    if launched:
+        fails.append(f'train: the training path launched kernels {launched}')
+    return {}
+
+
+def _silo_timers(torch, steps):
+    """Time ``SiloSetup.train_step`` (the round) and
+    ``SiloSetup.train_clients`` (its local training), synchronised;
+    returns (times, restore)."""
+    cls = steps.SiloSetup
+    saved = cls.train_step, cls.train_clients
+    times = {'round': [], 'train': []}
+
+    def timed(fn, key):
+        def wrapper(self, *args, **kwargs):
+            return _timed(torch, lambda: fn(self, *args, **kwargs),
+                          times[key])()
+        return wrapper
+    cls.train_step = timed(saved[0], 'round')
+    cls.train_clients = timed(saved[1], 'train')
+
+    def restore():
+        cls.train_step, cls.train_clients = saved
+    return times, restore
+
+
+def _report_rounds(torch, label, times, tokens, fails):
+    """Per-round train and server-step seconds, trained tokens/s and the
+    peak device memory since the last reset."""
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+    for r, (whole, tr) in enumerate(zip(times['round'], times['train'])):
+        print(f'{label}: round {r + 1} {whole:.4f} s: local train '
+              f'{tr:.4f} s, server step {whole - tr:.4f} s; '
+              f'{tokens / tr:,.0f} trained tokens/s')
+    print(f'{label}: peak device memory {peak:.3f} GiB of {total:.1f}')
+    if peak >= total:
+        fails.append(f'{label}: peak memory {peak:.1f} GiB >= the card\'s '
+                     f'{total:.1f} GiB')
+
+
+def _finite(label, losses, fails):
+    if not all(math.isfinite(x) for x in losses):
+        fails.append(f'{label}: a loss is not finite: {losses}')
+
+
+def _train_runs(torch, fails: list) -> None:
+    import dataclasses
+
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.core import protocol
+    from repro_torch.launch import steps, train
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import tree_leaves, tree_map
+
+    dev = torch.device('cuda')
+    cli = TRAIN_CLI
+    C, steps_n = cli['n_clients'], cli['local_steps']
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    print(f'train: {TRAIN_ARCH} at full width and depth: {cfg.n_layers} '
+          f'layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} '
+          f'heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab '
+          f'{cfg.vocab_size}, {model.n_params():,} parameters, remat '
+          f'{cfg.remat}')
+
+    # (1) train.run at the JAX CLI's defaults
+    times, restore = _silo_timers(torch, steps)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        hist = train.run(TRAIN_ARCH, full_size=True, device='cuda',
+                         log_every=1, **cli)
+    finally:
+        restore()
+    print(f'train: train.run {time.perf_counter() - t0:.1f} s wall '
+          f'(init included), losses {hist}')
+    _finite('train: qwen3 train.run', hist, fails)
+    _report_rounds(torch, 'train: qwen3 S 64', times,
+                   C * steps_n * cli['batch'] * cli['seq'], fails)
+    torch.cuda.empty_cache()
+
+    # (2) one round at train_4k's sequence length, and profiles
+    shape = INPUT_SHAPES['train_4k']
+    S = shape.seq_len
+    setup = steps.SiloSetup(model, n_clients=C, local_steps=1,
+                            learning_rate=cli['lr'])
+    print(f'train: S {S} round: global batch cut from '
+          f'{shape.global_batch} to {LONG_BATCH} ({LONG_BATCH // C} '
+          f'sequence a client), local steps 1, remat {cfg.remat}')
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    state = setup.init_state(model.init(gen))
+
+    def round_batch(b, seq, seed, vocab=cfg.vocab_size):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        toks = torch.randint(0, vocab, (C, b, seq + 1),
+                             generator=g, device=dev, dtype=torch.int32)
+        meta = {k: torch.tensor(v, dtype=torch.bool, device=dev)
+                for k, v in TRAIN_MASKS.items()}
+        meta['weights'] = torch.tensor(TRAIN_WEIGHTS, device=dev)
+        return {'tokens': toks[..., :-1].contiguous(),
+                'labels': toks[..., 1:].contiguous(), 'meta': meta}
+
+    long_batch = round_batch(LONG_BATCH // C, S, 1)
+    times, restore = _silo_timers(torch, steps)
+    try:
+        state, m = setup.train_step(state, long_batch)
+    finally:
+        restore()
+    long_loss = float(m['loss'])
+    print(f'train: S {S} round loss {long_loss:.4f}')
+    _finite(f'train: S {S} round', [long_loss], fails)
+    _report_rounds(torch, f'train: qwen3 S {S}', times, LONG_BATCH * S,
+                   fails)
+    prof = profile_train(torch, f'train: qwen3 S {S}, one client step',
+                         lambda: setup.train_client(steps.row(
+                             state['local'], 0), setup.client(long_batch, 0)))
+    if prof:
+        print(f'train: qwen3 S {S}: {prof[2]:,} launches a client step')
+    del long_batch
+
+    # the S 64 round's profiles: busy share of a round, launches a step
+    short = round_batch(cli['batch'], cli['seq'], 2)
+    setup2 = steps.SiloSetup(model, n_clients=C, local_steps=steps_n,
+                             learning_rate=cli['lr'])
+    _round_profiles(torch, 'train: qwen3 S 64', setup2, state, short)
+    del state
+    torch.cuda.empty_cache()
+
+    # (3) checks on one client batch of fresh params
+    params = model.init(torch.Generator(device=dev).manual_seed(3))
+    cb = setup.client(short, 0)
+
+    def loss_and_grads(mdl, p):
+        p = tree_map(lambda t: t.detach().clone().requires_grad_(), p)
+        loss = mdl.loss(p, cb)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        return float(loss.detach()), grads
+
+    loss16, g16 = loss_and_grads(model, params)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    loss32, g32 = loss_and_grads(build_model(cfg32),
+                                 tree_map(lambda t: t.float(), params))
+    cos = [float(torch.nn.functional.cosine_similarity(
+        a.float().flatten(), b.flatten(), dim=0)) for a, b in zip(g16, g32)]
+    names = ['.'.join(p) for p in _tree_paths(params)]
+    worst = min(range(len(cos)), key=cos.__getitem__)
+    print(f'train: bf16 against f32 on one client batch: loss {loss16:.5f} '
+          f'vs {loss32:.5f} (gap {abs(loss16 - loss32):.5f}, bound '
+          f'{F32_LOSS_GAP}); gradient cosine min {cos[worst]:.5f} '
+          f'({names[worst]}, bound {F32_GRAD_COS}), per leaf '
+          + ', '.join(f'{n} {c:.4f}' for n, c in zip(names, cos)))
+    if abs(loss16 - loss32) > F32_LOSS_GAP or cos[worst] < F32_GRAD_COS:
+        fails.append('train: the bf16 loss or gradient is off its f32 '
+                     'recompute')
+    del g16, g32
+
+    sgd = steps.SiloSetup(model, n_clients=1, local_steps=1,
+                          learning_rate=cli['lr'])
+    losses, p = [], params
+    for _ in range(SGD_CHECK_STEPS):
+        p, loss = sgd.train_client(p, cb)
+        losses.append(float(loss))
+    with torch.no_grad():
+        losses.append(float(model.loss(p, cb)))
+    print(f'train: {SGD_CHECK_STEPS} SGD steps on one batch: losses '
+          + ', '.join(f'{x:.4f}' for x in losses))
+    _finite('train: SGD steps', losses, fails)
+    if not losses[-1] < losses[0]:
+        fails.append(f'train: {SGD_CHECK_STEPS} SGD steps did not lower '
+                     f'the batch\'s loss: {losses[0]} -> {losses[-1]}')
+    del p, params
+    torch.cuda.empty_cache()
+
+    cut = build_model(dataclasses.replace(cfg, n_layers=CUT_DEPTH))
+    cut_setup = steps.SiloSetup(cut, n_clients=C, local_steps=steps_n,
+                                learning_rate=cli['lr'])
+    state = cut_setup.init_state(
+        cut.init(torch.Generator(device=dev).manual_seed(4)))
+    meta = short['meta']
+
+    def per_client(base):
+        rows = [cut_setup.train_client(steps.row(base, k),
+                                       cut_setup.client(short, k))[0]
+                for k in range(C)]
+        return tree_map(lambda *r: torch.stack(r), *rows)
+    want = protocol.safa_round(
+        state['global'], state['local'], state['cache'],
+        sync_mask=meta['sync'], completed=meta['completed'],
+        picked=meta['picked'], undrafted=meta['undrafted'],
+        deprecated=meta['deprecated'], weights=meta['weights'],
+        local_train_fn=per_client)
+    got, _ = cut_setup.train_step(state, short)
+    ulps = [_max_ulps(torch, a, b)
+            for part, ref in zip(('global', 'local', 'cache'), want)
+            for a, b in zip(tree_leaves(got[part]), tree_leaves(ref))]
+    print(f'train: in-place train_step against protocol.safa_round at '
+          f'{CUT_DEPTH} of {cfg.n_layers} layers: max {max(ulps)} ulp over '
+          f'{len(ulps)} leaves of global, local and cache (want 0)')
+    if max(ulps):
+        fails.append('train: the in-place silo step differs from the '
+                     'out-of-place composition')
+    del state, got, want
+    torch.cuda.empty_cache()
+
+    # (4) mamba2-130m at full width through train.run
+    times, restore = _silo_timers(torch, steps)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        hist = train.run('mamba2-130m', full_size=True, device='cuda',
+                         log_every=1, **cli)
+    finally:
+        restore()
+    print(f'train: mamba2-130m losses {hist}')
+    _finite('train: mamba2 train.run', hist, fails)
+    _report_rounds(torch, 'train: mamba2 S 64', times,
+                   C * steps_n * cli['batch'] * cli['seq'], fails)
+    mamba = build_model(get_config('mamba2-130m'))
+    setup = steps.SiloSetup(mamba, n_clients=C, local_steps=steps_n,
+                            learning_rate=cli['lr'])
+    _round_profiles(torch, 'train: mamba2 S 64', setup, setup.init_state(
+        mamba.init(torch.Generator(device=dev).manual_seed(0))),
+        round_batch(cli['batch'], cli['seq'], 5, mamba.cfg.vocab_size))
+    torch.cuda.empty_cache()
+
+
+def _round_profiles(torch, label, setup, state, batch):
+    """The device busy share of one ``train_step`` round on ``batch``
+    (``state`` is consumed), then the launches of one client step: a
+    trace of client 0's ``train_client`` over its local steps."""
+    from repro_torch.launch import steps
+
+    holder = {}
+
+    def one_round():
+        holder['state'], _ = setup.train_step(state, batch)
+    profile_train(torch, f'{label}, one round', one_round)
+    if 'state' not in holder:       # the profiler failed before the round
+        one_round()
+    local = holder.pop('state')['local']
+    prof = profile_train(torch, f'{label}, one client',
+                      lambda: setup.train_client(steps.row(local, 0),
+                                                 setup.client(batch, 0)))
+    if prof:
+        print(f'{label}: {prof[2] / setup.local_steps:,.0f} launches a '
+              f'client step')
+
+
+def _tree_paths(tree, prefix=()):
+    """Key paths of a nested dict's leaves, in sorted-key order."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out += _tree_paths(v, prefix + (k,)) if isinstance(v, dict) \
+            else [prefix + (k,)]
+    return out
+
+
+def _max_ulps(torch, a, b) -> int:
+    """The largest distance of two same-dtype float tensors in units in
+    the last place (0: bit for bit)."""
+    if torch.equal(a, b):
+        return 0
+    ints = {torch.bfloat16: torch.int16, torch.float16: torch.int16,
+            torch.float32: torch.int32}[a.dtype]
+
+    def ordered(t):
+        i = t.contiguous().view(ints).long()
+        return torch.where(i < 0, -(i & (2 ** (8 * t.element_size() - 1)
+                                         - 1)), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
 def one_epoch(task):
     """A shallow copy of ``task`` that trains one epoch of its five: the
     profiles' window.  A whole fleet train call launches ~350,000 device
@@ -3601,49 +3952,63 @@ def one_epoch(task):
 
 def profile_train(torch, label, train, top=6):
     """Where one call spends the device (one round's local training, a
-    serving step): torch.profiler over one ``train()`` call.  Device kernels are deduplicated by
-    (name, start, end); the busy share is the union of their intervals
-    over the call's wall time, so kernels that overlap count once.  A
-    measurement only: a profiler that cannot trace the card leaves the
-    other phases' verdict alone."""
+    serving step): torch.profiler traces the card over one ``train()``
+    call, and the trace is written as a Chrome trace (in C++) and read
+    back as JSON, which takes seconds for the hundreds of thousands of
+    kernels of a training step where building the profiler's Python
+    events takes minutes.  The busy share is the union of the device
+    intervals (kernels, copies, sets) over the call's wall time, so
+    kernels that overlap count once.  Returns (wall s, busy s, kernels),
+    or None when not measured: a measurement only, a profiler that
+    cannot trace the card leaves the other phases' verdict alone."""
+    import tempfile
+
     from torch.profiler import ProfilerActivity, profile
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            train()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-        spans = sorted({(e.time_range.start, e.time_range.end, e.name)
-                        for e in prof.events()
-                        if e.device_type.name == 'CUDA'})
+        with tempfile.TemporaryDirectory() as tmp:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                train()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            path = pathlib.Path(tmp) / 'trace.json'
+            prof.export_chrome_trace(str(path))
+            events = json.loads(path.read_text())['traceEvents']
     except Exception as e:  # noqa: BLE001 - report and go on
         print(f'{label}: not measured ({e!r})')
-        return
+        return None
+    spans = sorted((float(e['ts']), float(e['ts']) + float(e['dur']),
+                    e['cat'], e['name']) for e in events
+                   if e.get('ph') == 'X' and e.get('cat') in (
+                       'kernel', 'gpu_memcpy', 'gpu_memset'))
     if not spans:
         print(f'{label}: not measured (the trace holds no device kernels)')
-        return
+        return None
     busy, reach = 0.0, spans[0][0]
     by_name = {}
-    for start, stop, name in spans:
+    for start, stop, _, name in spans:
         busy += max(0.0, stop - max(start, reach))
         reach = max(reach, stop)
         tot, n = by_name.get(name, (0.0, 0))
         by_name[name] = (tot + stop - start, n + 1)
+    kernels = sum(cat == 'kernel' for _, _, cat, _ in spans)
     summed = sum(tot for tot, _ in by_name.values()) / 1e6
     print(f'{label}: one call {wall:.3f} s wall; device busy '
           f'{busy / 1e6:.3f} s ({busy / 1e6 / wall:.1%}) as the union of '
-          f'{len(spans)} kernels ({summed:.3f} s summed), '
-          f'{len(by_name)} kernel names')
+          f'{len(spans)} device spans ({kernels} kernels, {summed:.3f} s '
+          f'summed), {len(by_name)} names')
     for name, (tot, n) in sorted(by_name.items(),
                                  key=lambda kv: -kv[1][0])[:top]:
         print(f'{label}:   {tot / 1e3:9.1f} ms {n:6d}x  {name[:90]}')
+    return wall, busy / 1e6, kernels
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--tier-kernels', action='store_true',
                     help='run only the build and the lag tier kernel phase')
+    ap.add_argument('--train', action='store_true',
+                    help='run only the build and the train phase')
     ap.add_argument('--src', type=pathlib.Path, default=None,
                     help='the src/ directory whose repro_torch to load')
     opts = ap.parse_args(argv)
@@ -3679,6 +4044,12 @@ def main(argv=None) -> int:
     if opts.tier_kernels:
         print(f'repro_torch from {src.resolve()}')
         tier_kernel_phase(torch, n, fails)
+        for f in fails:
+            print(f'FAIL {f}')
+        return 1 if fails else 0
+    if opts.train:
+        train_phase(torch, fails)
+        lap('train')
         for f in fails:
             print(f'FAIL {f}')
         return 1 if fails else 0
@@ -3718,6 +4089,9 @@ def main(argv=None) -> int:
     launches.update(families_phase(torch, {r['name']: r['ms'] for r in attn},
                                    fails))
     lap('families')
+    torch.cuda.empty_cache()
+    launches.update(train_phase(torch, fails))
+    lap('train')
     for r in recs:
         r['launches'] = launches.get(r['name'], 0)
         del r['bytes'], r['flops'], r['dense_bytes']

@@ -3,10 +3,13 @@ the rounds of the paper's baselines (FedAvg/FedCS, fully-local,
 FedAsync), and the weighted-merge round of the staleness-adaptive family
 (SEAFL, CSAFL, folded FedAsync).
 
-Models are flat dicts of tensors; a stacked model carries a leading
-clients dim of size m.  The server's cache (one entry per client) and the
-bypass are masked updates: picked entries overwrite pre-aggregation
-(Eq. 6), undrafted entries overwrite post-aggregation (Eq. 8).
+Models are dicts of tensors, flat (the paper's tasks) or nested (the
+LLMs of silo mode, which use ``masked_select``, ``broadcast_global``,
+``distribute``, ``aggregate`` and the SAFA and FedAvg rounds); a stacked
+model carries a leading clients dim of size m.  The server's cache (one
+entry per client) and the bypass are masked updates: picked entries
+overwrite pre-aggregation (Eq. 6), undrafted entries overwrite
+post-aggregation (Eq. 8).
 
 A fleet of S independent runs carries one more leading axis: masks and
 weights [S, m], stacked models [S, m, ...], globals [S, ...].  The algebra
@@ -52,18 +55,21 @@ def _bmask(mask, leaf):
 
 def masked_select(mask, a: dict, b: dict) -> dict:
     """Per-client where: leaf = mask ? a : b  (mask: [(S,) m] bool)."""
-    return {k: torch.where(_bmask(mask, a[k]), a[k], b[k]) for k in a}
+    return {k: masked_select(mask, v, b[k]) if isinstance(v, dict)
+            else torch.where(_bmask(mask, v), v, b[k]) for k, v in a.items()}
 
 
 def broadcast_global(global_tree: dict, m: int, *, fleet: bool = False
                      ) -> dict:
     """Tile the global model across the clients dim (views, no copy):
     [...] -> [m, ...], or for a fleet [S, ...] -> [S, m, ...]."""
-    if fleet:
-        return {k: g[:, None].expand((g.shape[0], m) + tuple(g.shape[1:]))
-                for k, g in global_tree.items()}
-    return {k: g[None].expand((m,) + tuple(g.shape))
-            for k, g in global_tree.items()}
+    def tile(g):
+        if isinstance(g, dict):
+            return {k: tile(v) for k, v in g.items()}
+        if fleet:
+            return g[:, None].expand((g.shape[0], m) + tuple(g.shape[1:]))
+        return g[None].expand((m,) + tuple(g.shape))
+    return tile(global_tree)
 
 
 def _tile(global_tree: dict, mask) -> dict:
@@ -119,9 +125,11 @@ def aggregate(cache: dict, weights) -> dict:
     axis = weights.ndim - 1             # the clients axis
 
     def red(leaf):
+        if isinstance(leaf, dict):
+            return {k: red(v) for k, v in leaf.items()}
         w = _bmask(weights, leaf).float()
         return torch.sum(leaf.float() * w, dim=axis).to(leaf.dtype)
-    return {k: red(v) for k, v in cache.items()}
+    return red(cache)
 
 
 def post_agg_cache_update(cache, trained, undrafted):
@@ -419,10 +427,12 @@ def fedavg_server_step(base, trained, global_w, *, selected, completed,
     any_ok = torch.sum(ok, dim=axis) > 0
 
     def red(t, g):
+        if isinstance(g, dict):
+            return {k: red(t[k], v) for k, v in g.items()}
         agg = torch.sum(t.float() * _bmask(eff_w, t).float(), dim=axis)
         return torch.where(_bmask(any_ok, agg), agg, g.float()).to(g.dtype)
 
-    new_global = {k: red(trained[k], g) for k, g in global_w.items()}
+    new_global = red(trained, global_w)
     return new_global, masked_select(ok, trained, base)
 
 

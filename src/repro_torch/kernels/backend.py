@@ -225,9 +225,25 @@ def call(name: str, device: torch.device, *args) -> None:
                            f'cudaError_t {err}')
 
 
+def refuse_grad(tensors) -> None:
+    """Raise when grad is enabled and an operand requires it: the kernels
+    (and their plain versions, which stand in for them on the CPU) have
+    no backward, as the JAX package's Pallas kernels have none, so a
+    gradient must not stop silently at a kernel's output."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            'a kernel operand requires grad, but the kernels are not '
+            'differentiable (the JAX package has no backward for them '
+            'either): call them under torch.no_grad() or on detached '
+            "tensors, and train the models with attn_impl='flash_jnp'")
+
+
 def is_cuda(*tensors) -> bool:
     """True when every tensor lies on a CUDA device, False when every one
-    lies on the CPU; mixed placements raise."""
+    lies on the CPU; mixed placements raise, and so does an operand that
+    requires grad while grad is enabled (``refuse_grad``).  Every kernel
+    wrapper asks this first."""
+    refuse_grad(tensors)
     kinds = {t.device.type for t in tensors}
     if kinds == {'cuda'}:
         if len({t.device for t in tensors}) != 1:

@@ -1,2 +1,3 @@
-"""Entry points of the model path: serving (``serve``) and its steps
-(``steps.ServeSetup``)."""
+"""Entry points of the model path: federated training (``train``),
+serving (``serve``) and their steps (``steps.SiloSetup``,
+``steps.ServeSetup``)."""

@@ -1,4 +1,4 @@
-"""Parameter initialisers, RMSNorm and RoPE of the model path.
+"""Parameter initialisers, RMSNorm, RoPE and the loss of the model path.
 
 Parameters are nested dicts of tensors, as the JAX package's unboxed
 trees are; the logical-axes boxes (``Box``/``unbox``/``abstract_init``)
@@ -100,13 +100,66 @@ def param(generator, shape, dtype=torch.float32, init=dense_init, lead=()):
 # Norms
 # ---------------------------------------------------------------------------
 
-def rms_norm(x, scale, eps=1e-6):
-    """RMSNorm with (1 + scale) gain, computed in f32 and cast back to x's
-    dtype.  Forward only: the reference's custom VJP serves training."""
+def _rms_norm_fwd(x, scale, eps):
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     r = torch.rsqrt(var + eps)
     return (xf * r * (1.0 + scale.float())).to(x.dtype)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The reference's custom VJP: f32 inside, the input cotangent in x's
+    dtype and the gain's in scale's."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _rms_norm_fwd(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        xf, gf = x.float(), g.float()
+        gain = 1.0 + scale.float()
+        d = x.shape[-1]
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        r = torch.rsqrt(var + ctx.eps)
+        gg = gf * gain
+        dot = torch.sum(gg * xf, dim=-1, keepdim=True)
+        dx = r * gg - (r ** 3) * xf * dot / d
+        dscale = torch.sum(gf * xf * r, dim=tuple(range(x.dim() - 1)))
+        return dx.to(x.dtype), dscale.to(scale.dtype), None
+
+
+def rms_norm(x, scale, eps=1e-6):
+    """RMSNorm with (1 + scale) gain, computed in f32 and cast back to x's
+    dtype.  Differentiated by the reference's custom VJP
+    (``_RMSNorm.backward``); without grad, the plain forward."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RMSNorm.apply(x, scale, eps)
+    return _rms_norm_fwd(x, scale, eps)
+
+
+class _GradCast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None
+
+
+def grad_cast(x, dtype):
+    """Identity forward; the cotangent is cast to ``dtype`` on the way
+    back (the reference puts it before the unembedding, so the loss
+    head's f32 cotangents stay in the head).  Autograd hands x's own
+    dtype on to x, so the cast shows as a rounding of the values."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GradCast.apply(x, dtype)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -138,3 +191,25 @@ def apply_rope(x, positions, theta: float = 10000.0):
 
 def pad_vocab(vocab_size: int, multiple: int = 256) -> int:
     return int(-(-vocab_size // multiple) * multiple)
+
+
+def cross_entropy_loss(logits, labels, vocab_size: int, mask=None):
+    """Mean next-token CE in f32; ``vocab_size`` is the unpadded size (the
+    padded ids' logits are set to -1e9, out of the softmax).  A stable
+    logsumexp, as the reference's; the gold logit is gathered where the
+    reference contracts a one-hot (for its sharded vocabulary): the same
+    value, without a [B, S, V] one-hot."""
+    padded = logits.shape[-1]
+    logits = logits.float()
+    if padded != vocab_size:
+        ids = torch.arange(padded, device=logits.device)
+        logits = torch.where(ids < vocab_size, logits, -1e9)
+    m = torch.amax(logits, dim=-1)                                 # [B,S]
+    logz = m + torch.log(torch.sum(torch.exp(logits - m[..., None]),
+                                   dim=-1))
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)

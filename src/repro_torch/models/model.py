@@ -39,6 +39,11 @@ class Model:
         return count(self.param_shapes())
 
     # -- forward ------------------------------------------------------------
+    def loss(self, params, batch):
+        """The training loss (``transformer.loss_fn``): a 0-d f32 tensor,
+        differentiable in ``params`` with ``attn_impl='flash_jnp'``."""
+        return tfm.loss_fn(params, batch, self.cfg)
+
     def logits(self, params, batch):
         return tfm.forward_logits(params, batch, self.cfg)
 

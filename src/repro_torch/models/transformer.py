@@ -1,5 +1,6 @@
 """Decoder stacks of every assigned family (dense, MoE, SSM, hybrid, VLM,
-audio): parameters, the prefill forward and its primitives.
+audio): parameters, the prefill forward, the training loss and their
+primitives.
 
 Parameters keep the reference's tree: a nested dict with the layers
 stacked on a leading ``[L, ...]`` axis, dense weights ``[in, out]``;
@@ -11,13 +12,18 @@ the audio family's encoder-decoder holds ``enc_layers`` (dense layers),
 ``dec_layers`` (self-attention, cross-attention ``xattn`` and a gelu
 MLP, each with its pre-norm), ``enc_ln_f`` and ``enc_pos`` ``[enc_seq,
 d_model]``.  A Python loop over the layers takes the place of
-``lax.scan``; there is no remat (forward only).
+``lax.scan``.  With ``cfg.remat`` and grad enabled each layer body runs
+under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of
+its scan bodies): memory only, the values are the same, and a forward
+without grad (serving) never checkpoints.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.swa_attention import swa_attention
 from repro_torch.models import attention as attn_mod
@@ -170,18 +176,28 @@ def n_stacked(stacked) -> int:
     return n_stacked(v) if isinstance(v, dict) else v.shape[0]
 
 
+def unstack(stacked):
+    """The layers of a stacked ``[L, ...]`` tree, in order, as views: one
+    ``unbind`` a leaf, whose backward stacks the layers' gradients in one
+    operation (indexing layer by layer would zero-fill and add a whole
+    ``[L, ...]`` gradient for every layer)."""
+    cols = {k: unstack(v) if isinstance(v, dict) else v.unbind(0)
+            for k, v in stacked.items()}
+    return [{k: c[i] for k, c in cols.items()}
+            for i in range(n_stacked(stacked))]
+
+
 def dense_layers(stacked):
     """The attention layers of a dense or MoE stack, in order, as views:
     for interleaved super-blocks (``{'dense', 'moe'}``) each block's dense
     layers, then its MoE layer, so that layer ``i`` of the list is layer
     ``i`` of the KV cache."""
     if not ('dense' in stacked and 'moe' in stacked):
-        return [layer_slice(stacked, i) for i in range(n_stacked(stacked))]
+        return unstack(stacked)
     layers = []
-    for b in range(n_stacked(stacked['moe'])):
-        block = layer_slice(stacked['dense'], b)
-        layers += [layer_slice(block, j) for j in range(n_stacked(block))]
-        layers.append(layer_slice(stacked['moe'], b))
+    for block, moe in zip(unstack(stacked['dense']), unstack(stacked['moe'])):
+        layers += unstack(block)
+        layers.append(moe)
     return layers
 
 
@@ -271,22 +287,36 @@ def ssm_layer_fwd(layer, x, cfg: ModelConfig):
 # Stacks
 # ---------------------------------------------------------------------------
 
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``fn`` recomputed in the backward pass instead of keeping its
+    activations, when ``cfg.remat`` and grad is enabled."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+
+    def remat(*args, **kwargs):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kwargs)
+    return remat
+
+
 def run_dense_stack(stacked, x, cfg: ModelConfig, *, causal=True,
                     positions=None):
     """The layers in order (super-blocks: each block's dense layers, then
     its MoE layer); returns (h, summed load-balance loss, f32)."""
     lb = torch.zeros((), dtype=torch.float32, device=x.device)
+    layer_fwd = _maybe_remat(dense_layer_fwd, cfg)
     for layer in dense_layers(stacked):
-        x, aux = dense_layer_fwd(layer, x, cfg, causal=causal,
-                                 positions=positions)
+        x, aux = layer_fwd(layer, x, cfg, causal=causal, positions=positions)
         if 'load_balance_loss' in aux:
             lb = lb + aux['load_balance_loss']
     return x, lb
 
 
-def run_ssm_stack(stacked, x, cfg: ModelConfig):
-    for i in range(n_stacked(stacked)):
-        x = ssm_layer_fwd(layer_slice(stacked, i), x, cfg)
+def run_ssm_stack(layers, x, cfg: ModelConfig):
+    """``layers`` (a list, as ``unstack`` gives them) in order."""
+    layer_fwd = _maybe_remat(ssm_layer_fwd, cfg)
+    for layer in layers:
+        x = layer_fwd(layer, x, cfg)
     return x
 
 
@@ -304,8 +334,9 @@ def hybrid_groups(cfg: ModelConfig):
 
 def run_hybrid_stack(params, x, cfg: ModelConfig, *, positions=None):
     groups = hybrid_groups(cfg)
+    layers = unstack(params['layers'])
     for gi, (s, e) in enumerate(groups):
-        x = run_ssm_stack(layer_slice(params['layers'], slice(s, e)), x, cfg)
+        x = run_ssm_stack(layers[s:e], x, cfg)
         if gi < len(groups) - 1:
             x, _ = dense_layer_fwd(params['shared_attn'], x, cfg,
                                    causal=True, positions=positions)
@@ -317,7 +348,10 @@ def run_hybrid_stack(params, x, cfg: ModelConfig, *, positions=None):
 # ---------------------------------------------------------------------------
 
 def embed_tokens(params, tokens, cfg: ModelConfig):  # noqa: ARG001
-    return params['embed'][tokens]
+    """The tokens' rows of ``embed``.  ``F.embedding`` (not indexing):
+    its backward sums repeated tokens' gradients in a fixed order, where
+    indexing's scatters them with atomic adds on the CPU."""
+    return F.embedding(tokens, params['embed'])
 
 
 def encode(params, frame_embeds, cfg: ModelConfig):
@@ -362,15 +396,30 @@ def forward_logits(params, batch, cfg: ModelConfig):
                                                       cfg,
                                                       positions=positions)
     elif cfg.family == 'ssm':
-        x = run_ssm_stack(params['layers'], x, cfg)
+        x = run_ssm_stack(unstack(params['layers']), x, cfg)
     elif cfg.family == 'hybrid':
         x = run_hybrid_stack(params, x, cfg, positions=positions)
     else:   # audio
         enc = encode(params, batch['frame_embeds'], cfg)
-        for i in range(cfg.n_layers):
-            x = dec_layer_fwd(layer_slice(params['dec_layers'], i), x, enc,
-                              cfg, positions=positions)
+        layer_fwd = _maybe_remat(dec_layer_fwd, cfg)
+        for layer in unstack(params['dec_layers']):
+            x = layer_fwd(layer, x, enc, cfg, positions=positions)
     if cfg.family == 'vlm':
         x = x[:, -S:]   # logits for the text positions only
+    # gradient dtype barrier: keep f32 cotangents confined to the loss head
+    x = cm.grad_cast(x, cfg.dtype)
     x = cm.rms_norm(x, params['ln_f'])
     return x @ params['unembed'], aux
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    """Mean next-token cross-entropy of ``batch['labels']`` (masked by
+    ``batch['loss_mask']`` when given), plus 0.01 x the summed
+    load-balance loss for the dense, MoE and VLM families (0 without
+    experts), as the reference's."""
+    logits, aux = forward_logits(params, batch, cfg)
+    loss = cm.cross_entropy_loss(logits, batch['labels'], cfg.vocab_size,
+                                 batch.get('loss_mask'))
+    if 'load_balance_loss' in aux:
+        loss = loss + 0.01 * aux['load_balance_loss']
+    return loss

@@ -41,6 +41,7 @@ from repro_torch.kernels.safa_aggregate import (
     safa_aggregate_packed_tier_rows_fleet)
 from repro_torch.kernels.weighted_merge import (weighted_merge_packed,
                                                 weighted_merge_packed_fleet)
+from torch_kernel_calls import kernel_calls
 
 pytestmark = pytest.mark.cuda
 
@@ -1751,3 +1752,126 @@ def test_vlm_audio_decode_on_the_card_equals_the_cpu(dev, arch):
         torch.testing.assert_close(out['cuda'][1][key], v, atol=1e-4,
                                    rtol=0)
     assert torch.equal(out['cuda'][2], out['cpu'][2])
+
+
+# -- federated LLM training ------------------------------------------------------
+#
+# Reduced f32 models (TF32 off, PyTorch's default): the card's loss and
+# gradients against the CPU's within the CPU suite's bounds against the
+# reference (loss 1e-5, gradient leaves atol 1e-5 + rtol 1e-4), a silo
+# round's state and loss within atol 1e-5; the in-place silo step and the
+# out-of-place composition run the same operations on one device, so they
+# are equal bit for bit.
+
+TRAIN_MASKS = {'sync': [1, 1, 0, 1], 'picked': [1, 0, 0, 1],
+               'undrafted': [0, 1, 0, 0], 'deprecated': [0, 0, 1, 0],
+               'completed': [1, 1, 0, 1]}
+
+
+def _train_batch(cfg, lead, S, d, seed=0, meta=False):
+    g = torch.Generator().manual_seed(seed)
+    batch = {k: torch.randint(0, cfg.vocab_size, lead + (S,), generator=g,
+                              dtype=torch.int32)
+             for k in ('tokens', 'labels')}
+    if cfg.family == 'vlm':
+        batch['patch_embeds'] = 0.1 * torch.randn(
+            lead + (cfg.n_patches, cfg.d_model), generator=g)
+    if cfg.family == 'audio':
+        batch['frame_embeds'] = 0.1 * torch.randn(
+            lead + (cfg.enc_seq, cfg.d_model), generator=g)
+    batch = {k: v.to(d) for k, v in batch.items()}
+    if meta:
+        batch['meta'] = {k: torch.tensor(v, dtype=torch.bool, device=d)
+                         for k, v in TRAIN_MASKS.items()}
+        batch['meta']['weights'] = torch.tensor([0.3, 0.3, 0.2, 0.2],
+                                                device=d)
+    return batch
+
+
+@pytest.mark.parametrize('arch', ['qwen3-1.7b', 'mamba2-130m',
+                                  'llama4-scout-17b-a16e', 'zamba2-1.2b',
+                                  'internvl2-26b', 'whisper-medium'])
+def test_train_loss_and_grads_on_the_card_match_the_cpu(dev, arch):
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import tree_leaves, tree_map
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    host = model.init(0, device='cpu')
+    out = {}
+    for d in (torch.device('cpu'), dev):
+        p = tree_map(lambda t: t.to(d).requires_grad_(), host)
+        loss = model.loss(p, _train_batch(cfg, (2,), 16, d))
+        grads = torch.autograd.grad(loss, tree_leaves(p), allow_unused=True,
+                                    materialize_grads=True)
+        out[d.type] = (loss.detach().cpu(), [g.cpu() for g in grads])
+    torch.testing.assert_close(out['cuda'][0], out['cpu'][0], atol=1e-5,
+                               rtol=0)
+    for a, b in zip(out['cuda'][1], out['cpu'][1]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
+    assert sum(backend.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize('arch', ['qwen3-1.7b', 'mamba2-130m'])
+def test_silo_train_step_on_the_card_matches_the_cpu(dev, arch):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import SiloSetup
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import tree_leaves
+
+    cfg = get_config(arch).reduced()
+    setup = SiloSetup(build_model(cfg), n_clients=4, local_steps=2,
+                      learning_rate=0.05)
+    host = setup.model.init(0, device='cpu')
+    out = {}
+    for d in (torch.device('cpu'), dev):
+        state, m = setup.train_step(setup.init_state(_to(host, d)),
+                                    _train_batch(cfg, (4, 2), 16, d,
+                                                 meta=True))
+        out[d.type] = (m['loss'].cpu(), [t.cpu() for part in
+                                         ('global', 'local', 'cache')
+                                         for t in tree_leaves(state[part])])
+    torch.testing.assert_close(out['cuda'][0], out['cpu'][0], atol=1e-5,
+                               rtol=0)
+    for a, b in zip(out['cuda'][1], out['cpu'][1]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+def test_in_place_silo_step_equals_out_of_place_on_the_card(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.core import protocol
+    from repro_torch.launch.steps import SiloSetup, row
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import tree_leaves, tree_map
+
+    cfg = get_config('qwen3-1.7b').reduced()
+    setup = SiloSetup(build_model(cfg), n_clients=4, local_steps=2,
+                      learning_rate=0.05)
+    state = setup.init_state(setup.model.init(1, device=dev))
+    batch = _train_batch(cfg, (4, 2), 16, dev, seed=1, meta=True)
+    meta = batch['meta']
+
+    def per_client(base):
+        rows = [setup.train_client(row(base, k), setup.client(batch, k))[0]
+                for k in range(4)]
+        return tree_map(lambda *r: torch.stack(r), *rows)
+    want = protocol.safa_round(
+        state['global'], state['local'], state['cache'],
+        sync_mask=meta['sync'], completed=meta['completed'],
+        picked=meta['picked'], undrafted=meta['undrafted'],
+        deprecated=meta['deprecated'], weights=meta['weights'],
+        local_train_fn=per_client)
+    got, _ = setup.train_step(state, batch)
+    for part, ref_tree in zip(('global', 'local', 'cache'), want):
+        for a, b in zip(tree_leaves(got[part]), tree_leaves(ref_tree)):
+            assert torch.equal(a, b), part
+
+
+@pytest.mark.parametrize('name', sorted(kernel_calls('cpu')))
+def test_kernel_wrappers_refuse_grad_on_the_card(dev, name):
+    """A CUDA operand that requires grad: the wrapper raises before it
+    launches (no launch counted)."""
+    with pytest.raises(RuntimeError, match='not differentiable'):
+        kernel_calls(dev)[name]()
+    assert sum(backend.LAUNCHES.values()) == 0

@@ -260,6 +260,22 @@ Phases, each of which must pass:
              in-place ``train_step`` bit for bit the out-of-place
              ``protocol.safa_round`` with per-client SGD (global, local,
              cache); the peak under the card's memory.
+14. dryrun — the dry run (``python -m repro_torch.launch.dryrun --all``,
+             and with ``--multi-pod``), started in two host processes
+             beside phase 2 and read here: every (architecture, input
+             shape) cell's step traced on the ``meta`` device, on the
+             16 x 16 and the 2 x 16 x 16 production mesh; both must exit
+             0 with a row for each of the 33 cells.  One line a cell:
+             trace seconds, the arguments' bytes whole and per chip,
+             ``fits_one_card`` (the arguments alone within 80 GB) beside
+             this card's memory, the roofline terms.  The dry run's
+             parameter bytes (leaves) of every model phases 11-13 build,
+             and the qwen3-1.7b silo state at C = 4 (9 copies), must equal
+             ``memory_allocated`` measured around that init (with
+             expandable segments on, so blocks are split to their
+             request) within 512 B a leaf.  The serve phase's prefill
+             and the train phase's S 64 rounds are printed as shares of
+             their one-card rooflines.
 
 The line before the last is a JSON object of kernel records; the last
 line is ``{"ok": true, "device": {...}}``.  Without a visible card, or
@@ -3063,7 +3079,8 @@ def long_attention(torch, H, KH, D, win):
     torch.cuda.empty_cache()
 
 
-def serve_phase(torch, attn_ms: float, fails: list) -> dict:
+def serve_phase(torch, attn_ms: float, fails: list,
+                readings: dict) -> dict:
     """h2o-danube-3-4b at full width and depth (24 layers, d_model 3840,
     32/8 heads, head_dim 120, bf16), random init on the card, through the
     port's serving entry points: ``ServeSetup.prefill_step`` (bulk
@@ -3078,12 +3095,13 @@ def serve_phase(torch, attn_ms: float, fails: list) -> dict:
     reduced = matmul.allow_bf16_reduced_precision_reduction
     matmul.allow_bf16_reduced_precision_reduction = False
     try:
-        return _serve_runs(torch, attn_ms, fails)
+        return _serve_runs(torch, attn_ms, fails, readings)
     finally:
         matmul.allow_bf16_reduced_precision_reduction = reduced
 
 
-def _serve_runs(torch, attn_ms: float, fails: list) -> dict:
+def _serve_runs(torch, attn_ms: float, fails: list,
+                readings: dict) -> dict:
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3104,8 +3122,8 @@ def _serve_runs(torch, attn_ms: float, fails: list) -> dict:
         fails.append(f'serve: {n} parameters, want 3,961,839,360')
     torch.cuda.synchronize()
     t = time.perf_counter()
-    params = kern.init(torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
+    params = _measured_init(torch, readings, ARCH, lambda: kern.init(
+        torch.Generator(device=dev).manual_seed(0)))
     print(f'serve: init on the card {time.perf_counter() - t:.2f} s, '
           f'{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated')
 
@@ -3141,6 +3159,7 @@ def _serve_runs(torch, attn_ms: float, fails: list) -> dict:
     torch.cuda.synchronize()
     flash_s = time.perf_counter() - t
     share = cfg.n_layers * attn_ms / 1e3 / min(secs)
+    readings['prefill_s'] = secs
     print(f'serve: prefill_step [{PREFILL_B}, {PREFILL_S}] pallas '
           f'(kernel 21): first {first:.4f} s, then {[round(s, 4) for s in secs]} '
           f's ({PREFILL_B * PREFILL_S / min(secs):.0f} tokens/s); kernel 21 '
@@ -3225,10 +3244,10 @@ def _serve_runs(torch, attn_ms: float, fails: list) -> dict:
 #: phase 12's models: (arch, depth on the card, None for the published
 #: depth, parameters at that depth: the reference's ``n_params``).  Only
 #: the MoE models' depth is cut, never a width, an expert or the
-#: vocabulary: llama4-scout's 48 layers hold 107,771,827,200 parameters
-#: (200.7 GiB in bf16) and llama4-maverick's 397,693,916,160, more than
-#: one card; maverick keeps one whole super-block (a dense layer and a
-#: 128-expert MoE layer).  internvl2-26b (37.1 GiB in bf16) fits whole
+#: vocabulary: at their published depth their params do not fit one card
+#: (the dry run, phase 14, prints their bytes and ``fits_one_card``);
+#: maverick keeps one whole super-block (a dense layer and a 128-expert
+#: MoE layer).  internvl2-26b fits whole
 FAMILIES = (('llama4-scout-17b-a16e', 8, 19_687_756_800),
             ('llama4-maverick-400b-a17b', 2, 18_555_233_280),
             ('mamba2-130m', None, 167_832_000),
@@ -3258,7 +3277,8 @@ NODROP_S = 2048
 ROUTE_FLIPS, TEACHER_FLIPS = NODROP_S // 8, 8
 
 
-def families_phase(torch, attn_ms: dict, fails: list) -> dict:
+def families_phase(torch, attn_ms: dict, fails: list,
+                   readings: dict) -> dict:
     """The MoE (llama4-scout at 8 of 48 layers, llama4-maverick at one
     super-block), SSM (mamba2-130m), hybrid (zamba2-1.2b), VLM
     (internvl2-26b) and audio (whisper-medium) families at full width,
@@ -3287,7 +3307,7 @@ def families_phase(torch, attn_ms: dict, fails: list) -> dict:
     try:
         for arch, depth, n_want in FAMILIES:
             launches.update(_family_run(torch, arch, depth, n_want, attn_ms,
-                                        fails))
+                                        fails, readings))
             torch.cuda.empty_cache()
     finally:
         matmul.allow_bf16_reduced_precision_reduction = reduced
@@ -3337,7 +3357,8 @@ def _logit_gap(a, b, agree, rows=1024):
     return gap
 
 
-def _family_run(torch, arch, depth, n_want, attn_ms, fails) -> dict:
+def _family_run(torch, arch, depth, n_want, attn_ms, fails,
+                readings) -> dict:
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3373,8 +3394,8 @@ def _family_run(torch, arch, depth, n_want, attn_ms, fails) -> dict:
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    params = main.init(torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
+    params = _measured_init(torch, readings, arch, lambda: main.init(
+        torch.Generator(device=dev).manual_seed(0)))
     print(f'{tag}: init on the card {time.perf_counter() - t:.2f} s, '
           f'{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, '
           f'peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB')
@@ -3566,25 +3587,25 @@ def _family_run(torch, arch, depth, n_want, attn_ms, fails) -> dict:
 
 
 def cross_padding(torch, tfm, params, cache, cfg, tag):
-    """What the reference's blocking costs a whisper decode step (printed
-    only): one decoder layer's ``cross_attn_block`` on a decode step's
-    query against its cross caches, with the model's blocks (the 1-row
-    query padded to ``q_block`` rows, the ``enc_seq`` keys to a multiple
-    of ``kv_block``) and with blocks that pad nothing, CUDA events."""
+    """What the blocking costs a whisper decode step (printed only): one
+    decoder layer's ``cross_attn_block`` on a decode step's query against
+    its cross caches, with the model's ``kv_block`` (the ``enc_seq`` keys
+    padded to a multiple of it; the plain attention pads no query) and
+    with one block of ``enc_seq`` keys, CUDA events."""
     import dataclasses
     xattn = tfm.layer_slice(params['dec_layers'], 0)['xattn']
     gen = torch.Generator(device='cuda').manual_seed(3)
     x = torch.randn((cache['xk'].shape[1], 1, cfg.d_model), generator=gen,
                     device='cuda').to(cfg.dtype)
     kv = (cache['xk'][0], cache['xv'][0])
-    tight = dataclasses.replace(cfg, q_block=1, kv_block=cfg.enc_seq)
+    tight = dataclasses.replace(cfg, kv_block=cfg.enc_seq)
     ms = [_time_ms(torch, lambda c=c: tfm.cross_attn_block(xattn, x, kv, c),
                    3, 20) for c in (cfg, tight)]
     print(f'{tag}: cross-attention of one decode step, one layer: '
-          f'{ms[0]:.4f} ms with q_block {cfg.q_block}, kv_block '
-          f'{cfg.kv_block} (the reference\'s), {ms[1]:.4f} ms unpadded '
-          f'(q_block 1, kv_block {cfg.enc_seq}); x {cfg.n_layers} layers: '
-          f'{cfg.n_layers * (ms[0] - ms[1]):.3f} ms a step of padding')
+          f'{ms[0]:.4f} ms with kv_block {cfg.kv_block} (the '
+          f'reference\'s), {ms[1]:.4f} ms with one block of {cfg.enc_seq} '
+          f'keys; x {cfg.n_layers} layers: '
+          f'{cfg.n_layers * (ms[0] - ms[1]):.3f} ms a step of blocking')
 
 
 def _family_batch(torch, setup, dev):
@@ -3643,7 +3664,7 @@ F32_LOSS_GAP, F32_GRAD_COS = 0.01, 0.999
 SGD_CHECK_STEPS = 8     # SGD steps on one fixed batch that must lower it
 
 
-def train_phase(torch, fails: list) -> dict:
+def train_phase(torch, fails: list, readings: dict) -> dict:
     """Silo-mode SAFA over qwen3-1.7b at full width and depth, then
     mamba2-130m, through the port's training entry points (``train.run``,
     ``SiloSetup.train_step``), random init on the card, bf16, with bf16
@@ -3659,7 +3680,7 @@ def train_phase(torch, fails: list) -> dict:
     matmul.allow_tf32 = False
     backend.reset_launches()
     try:
-        _train_runs(torch, fails)
+        _train_runs(torch, fails, readings)
     finally:
         (matmul.allow_bf16_reduced_precision_reduction,
          matmul.allow_tf32) = saved
@@ -3711,7 +3732,7 @@ def _finite(label, losses, fails):
         fails.append(f'{label}: a loss is not finite: {losses}')
 
 
-def _train_runs(torch, fails: list) -> None:
+def _train_runs(torch, fails: list, readings: dict) -> None:
     import dataclasses
 
     from repro_torch.configs import INPUT_SHAPES, get_config
@@ -3745,6 +3766,7 @@ def _train_runs(torch, fails: list) -> None:
     _finite('train: qwen3 train.run', hist, fails)
     _report_rounds(torch, 'train: qwen3 S 64', times,
                    C * steps_n * cli['batch'] * cli['seq'], fails)
+    readings['round_s'] = times['round'][1:]   # round 1 carries set-up
     torch.cuda.empty_cache()
 
     # (2) one round at train_4k's sequence length, and profiles
@@ -3757,7 +3779,8 @@ def _train_runs(torch, fails: list) -> None:
           f'sequence a client), local steps 1, remat {cfg.remat}')
     gen = torch.Generator(device=dev).manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
-    state = setup.init_state(model.init(gen))
+    state = _measured_init(torch, readings, STATE_LABEL,
+                           lambda: setup.init_state(model.init(gen)))
 
     def round_batch(b, seq, seed, vocab=cfg.vocab_size):
         g = torch.Generator(device=dev).manual_seed(seed)
@@ -4003,6 +4026,198 @@ def profile_train(torch, label, train, top=6):
     return wall, busy / 1e6, kernels
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the dry run (every architecture x input shape on ``meta``)
+# ---------------------------------------------------------------------------
+
+#: the label of the train phase's measured state (qwen3-1.7b, C = 4)
+STATE_LABEL = 'qwen3-1.7b silo state, C = 4'
+#: allocator rounding allowed between the dry run's bytes and a measured
+#: init, per leaf
+ROUND_BYTES = 512
+#: how long the dry-run phase waits for its two processes, seconds
+DRYRUN_WAIT = 400
+
+
+def new_readings() -> dict:
+    """What phases 11-13 record for the dry-run phase: 'init' (label ->
+    (``memory_allocated`` after less before, requested bytes after less
+    before or None) of each measured init), 'prefill_s' (the serve
+    phase's timed ``prefill_step`` calls), 'round_s' (the train phase's
+    qwen3 S 64 rounds after the first)."""
+    return {'init': {}, 'prefill_s': None, 'round_s': None}
+
+
+def _requested(torch):
+    return torch.cuda.memory_stats().get('requested_bytes.all.current')
+
+
+def _allocator(torch, setting: str):
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore', FutureWarning)
+        torch.cuda.memory._set_allocator_settings(setting)
+
+
+def _measured_init(torch, readings, label, init):
+    """``init()``, recording in ``readings['init'][label]`` the device
+    memory it leaves allocated.  Expandable segments are on for the call, so the
+    allocator splits every block down to its request rounded up to 512 B
+    (without them a large block is kept whole when the rest would be 1
+    MiB or less, and ``memory_allocated`` counts that rest)."""
+    torch.cuda.synchronize()
+    _allocator(torch, 'expandable_segments:True')
+    try:
+        a0, r0 = torch.cuda.memory_allocated(), _requested(torch)
+        out = init()
+        torch.cuda.synchronize()
+        a1, r1 = torch.cuda.memory_allocated(), _requested(torch)
+    finally:
+        _allocator(torch, 'expandable_segments:False')
+    readings['init'][label] = (a1 - a0, None if r0 is None else r1 - r0)
+    return out
+
+
+def start_dryruns(src: pathlib.Path) -> list:
+    """Start ``python -m repro_torch.launch.dryrun --all`` on the one-pod
+    and the two-pod production mesh, each in a process of its own on the
+    host (the dry run runs on the ``meta`` device, never on the card),
+    beside the card's phases.  Returns [(mesh label, process, rows file,
+    errors file, start time)]."""
+    import os
+    import tempfile
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix='chip_smoke_dryrun_'))
+    env = dict(os.environ, PYTHONPATH=str(src.resolve()),
+               OMP_NUM_THREADS='1')
+    runs = []
+    for label, flags in (('one pod', []), ('two pods', ['--multi-pod'])):
+        out = tmp / f'{len(runs)}.jsonl'
+        err = tmp / f'{len(runs)}.err'
+        with open(out, 'w') as fo, open(err, 'w') as fe:
+            proc = subprocess.Popen(
+                [sys.executable, '-m', 'repro_torch.launch.dryrun', '--all',
+                 *flags], stdout=fo, stderr=fe, env=env)
+        runs.append((label, proc, out, err, time.time()))
+    return runs
+
+
+def stop_dryruns(runs) -> None:
+    """Kill any dry-run process still running; remove their files."""
+    import shutil
+    for _, proc, out, _, _ in runs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(out.parent, ignore_errors=True)
+
+
+def dryrun_phase(torch, runs, readings: dict, fails: list) -> None:
+    """Phase 14: the dry run's rows for all 33 cells on both production
+    meshes (one line a cell: trace seconds, argument bytes whole and per
+    chip, whether the arguments alone fit one card beside this card's
+    memory, the roofline on the mesh); the dry run's parameter and state
+    bytes held against each measured init; the serve phase's prefill and
+    the train phase's S 64 rounds as shares of their one-card rooflines
+    (readings, not gates)."""
+    from repro_torch.configs import (ARCH_IDS, INPUT_SHAPES, InputShape,
+                                     shape_supported)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    cells = {(a, s) for a in ARCH_IDS for s in INPUT_SHAPES
+             if shape_supported(a, s)}
+    rows = {}
+    for label, proc, out, err, started in runs:
+        t = time.perf_counter()
+        try:
+            rc = proc.wait(timeout=DRYRUN_WAIT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = f'killed after {DRYRUN_WAIT} s'
+        waited = time.perf_counter() - t
+        got = [json.loads(line) for line in out.read_text().splitlines()
+               if line.startswith('{')]
+        errors = err.read_text().strip()
+        print(f'dryrun: {label}: exit {rc}, {len(got)} rows, the last '
+              f'written {out.stat().st_mtime - started:.1f} s after the '
+              f'process started ({sum(r["trace_s"] for r in got):.1f} s '
+              f'tracing); waited {waited:.1f} s here'
+              + (f'; stderr:\n{errors[-3000:]}' if errors else ''))
+        if rc != 0 or {(r['arch'], r['shape']) for r in got} != cells \
+                or len(got) != len(cells):
+            fails.append(f'dryrun: {label}: exit {rc}, {len(got)} rows of '
+                         f'{len(cells)} cells')
+        for r in got:
+            rows[(r['arch'], r['shape'], r['mesh'])] = r
+            print(f'dryrun: {r["arch"]} {r["shape"]} on {r["mesh"]}: '
+                  f'traced in {r["trace_s"]:.2f} s; arguments '
+                  f'{r["whole_arg_bytes"] / 2**30:.3f} GiB whole, '
+                  f'{r["arg_bytes"] / 2**30:.4f} GiB a chip; fits one card '
+                  f'(arguments <= 80 GB): {r["fits_one_card"]} (this card '
+                  f'{total / 2**30:.2f} GiB); params '
+                  f'{r["param_bytes"] / 2**30:.3f} GiB; roofline on '
+                  f'{r["chips"]} chips: compute {r["t_compute_s"]:.4e} s, '
+                  f'memory {r["t_memory_s"]:.4e} s ({r["bottleneck"]})')
+
+    one = Mesh((1, 1), ('data', 'model'))
+    prefill = dryrun.lower_one(ARCH, InputShape('prefill', PREFILL_S,
+                                                PREFILL_B, 'prefill'),
+                               mesh=one)
+    cli = TRAIN_CLI
+    C = cli['n_clients']
+    rnd = dryrun.lower_one(TRAIN_ARCH, InputShape(
+        'round', cli['seq'], C * cli['batch'], 'train'), mesh=one,
+        n_clients=C, local_steps=cli['local_steps'])
+    # bytes and leaves each measured init should hold
+    want = {ARCH: (prefill['param_bytes'], prefill['n_param_leaves']),
+            STATE_LABEL: (rnd['state_bytes'], 3 * rnd['n_param_leaves'])}
+    for arch, depth, _ in FAMILIES:
+        if depth:
+            r = dryrun.lower_one(arch, 'decode_32k',
+                                 extra_cfg={'n_layers': depth})
+            whole = rows.get((arch, 'decode_32k', 'data=16xmodel=16'))
+            if whole:
+                print(f'dryrun: {arch} at its published depth: params '
+                      f'{whole["param_bytes"] / 2**30:.2f} GiB '
+                      f'({whole["n_params"]:,} parameters); at {depth} '
+                      f'layers {r["param_bytes"] / 2**30:.2f} GiB')
+        else:
+            r = rows.get((arch, 'decode_32k', 'data=16xmodel=16'))
+        if r:
+            want[arch] = (r['param_bytes'], r['n_param_leaves'])
+    for label, (dry, leaves) in want.items():
+        if label not in readings['init']:
+            fails.append(f'dryrun: no measured init of {label}')
+            continue
+        alloc, req = readings['init'][label]
+        ok = 0 <= alloc - dry <= ROUND_BYTES * leaves
+        print(f'dryrun: {label}: dry run {dry:,} B ({dry / 2**30:.3f} GiB, '
+              f'{leaves} leaves); memory_allocated around its init '
+              f'{alloc:,} B (+{alloc - dry:,}, bound +{ROUND_BYTES} x '
+              f'{leaves} = {ROUND_BYTES * leaves:,}); requested '
+              f'{"not measured" if req is None else f"{req:,} B"}: '
+              f'{"ok" if ok else "MISMATCH"}')
+        if not ok:
+            fails.append(f'dryrun: {label}: measured {alloc:,} B against '
+                         f'the dry run\'s {dry:,} B')
+
+    for label, row, secs in (
+            (f'{ARCH} prefill_step B {PREFILL_B} x S {PREFILL_S}', prefill,
+             readings['prefill_s']),
+            (f'{TRAIN_ARCH} S {cli["seq"]} round (C {C}, B {cli["batch"]}, '
+             f'{cli["local_steps"]} local steps)', rnd,
+             readings['round_s'])):
+        bound = max(row['t_compute_s'], row['t_memory_s'])
+        print(f'dryrun: {label}: one-card roofline {bound:.4e} s '
+              f'({row["bottleneck"]}; compute {row["t_compute_s"]:.4e} s, '
+              f'memory {row["t_memory_s"]:.4e} s; {row["flops"]:.4e} FLOP, '
+              f'{row["hbm_bytes"]:.4e} B); measured '
+              + (', '.join(f'{s:.4f} s = {bound / s:.2%}' for s in secs)
+                 if secs else 'not measured'))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--tier-kernels', action='store_true',
@@ -4048,11 +4263,20 @@ def main(argv=None) -> int:
             print(f'FAIL {f}')
         return 1 if fails else 0
     if opts.train:
-        train_phase(torch, fails)
+        train_phase(torch, fails, new_readings())
         lap('train')
         for f in fails:
             print(f'FAIL {f}')
         return 1 if fails else 0
+    runs = start_dryruns(src)
+    try:
+        return _all_phases(torch, kind, n, runs, lap, fails)
+    finally:
+        stop_dryruns(runs)
+
+
+def _all_phases(torch, kind, n, runs, lap, fails) -> int:
+    readings = new_readings()
     recs = (kernel_phase(torch, n, fails) + leaf_kernel_phase(torch, fails)
             + fleet_kernel_phase(torch, n, fails)
             + merge_kernel_phase(torch, n, fails)
@@ -4084,14 +4308,16 @@ def main(argv=None) -> int:
     recs += attn
     torch.cuda.empty_cache()
     lap('attention kernel')
-    launches.update(serve_phase(torch, attn[0]['ms'], fails))
+    launches.update(serve_phase(torch, attn[0]['ms'], fails, readings))
     lap('serve')
     launches.update(families_phase(torch, {r['name']: r['ms'] for r in attn},
-                                   fails))
+                                   fails, readings))
     lap('families')
     torch.cuda.empty_cache()
-    launches.update(train_phase(torch, fails))
+    launches.update(train_phase(torch, fails, readings))
     lap('train')
+    dryrun_phase(torch, runs, readings, fails)
+    lap('dryrun')
     for r in recs:
         r['launches'] = launches.get(r['name'], 0)
         del r['bytes'], r['flops'], r['dense_bytes']

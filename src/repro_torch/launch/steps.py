@@ -9,13 +9,17 @@ discriminative aggregation.  The reference writes it out of place and
 lets XLA reuse the donated state; in eager PyTorch that would hold four
 more ``[C, ...]`` stacks than the state (95 GiB for qwen3-1.7b against
 its 34 GiB state), so ``train_step`` works leaf by leaf and in place,
-and trains the clients one after another from a copy of each row (the
-MoE's dispatch is data-dependent, so the clients are not batched).
-Sharding profiles (the reference's ``rules``, ``shardings``,
-``_maybe_gather_weights``) are not ported (ROADMAP queue 1, item 28).
+and trains the clients one after another from a copy of each row.
+The sharding profiles are the reference's: ``rules`` picks one
+(``sharding.PROFILES``), ``state_axes`` and ``shardings`` give every
+leaf's logical axes and spec on a mesh, and ``train_step`` enters the
+profile's activation context and ``_maybe_gather_weights`` under
+``FSDP_RULES``, as the reference's does.  The port runs on one card,
+where a spec lays nothing out, so every profile gives ``rules=None``'s
+numbers bit for bit.
 
-``ServeSetup`` is the reference's, without the shardings (the port runs
-on one card): ``prefill_step`` is the bulk prefill through
+``ServeSetup`` is the reference's, with its specs as data (one card):
+``prefill_step`` is the bulk prefill through
 ``forward_logits`` (with ``attn_impl='pallas'`` it launches kernel 21 once
 per causal attention layer, or application of the hybrid family's shared
 block; the audio encoder's and the cross-attention take the plain path),
@@ -25,11 +29,14 @@ reference's give ``ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.core import protocol
+from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model
 from repro_torch.optim import tree_leaves, tree_map
 
@@ -47,19 +54,56 @@ def row(stacked, k: int):
     return tree_map(lambda t: t[k], stacked)
 
 
+# ---------------------------------------------------------------------------
+# Logical-axis trees for caches and batches
+# ---------------------------------------------------------------------------
+
+def cache_axes(cfg: ModelConfig):
+    """The decode cache's logical axes (``length`` a scalar)."""
+    ax = {'length': ()}
+    kv = ('layers', 'batch', 'kv_seq', 'kv_heads', 'head_dim')
+    if cfg.family in ('dense', 'moe', 'vlm', 'audio', 'hybrid'):
+        ax.update(k=kv, v=kv, positions=('kv_seq',))
+    if cfg.family == 'audio':
+        ax.update(xk=kv, xv=kv)
+    if cfg.family in ('ssm', 'hybrid'):
+        ax['conv'] = ('layers', 'batch', None, 'ssm_inner')
+        ax['ssm'] = ('layers', 'batch', 'ssm_heads', 'ssm_headdim',
+                     'ssm_state')
+    return ax
+
+
+SERVE_RULES = dict(shd.DEFAULT_RULES,
+                   kv_seq=(), kv_heads=('model',), head_dim=('model',),
+                   ssm_heads=('model',), ssm_headdim=('model',), ssm_state=())
+
+# "split-KV" decode: shard the cache's sequence dim over the model axis
+# instead of kv_heads/head_dim
+SERVE_SPLITKV_RULES = dict(SERVE_RULES, kv_seq=('model',), kv_heads=(),
+                           head_dim=())
+
+SERVE_PROFILES = {'gqa': SERVE_RULES, 'splitkv': SERVE_SPLITKV_RULES}
+
+
+def batch_axes_train(cfg: ModelConfig):
+    """A silo round's batch's logical axes."""
+    ax = {'tokens': ('clients', 'local_batch', 'seq'),
+          'labels': ('clients', 'local_batch', 'seq')}
+    if cfg.family == 'vlm':
+        ax['patch_embeds'] = ('clients', None, None, None)
+    if cfg.family == 'audio':
+        ax['frame_embeds'] = ('clients', None, None, None)
+    ax['meta'] = {k: ('clients',) for k in MASKS + ('weights',)}
+    return ax
+
+
 @dataclasses.dataclass
 class SiloSetup:
     model: Model
     n_clients: int
     local_steps: int = 1
     learning_rate: float = 1e-2
-    rules: dict = None   # the reference's sharding profile: not ported
-
-    def __post_init__(self):
-        if self.rules is not None:
-            raise NotImplementedError(
-                'sharding profiles (rules=) are not ported to repro_torch '
-                'yet (ROADMAP queue 1, item 28)')
+    rules: dict = None   # sharding profile (sharding.PROFILES); None = tp
 
     def client_batch(self, shape):
         """One round's input batch for ``shape`` (an ``InputShape``) as
@@ -95,6 +139,47 @@ class SiloSetup:
                                                dtype=s.dtype, device='meta'),
                          shapes)
         return {'global': shapes, 'local': stack, 'cache': stack}
+
+    def state_axes(self):
+        """The state's logical axes: the params', the stacks' led by
+        ``'clients'``."""
+        axes = self.model.param_axes()
+        stacked = shd.tree_map_axes(lambda a: ('clients',) + a, axes)
+        return {'global': axes, 'local': stacked, 'cache': stacked}
+
+    def shardings(self, mesh, shape):
+        """(state, batch) ``NamedSharding`` trees on ``mesh`` for
+        ``shape`` under ``rules``; remembers the mesh for ``train_step``
+        (the reference's does the same)."""
+        self._mesh = mesh
+        state_sh = shd.tree_shardings(self.state_axes(), self.state_sds(),
+                                      mesh, self.rules)
+        batch_sh = shd.tree_shardings(batch_axes_train(self.model.cfg),
+                                      self.client_batch(shape), mesh,
+                                      self.rules)
+        return state_sh, batch_sh
+
+    def _maybe_gather_weights(self, stacked):
+        """The FSDP profile's gather of each client's weights before its
+        local training (expert tables keep their expert sharding); a
+        constraint, so ``stacked`` itself on one card."""
+        if self.rules is not shd.FSDP_RULES or \
+                getattr(self, '_mesh', None) is None:
+            return stacked
+        mesh = self._mesh
+
+        def gather(x, ax):
+            keep = tuple(a if a == 'experts' else None for a in ax[1:])
+            return shd.constrain(x, mesh, 'clients', *keep, rules=self.rules)
+        return shd.tree_map_axes(lambda a, x: gather(x, a),
+                                 self.state_axes()['local'], stacked)
+
+    def _activation_context(self):
+        """The FSDP profile pins the activations inside the layer loop."""
+        mesh = getattr(self, '_mesh', None)
+        if self.rules is shd.FSDP_RULES and mesh is not None:
+            return shd.activation_sharding(mesh, self.rules)
+        return contextlib.nullcontext()
 
     def init_state(self, global_w):
         """The round-0 state: every client's local model and cache entry a
@@ -195,8 +280,9 @@ class SiloSetup:
         meta = batch['meta']
         masks = {k: _host(meta[k]) for k in MASKS}
         self.distribute(state, masks['sync'])
-        losses = self.train_clients(state['local'], batch,
-                                    masks['completed'])
+        local = self._maybe_gather_weights(state['local'])
+        with self._activation_context():
+            losses = self.train_clients(local, batch, masks['completed'])
         new_global = self.server_step(
             state, masks['picked'], masks['undrafted'], masks['deprecated'],
             meta['weights'])
@@ -228,6 +314,17 @@ class SiloSetup:
 @dataclasses.dataclass
 class ServeSetup:
     model: Model
+    serve_rules: dict = None   # SERVE_PROFILES entry; None = SERVE_RULES
+
+    @property
+    def _rules(self):
+        return self.serve_rules or SERVE_RULES
+
+    def param_shardings(self, mesh):
+        """The params' ``NamedSharding`` tree on ``mesh``, under the
+        DEFAULT rules (as the reference builds it), not ``serve_rules``."""
+        return shd.tree_shardings(self.model.param_axes(),
+                                  self.model.param_shapes(), mesh)
 
     def prefill_batch(self, shape):
         """{'tokens': [global_batch, seq_len] int32} for ``shape`` (an
@@ -245,6 +342,19 @@ class ServeSetup:
                                           dtype=torch.float32, device='meta')
         return batch
 
+    def prefill_axes(self):
+        ax = {'tokens': ('batch', None)}
+        extra = {'vlm': 'patch_embeds',
+                 'audio': 'frame_embeds'}.get(self.model.cfg.family)
+        if extra:
+            ax[extra] = ('batch', None, None)
+        return ax
+
+    def prefill_shardings(self, mesh, shape):
+        return shd.tree_shardings(self.prefill_axes(),
+                                  self.prefill_batch(shape), mesh,
+                                  self._rules)
+
     def prefill_step(self, params, batch):
         """Next token of every row: argmax of the last position's logits."""
         logits, _ = self.model.logits(params, batch)
@@ -256,6 +366,15 @@ class ServeSetup:
         B, S = shape.global_batch, shape.seq_len
         cache = self.model.init_cache(B, S, length=S - 1, device='meta')
         return cache, torch.empty((B, 1), dtype=torch.int32, device='meta')
+
+    def decode_shardings(self, mesh, shape):
+        """(cache, tokens) ``NamedSharding``s on ``mesh`` for ``shape``."""
+        cache, tokens = self.decode_batch(shape)
+        cache_sh = shd.tree_shardings(cache_axes(self.model.cfg), cache,
+                                      mesh, self._rules)
+        tok_sh = shd.NamedSharding(mesh, shd.spec_for(
+            ('batch', None), tokens.shape, mesh, self._rules))
+        return cache_sh, tok_sh
 
     def serve_step(self, params, cache, tokens):
         """One decode step (the cache updated in place); returns (cache,

@@ -1,12 +1,20 @@
 """Attention: GQA + optional sliding window, on [B, S, H, D] tensors.
 
 ``flash_attention`` is the plain blocked path (a loop over KV blocks with
-an online softmax), so its working set stays at [*, q_block, kv_block]
+an online softmax), so its working set stays at [*, seq, kv_block]
 instead of [*, seq, seq]; it is the ``attn_impl='flash_jnp'`` path of the
-models.  As in the reference, its products take the operands in their
-own dtype (bf16 at full width) and accumulate in f32, with the scale
-applied to the f32 scores and the probabilities rounded to v's dtype
-before the second product.  ``attention_ref`` is the naive O(S^2)-memory
+models.  The reference maps its KV-block scan over the query blocks one
+at a time; here every query takes each KV block in one operation (the
+query blocks' online-softmax carries side by side, the same arithmetic
+per query), so a call is ``seq / kv_block`` steps of a few launches, not
+``(seq / q_block) x (seq / kv_block)``, and it traces on the ``meta``
+device at full size in seconds (``launch.dryrun``).  ``q_block`` is
+taken for the reference's signature and not used: the reference pads
+the queries to it, and no query's output depends on the padding.  As in
+the reference, its products take the operands in their own dtype (bf16
+at full width) and accumulate in f32, with the scale applied to the f32
+scores and the probabilities rounded to v's dtype before the second
+product.  ``attention_ref`` is the naive O(S^2)-memory
 oracle (and, through ``kernels.ref.swa_attention_ref``, kernel 21's plain
 version); ``decode_attention`` is one decode step against a cache.  All
 three are plain PyTorch, as the reference's are plain jnp.
@@ -37,8 +45,8 @@ def _arange(n, device):
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, q_positions=None,
-                    k_positions=None, q_block=512, kv_block=512,
-                    kv_valid=None):
+                    k_positions=None, q_block=512,  # noqa: ARG001
+                    kv_block=512, kv_valid=None):
     """Online-softmax attention.
 
     q: [B, Sq, H, D];  k, v: [B, Sk, KH, D]  (GQA: H % KH == 0).
@@ -59,54 +67,45 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_positions=None,
     if k_positions is None:
         k_positions = _arange(Sk, dev)
 
-    # Pad sequence dims to block multiples.
-    pq = (-Sq) % q_block
+    # Pad the keys to a block multiple.
     pk = (-Sk) % kv_block
-    if pq:
-        q = F.pad(q, (0, 0, 0, 0, 0, pq))
-        q_positions = F.pad(q_positions, (0, pq), value=2**30)
     if pk:
         k = F.pad(k, (0, 0, 0, 0, 0, pk))
         v = F.pad(v, (0, 0, 0, 0, 0, pk))
         k_positions = F.pad(k_positions, (0, pk), value=-(2**30))
-    nq, nk = q.shape[1] // q_block, k.shape[1] // kv_block
+    nk = k.shape[1] // kv_block
 
-    qr = q.reshape(B, nq, q_block, KH, G, D)
+    # bf16 operands, f32 accumulation: a bf16 product is exact in f32, so
+    # the f32 product of the upcast operands is the reference's
+    qf = q.reshape(B, Sq, KH, G, D).float()
     kr = k.reshape(B, nk, kv_block, KH, D)
     vr = v.reshape(B, nk, kv_block, KH, D)
-    qpos = q_positions.reshape(nq, q_block)
     kpos = k_positions.reshape(nk, kv_block)
 
-    out = []
-    for i in range(nq):
-        # bf16 operands, f32 accumulation: a bf16 product is exact in f32,
-        # so the f32 product of the upcast operands is the reference's
-        qb = qr[:, i].float()
-        m_i = torch.full((B, q_block, KH, G), NEG_INF, dtype=torch.float32,
-                         device=dev)
-        l_i = torch.zeros((B, q_block, KH, G), dtype=torch.float32,
-                          device=dev)
-        acc = torch.zeros((B, q_block, KH, G, D), dtype=torch.float32,
-                          device=dev)
-        for j in range(nk):
-            vb = vr[:, j]
-            s = torch.einsum('bqhgd,bkhd->bqhgk', qb, kr[:, j].float()) * scale
-            mask = _block_mask(qpos[i], kpos[j], causal, window)
-            mask &= (kpos[j] >= 0)[None, :]  # exclude block-padding keys
-            if kv_valid is not None:
-                mask &= kpos[j][None, :] < kv_valid
-            s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
-            m_new = torch.maximum(m_i, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m_i - m_new)
-            l_i = l_i * corr + p.sum(dim=-1)
-            pv = torch.einsum('bqhgk,bkhd->bqhgd', p.to(vb.dtype).float(),
-                              vb.float())
-            acc = acc * corr[..., None] + pv
-            m_i = m_new
-        out.append(acc / torch.clamp(l_i, min=1e-30)[..., None])
-    out = torch.stack(out, dim=1).reshape(B, nq * q_block, H, D)
-    return out[:, :Sq].to(q.dtype)
+    # every query block at once: the reference's per-block carries side
+    # by side, updated in the same order over the KV blocks
+    m_i = torch.full((B, Sq, KH, G), NEG_INF, dtype=torch.float32,
+                     device=dev)
+    l_i = torch.zeros((B, Sq, KH, G), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Sq, KH, G, D), dtype=torch.float32, device=dev)
+    for j in range(nk):
+        vb = vr[:, j]
+        s = torch.einsum('bqhgd,bkhd->bqhgk', qf, kr[:, j].float()) * scale
+        mask = _block_mask(q_positions, kpos[j], causal, window)
+        mask &= (kpos[j] >= 0)[None, :]  # exclude block-padding keys
+        if kv_valid is not None:
+            mask &= kpos[j][None, :] < kv_valid
+        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m_i, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m_i - m_new)
+        l_i = l_i * corr + p.sum(dim=-1)
+        pv = torch.einsum('bqhgk,bkhd->bqhgd', p.to(vb.dtype).float(),
+                          vb.float())
+        acc = acc * corr[..., None] + pv
+        m_i = m_new
+    out = acc / torch.clamp(l_i, min=1e-30)[..., None]
+    return out.reshape(B, Sq, H, D).to(q.dtype)
 
 
 def attention_ref(q, k, v, *, causal=True, window=None, q_positions=None,

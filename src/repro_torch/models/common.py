@@ -1,11 +1,16 @@
 """Parameter initialisers, RMSNorm, RoPE and the loss of the model path.
 
 Parameters are nested dicts of tensors, as the JAX package's unboxed
-trees are; the logical-axes boxes (``Box``/``unbox``/``abstract_init``)
-belong to sharding, which is not ported yet.  An initialiser draws on a
-``torch.Generator`` on the parameter's device; given ``generator=None``,
-``param`` returns a tensor on the ``meta`` device (shape and dtype, no
-storage), which is how ``Model.n_params`` counts without allocating.
+trees are.  Each ``param`` call names its *logical* axes, as the
+reference's ``cm.param(key, shape, axes, ...)`` does; where the reference
+boxes a value with its axes, the port asks the same init code for one or
+the other: an initialiser draws on a ``torch.Generator`` on the
+parameter's device; given ``generator=None``, ``param`` returns a tensor
+on the ``meta`` device (shape and dtype, no storage), which is how
+``Model.n_params`` counts without allocating; given ``generator=AXES``,
+it returns the axis names (``Model.param_axes``), the layers' stacked
+axes named ``'layers'``.  ``repro_torch.sharding`` maps the names to
+mesh axes.
 """
 from __future__ import annotations
 
@@ -77,11 +82,29 @@ def uniform_init(lo, hi, fn):
     return init
 
 
-def param(generator, shape, dtype=torch.float32, init=dense_init, lead=()):
+class _Axes:
+    """The type of ``AXES``."""
+
+    def __repr__(self):
+        return 'AXES'
+
+
+#: pass as ``param``'s generator to get each parameter's logical axes
+AXES = _Axes()
+
+
+def param(generator, shape, axes, dtype=torch.float32, init=dense_init,
+          lead=()):
     """One parameter of ``shape`` with ``lead`` stacked axes in front (the
     layers' ``[L, ...]``), each layer drawn on its own, so a stacked dense
-    weight's fan-in is the layer's.  ``generator=None`` gives a ``meta``
-    tensor."""
+    weight's fan-in is the layer's.  ``axes`` names each axis of
+    ``shape`` (``None``: unsharded).  ``generator=None`` gives a ``meta``
+    tensor, ``generator=AXES`` the tuple of axis names, ``'layers'`` for
+    each axis of ``lead``."""
+    if len(shape) != len(axes):
+        raise ValueError(f'{len(axes)} axis names {axes} for shape {shape}')
+    if generator is AXES:
+        return ('layers',) * len(lead) + tuple(axes)
     shape = tuple(int(s) for s in shape)
     lead = tuple(int(s) for s in lead)
     if generator is None:

@@ -10,11 +10,14 @@ from repro_torch.models import common as cm
 
 def init_mlp(generator, d_model, d_ff, kind: str, dtype, lead=()):
     p = {
-        'w_up': cm.param(generator, (d_model, d_ff), dtype, lead=lead),
-        'w_down': cm.param(generator, (d_ff, d_model), dtype, lead=lead),
+        'w_up': cm.param(generator, (d_model, d_ff), ('embed', 'mlp'), dtype,
+                         lead=lead),
+        'w_down': cm.param(generator, (d_ff, d_model), ('mlp', 'embed'),
+                           dtype, lead=lead),
     }
     if kind == 'swiglu':
-        p['w_gate'] = cm.param(generator, (d_model, d_ff), dtype, lead=lead)
+        p['w_gate'] = cm.param(generator, (d_model, d_ff), ('embed', 'mlp'),
+                               dtype, lead=lead)
     return p
 
 

@@ -6,6 +6,7 @@ import math
 import torch
 
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.models import common as cm
 from repro_torch.models import decode as dec
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
@@ -27,6 +28,12 @@ class Model:
             generator = torch.Generator(device=resolve_device(device))
             generator.manual_seed(int(seed))
         return tfm.init_params(generator, self.cfg)
+
+    def param_axes(self):
+        """The tree of each parameter's logical axis names, the
+        reference's (stacked layers lead with ``'layers'``); no storage,
+        no compute."""
+        return tfm.init_params(cm.AXES, self.cfg)
 
     def param_shapes(self):
         """The param tree as ``meta`` tensors (no storage, no compute)."""

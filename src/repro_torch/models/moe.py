@@ -13,6 +13,9 @@ The reference dispatches and combines with one-hot ``[G, S, E, C]``
 einsums; here a token is copied into its ``[E, G, C, M]`` slot and read
 back from it by index, and the experts run as one batched product over
 ``E``.  Each slot holds one token or none, so both give the same values.
+A dropped token is written to a scratch slot, so no shape depends on the
+routes: the dispatch reads nothing back to the host, and it traces on
+the ``meta`` device (``launch.dryrun``).
 
 llama4 also has a *shared* expert applied to every token
 (``shared_expert=True``), as in the reference.
@@ -32,14 +35,14 @@ def init_moe(generator, d_model, d_ff, n_experts, dtype, shared_expert=True,
     are ``[E, in, out]``; as in the reference, their init's fan-in is
     their first axis, ``E``."""
     p = {
-        'router': cm.param(generator, (d_model, n_experts), torch.float32,
-                           lead=lead),
-        'w_gate': cm.param(generator, (n_experts, d_model, d_ff), dtype,
-                           lead=lead),
-        'w_up': cm.param(generator, (n_experts, d_model, d_ff), dtype,
-                         lead=lead),
-        'w_down': cm.param(generator, (n_experts, d_ff, d_model), dtype,
-                           lead=lead),
+        'router': cm.param(generator, (d_model, n_experts),
+                           ('embed', 'experts'), torch.float32, lead=lead),
+        'w_gate': cm.param(generator, (n_experts, d_model, d_ff),
+                           ('experts', 'embed', 'mlp'), dtype, lead=lead),
+        'w_up': cm.param(generator, (n_experts, d_model, d_ff),
+                         ('experts', 'embed', 'mlp'), dtype, lead=lead),
+        'w_down': cm.param(generator, (n_experts, d_ff, d_model),
+                           ('experts', 'mlp', 'embed'), dtype, lead=lead),
     }
     if shared_expert:
         p['shared'] = mlp_mod.init_mlp(generator, d_model, d_ff, 'swiglu',
@@ -78,16 +81,19 @@ def apply_moe(p, x, *, capacity_factor=1.25, group_size=None):
     # each token's place in its expert's queue, in token order
     pos = (onehot.cumsum(dim=1).gather(-1, idx[..., None])[..., 0] - 1)
     keep = pos < C
-    g_of = torch.arange(G, device=x.device)[:, None].expand(G, group_size)
-    e_k, g_k, c_k = idx[keep], g_of[keep], pos[keep]
+    # a kept token's row of the flat [E * G * C] slots; a dropped token's
+    # is the scratch row E * G * C, read by no one
+    g_of = torch.arange(G, device=x.device)[:, None]
+    slot = torch.where(keep, (idx * G + g_of) * C + pos, E * G * C)
 
-    xin = tg.new_zeros((E, G, C, M))
-    xin[e_k, g_k, c_k] = tg[keep]
-    xin = xin.reshape(E, G * C, M)
+    xin = tg.new_zeros((E * G * C + 1, M))
+    xin[slot.reshape(-1)] = tg.reshape(-1, M)
+    xin = xin[:-1].reshape(E, G * C, M)
     h = F.silu(torch.bmm(xin, p['w_gate'])) * torch.bmm(xin, p['w_up'])
-    xout = torch.bmm(h, p['w_down']).reshape(E, G, C, M)
-    y = tg.new_zeros((G, group_size, M))
-    y[keep] = gate[keep].to(x.dtype)[:, None] * xout[e_k, g_k, c_k]
+    xout = torch.bmm(h, p['w_down']).reshape(E * G * C, M)
+    picked = xout[slot.clamp_max(E * G * C - 1)]
+    y = torch.where(keep[..., None], gate.to(x.dtype)[..., None] * picked,
+                    0.0)
 
     y = y.reshape(-1, M)[:N].reshape(B, S, M)
     if 'shared' in p:

@@ -135,23 +135,23 @@ def init_mamba_block(generator, d_model, d_state, headdim, dtype, expand=2,
     return {
         'in_proj': cm.param(generator,
                             (d_model, 2 * d_inner + 2 * d_state + n_heads),
-                            dtype, lead=lead),
-        'conv_w': cm.param(generator, (CONV_K, conv_ch), dtype,
-                           init=cm.normal_init(0.1), lead=lead),
-        'conv_b': cm.param(generator, (conv_ch,), dtype, init=cm.zeros_init,
-                           lead=lead),
-        'A_log': cm.param(generator, (n_heads,), f32,
+                            ('embed', 'ssm_inner'), dtype, lead=lead),
+        'conv_w': cm.param(generator, (CONV_K, conv_ch), (None, 'ssm_inner'),
+                           dtype, init=cm.normal_init(0.1), lead=lead),
+        'conv_b': cm.param(generator, (conv_ch,), ('ssm_inner',), dtype,
+                           init=cm.zeros_init, lead=lead),
+        'A_log': cm.param(generator, (n_heads,), (None,), f32,
                           init=cm.uniform_init(1.0, 16.0, torch.log),
                           lead=lead),
-        'D': cm.param(generator, (n_heads,), f32, init=cm.ones_init,
+        'D': cm.param(generator, (n_heads,), (None,), f32, init=cm.ones_init,
                       lead=lead),
-        'dt_bias': cm.param(generator, (n_heads,), f32,
+        'dt_bias': cm.param(generator, (n_heads,), (None,), f32,
                             init=cm.uniform_init(1e-3, 0.1, _dt_bias),
                             lead=lead),
-        'norm_scale': cm.param(generator, (d_inner,), f32,
+        'norm_scale': cm.param(generator, (d_inner,), ('ssm_inner',), f32,
                                init=cm.zeros_init, lead=lead),
-        'out_proj': cm.param(generator, (d_inner, d_model), dtype,
-                             lead=lead),
+        'out_proj': cm.param(generator, (d_inner, d_model),
+                             ('ssm_inner', 'embed'), dtype, lead=lead),
     }
 
 

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding as shd
 from repro_torch.kernels.swa_attention import swa_attention
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import common as cm
@@ -46,22 +47,28 @@ def check_family(cfg: ModelConfig) -> None:
 # Parameter init
 # ---------------------------------------------------------------------------
 
+def _norm(generator, cfg: ModelConfig, lead=()):
+    """A norm's f32 gain [d_model], zeros (the gain is ``1 + scale``)."""
+    return cm.param(generator, (cfg.d_model,), ('embed',), torch.float32,
+                    init=cm.zeros_init, lead=lead)
+
+
 def init_attn_layer(generator, cfg: ModelConfig, lead=()):
     hd = cfg.head_dim
     p = {
-        'wq': cm.param(generator, (cfg.d_model, cfg.n_heads * hd), cfg.dtype,
-                       lead=lead),
+        'wq': cm.param(generator, (cfg.d_model, cfg.n_heads * hd),
+                       ('embed', 'qkv'), cfg.dtype, lead=lead),
         'wk': cm.param(generator, (cfg.d_model, cfg.n_kv_heads * hd),
-                       cfg.dtype, lead=lead),
+                       ('embed', 'kv'), cfg.dtype, lead=lead),
         'wv': cm.param(generator, (cfg.d_model, cfg.n_kv_heads * hd),
-                       cfg.dtype, lead=lead),
-        'wo': cm.param(generator, (cfg.n_heads * hd, cfg.d_model), cfg.dtype,
-                       lead=lead),
+                       ('embed', 'kv'), cfg.dtype, lead=lead),
+        'wo': cm.param(generator, (cfg.n_heads * hd, cfg.d_model),
+                       ('qkv', 'embed'), cfg.dtype, lead=lead),
     }
     if cfg.qk_norm:
-        p['q_norm'] = cm.param(generator, (hd,), torch.float32,
+        p['q_norm'] = cm.param(generator, (hd,), (None,), torch.float32,
                                init=cm.zeros_init, lead=lead)
-        p['k_norm'] = cm.param(generator, (hd,), torch.float32,
+        p['k_norm'] = cm.param(generator, (hd,), (None,), torch.float32,
                                init=cm.zeros_init, lead=lead)
     return p
 
@@ -70,11 +77,9 @@ def init_dense_layer(generator, cfg: ModelConfig, lead=()):
     """One dense layer's params (its feed-forward an MoE when
     ``cfg.n_experts``), or ``lead`` of them stacked."""
     layer = {
-        'ln1': cm.param(generator, (cfg.d_model,), torch.float32,
-                        init=cm.zeros_init, lead=lead),
+        'ln1': _norm(generator, cfg, lead),
         'attn': init_attn_layer(generator, cfg, lead),
-        'ln2': cm.param(generator, (cfg.d_model,), torch.float32,
-                        init=cm.zeros_init, lead=lead),
+        'ln2': _norm(generator, cfg, lead),
     }
     if cfg.n_experts:
         layer['moe'] = moe_mod.init_moe(generator, cfg.d_model, cfg.d_ff,
@@ -88,8 +93,7 @@ def init_dense_layer(generator, cfg: ModelConfig, lead=()):
 
 def init_ssm_layer(generator, cfg: ModelConfig, lead=()):
     return {
-        'ln1': cm.param(generator, (cfg.d_model,), torch.float32,
-                        init=cm.zeros_init, lead=lead),
+        'ln1': _norm(generator, cfg, lead),
         'mamba': ssm_mod.init_mamba_block(generator, cfg.d_model,
                                           cfg.ssm_state, cfg.ssm_headdim,
                                           cfg.dtype, lead=lead),
@@ -100,14 +104,11 @@ def init_dec_layer(generator, cfg: ModelConfig, lead=()):
     """Encoder-decoder (whisper) decoder layer: self-attention,
     cross-attention and a gelu MLP, or ``lead`` of them stacked."""
     return {
-        'ln1': cm.param(generator, (cfg.d_model,), torch.float32,
-                        init=cm.zeros_init, lead=lead),
+        'ln1': _norm(generator, cfg, lead),
         'attn': init_attn_layer(generator, cfg, lead),
-        'ln_x': cm.param(generator, (cfg.d_model,), torch.float32,
-                         init=cm.zeros_init, lead=lead),
+        'ln_x': _norm(generator, cfg, lead),
         'xattn': init_attn_layer(generator, cfg, lead),
-        'ln2': cm.param(generator, (cfg.d_model,), torch.float32,
-                        init=cm.zeros_init, lead=lead),
+        'ln2': _norm(generator, cfg, lead),
         'mlp': mlp_mod.init_mlp(generator, cfg.d_model, cfg.d_ff, 'gelu',
                                 cfg.dtype, lead),
     }
@@ -119,11 +120,10 @@ def init_params(generator, cfg: ModelConfig):
     check_family(cfg)
     p = {
         'embed': cm.param(generator, (cfg.padded_vocab, cfg.d_model),
-                          cfg.dtype, init=cm.embed_init),
-        'ln_f': cm.param(generator, (cfg.d_model,), torch.float32,
-                         init=cm.zeros_init),
+                          ('vocab', 'embed'), cfg.dtype, init=cm.embed_init),
+        'ln_f': _norm(generator, cfg),
         'unembed': cm.param(generator, (cfg.d_model, cfg.padded_vocab),
-                            cfg.dtype),
+                            ('embed', 'vocab'), cfg.dtype),
     }
     if cfg.family in ('dense', 'moe', 'vlm'):
         if cfg.n_experts and cfg.moe_every > 1:
@@ -147,10 +147,10 @@ def init_params(generator, cfg: ModelConfig):
                                            lead=(cfg.enc_layers,))
         p['dec_layers'] = init_dec_layer(generator, cfg,
                                          lead=(cfg.n_layers,))
-        p['enc_ln_f'] = cm.param(generator, (cfg.d_model,), torch.float32,
-                                 init=cm.zeros_init)
+        p['enc_ln_f'] = _norm(generator, cfg)
         p['enc_pos'] = cm.param(generator, (cfg.enc_seq, cfg.d_model),
-                                cfg.dtype, init=cm.embed_init)
+                                (None, 'embed'), cfg.dtype,
+                                init=cm.embed_init)
     else:   # ssm, hybrid
         p['layers'] = init_ssm_layer(generator, cfg, lead=(cfg.n_layers,))
         if cfg.family == 'hybrid':
@@ -159,7 +159,7 @@ def init_params(generator, cfg: ModelConfig):
         # projector from the (stubbed) vision encoder into the LLM
         # embedding
         p['patch_proj'] = cm.param(generator, (cfg.d_model, cfg.d_model),
-                                   cfg.dtype)
+                                   ('embed', 'embed_out'), cfg.dtype)
     return p
 
 
@@ -266,6 +266,7 @@ def dense_layer_fwd(layer, x, cfg: ModelConfig, *, causal=True,
                     positions=None):
     """One layer; returns (output, aux) as the reference does (aux is the
     MoE's stats, empty for a dense feed-forward)."""
+    x = shd.constrain_act(x, 'local_batch', 'seq', None)
     h = x + attn_block(layer['attn'], cm.rms_norm(x, layer['ln1']), cfg,
                        causal=causal, positions=positions, window=cfg.window)
     pre = cm.rms_norm(h, layer['ln2'])
@@ -278,6 +279,7 @@ def dense_layer_fwd(layer, x, cfg: ModelConfig, *, causal=True,
 
 
 def ssm_layer_fwd(layer, x, cfg: ModelConfig):
+    x = shd.constrain_act(x, 'local_batch', 'seq', None)
     return x + ssm_mod.apply_mamba_block(
         layer['mamba'], cm.rms_norm(x, layer['ln1']),
         d_state=cfg.ssm_state, headdim=cfg.ssm_headdim, chunk=cfg.ssm_chunk)

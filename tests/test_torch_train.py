@@ -294,12 +294,18 @@ def test_train_refusals():
               crash_prob=0.0, batch=2, seq=16, local_steps=1, lr=0.05)
     with pytest.raises(NotImplementedError, match='item 7'):
         train.run('qwen3-1.7b', ckpt='/nonexistent', device='cpu', **kw)
-    with pytest.raises(NotImplementedError, match='item 28'):
-        SiloSetup(build_model(tcfgs.get_config('qwen3-1.7b').reduced()),
-                  n_clients=2, rules={})
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='torch.cuda.is_available'):
             train.run('qwen3-1.7b', **kw)
+
+
+def test_silo_setup_accepts_sharding_rules():
+    """``rules=`` (a sharding profile) is accepted, as the reference's:
+    an empty dict, each of ``sharding.PROFILES``."""
+    from repro_torch import sharding as shd
+    model = build_model(tcfgs.get_config('qwen3-1.7b').reduced())
+    for rules in [{}] + list(shd.PROFILES.values()):
+        assert SiloSetup(model, n_clients=2, rules=rules).rules is rules
 
 
 def test_gradient_through_the_attention_kernel_raises_on_both_packages():

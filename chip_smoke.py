@@ -259,7 +259,9 @@ Phases, each of which must pass:
              (``F32_LOSS_GAP``, ``F32_GRAD_COS``); at 4 of 28 layers the
              in-place ``train_step`` bit for bit the out-of-place
              ``protocol.safa_round`` with per-client SGD (global, local,
-             cache); the peak under the card's memory.
+             cache); the peak under the card's memory.  ``train.run``
+             saves its final global model (``ckpt=``, a temporary
+             directory): phase 15's check (d) runs there.
 14. dryrun — the dry run (``python -m repro_torch.launch.dryrun --all``,
              and with ``--multi-pod``), started in two host processes
              beside phase 2 and read here: every (architecture, input
@@ -276,6 +278,23 @@ Phases, each of which must pass:
              request) within 512 B a leaf.  The serve phase's prefill
              and the train phase's S 64 rounds are printed as shares of
              their one-card rooflines.
+15. checkpoint — checkpoint and resume, with deterministic cuDNN, on
+             Task 2's CNN at full width: (a) a SAFA run (int8 wire,
+             ``use_kernel='packed'``, 2 rounds, evaluated and saved every
+             round), (b) a 2-member fleet sweep of it, (c) an m = 1000
+             ``'sparse_tier'`` packed int8 run; each uninterrupted, then
+             ``checkpoint=p, max_segments=1`` and ``checkpoint=p`` on a
+             fresh Experiment: the resumed evals and final models equal
+             the uninterrupted ones bit for bit, and each call launches
+             its kernels for one round only.  (d), in the train phase:
+             qwen3-1.7b's ``train.run(..., ckpt=)`` file (about 4.06 GB)
+             served by ``serve.run(..., full_size=True, ckpt=)`` at the
+             CLI's serving defaults; every restored leaf equals the
+             trained global bit for bit (bf16 as int16); prints the
+             file's bytes, the free space beside it and the seconds to
+             save and to restore, then deletes it.  (e) one
+             ``EnvSpec(comm='wire')`` run of one round; prints the
+             uplink and downlink MB on both wires.
 
 The line before the last is a JSON object of kernel records; the last
 line is ``{"ok": true, "device": {...}}``.  Without a visible card, or
@@ -293,7 +312,8 @@ every check passes and prints no ``ok`` line.
     python3 chip_smoke.py --train
 
 runs only the build and the train phase (13), with the same exit
-contract.
+contract; ``--checkpoint`` only the build and the checkpoint phase (15;
+its check (d) runs with the train phase).
 """
 import argparse
 import json
@@ -3734,6 +3754,9 @@ def _finite(label, losses, fails):
 
 def _train_runs(torch, fails: list, readings: dict) -> None:
     import dataclasses
+    import os
+    import shutil
+    import tempfile
 
     from repro_torch.configs import INPUT_SHAPES, get_config
     from repro_torch.core import protocol
@@ -3752,21 +3775,36 @@ def _train_runs(torch, fails: list, readings: dict) -> None:
           f'{cfg.vocab_size}, {model.n_params():,} parameters, remat '
           f'{cfg.remat}')
 
-    # (1) train.run at the JAX CLI's defaults
+    # (1) train.run at the JAX CLI's defaults, saving its checkpoint
     times, restore = _silo_timers(torch, steps)
+    ckpt_dir = tempfile.mkdtemp(prefix='chip_smoke_llm_')
+    ckpt = os.path.join(ckpt_dir, 'qwen3.npz')
+    saved, save_s = {}, []
+    save = train.checkpoint.save
+
+    def keep(path, tree, meta):
+        saved['global'] = tree
+        return save(path, tree, meta)
+    train.checkpoint.save = _timed(torch, keep, save_s)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
         hist = train.run(TRAIN_ARCH, full_size=True, device='cuda',
-                         log_every=1, **cli)
+                         log_every=1, ckpt=ckpt, **cli)
     finally:
         restore()
+        train.checkpoint.save = save
     print(f'train: train.run {time.perf_counter() - t0:.1f} s wall '
-          f'(init included), losses {hist}')
+          f'(init and checkpoint included), losses {hist}')
     _finite('train: qwen3 train.run', hist, fails)
     _report_rounds(torch, 'train: qwen3 S 64', times,
                    C * steps_n * cli['batch'] * cli['seq'], fails)
     readings['round_s'] = times['round'][1:]   # round 1 carries set-up
+    # (d) of phase 15: serve the checkpoint at full size
+    try:
+        checkpoint_llm(torch, ckpt, saved.pop('global'), save_s[0], fails)
+    finally:
+        shutil.rmtree(ckpt_dir)
     torch.cuda.empty_cache()
 
     # (2) one round at train_4k's sequence length, and profiles
@@ -4218,12 +4256,246 @@ def dryrun_phase(torch, runs, readings: dict, fails: list) -> None:
                  if secs else 'not measured'))
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: checkpoint and resume; wire-derived comm
+# ---------------------------------------------------------------------------
+
+#: rounds of each checkpointed run, evaluated and saved every round: one
+#: segment before the stop, one after the resume
+CKPT_ROUNDS = 2
+#: the serving defaults of ``repro_torch.launch.serve.main``
+SERVE_CLI = dict(batch=4, prompt_len=32, gen=16)
+
+
+def checkpoint_phase(torch, fails: list) -> dict:
+    """Checkpoint and resume on Task 2's CNN at full width through
+    ``run(checkpoint=, max_segments=)`` and ``run_sweep(...)``: (a) a SAFA
+    run on the int8 wire with ``use_kernel='packed'``, (b) a 2-member
+    fleet sweep of it, (c) an m = 1000 ``'sparse_tier'`` packed int8 run;
+    each stopped after its first round and resumed on a fresh Experiment,
+    which must end bit for bit as the uninterrupted run and launch its
+    kernels for one round only.  Then (e) one ``EnvSpec(comm='wire')``
+    run.  (d), the qwen3-1.7b checkpoint, runs in the train phase, where
+    ``train.run`` writes it.  Trains with deterministic cuDNN.  Returns
+    {}: the kernels' launches stand in the phases that drive their
+    paths."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _checkpoint_runs(torch, fails)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return {}
+
+
+def _checkpoint_runs(torch, fails: list) -> None:
+    from repro_torch import api
+
+    safa = api.SafaSpec(fraction=0.3, lag_tolerance=5)
+    q8 = dict(wire='int8', use_kernel='packed', eval_every=1)
+    spec, task = cnn_setup(torch)
+
+    def run(**kw):
+        return api.Experiment(task, spec, safa, api.ExecSpec(**q8),
+                              rounds=CKPT_ROUNDS).compile().run(**kw)
+    _resume_check(torch, 'run, int8 packed', run, fails)
+
+    def sweep(**kw):
+        members = [api.SweepMember(env=spec, fraction=0.3, lag_tolerance=5,
+                                   seed=s, overrides={'crash_prob': cr})
+                   for s, cr in enumerate(FLEET_CRASH[:2])]
+        return api.Experiment(task, None, safa, api.ExecSpec(
+            engine='fleet', **q8), rounds=CKPT_ROUNDS).compile().run_sweep(
+                members, **kw)
+    _resume_check(torch, 'fleet sweep of 2, int8 packed', sweep, fails)
+    _wire_check(torch, spec, task, safa, fails)
+    del task
+    torch.cuda.empty_cache()
+
+    tier_spec, tier_task = cnn_setup(torch, scale_spec())
+    tier_safa = api.SafaSpec(fraction=QUOTA / SCALE_M,
+                             lag_tolerance=10 * CKPT_ROUNDS)
+
+    def tier(**kw):
+        return api.Experiment(tier_task, tier_spec, tier_safa, api.ExecSpec(
+            schedule='sparse_tier', **q8), rounds=CKPT_ROUNDS
+            ).compile().run(**kw)
+    _resume_check(torch, f'm {SCALE_M} sparse_tier, int8 packed', tier,
+                  fails)
+    del tier_task
+    torch.cuda.empty_cache()
+
+
+def _resume_check(torch, label, call, fails) -> None:
+    """``call()`` uninterrupted, then ``call(checkpoint=p,
+    max_segments=1)`` and ``call(checkpoint=p)`` (each call a fresh
+    Experiment), every launch counter at 0 before each: the resumed
+    evals and final models must equal the uninterrupted run's bit for
+    bit, and each half must launch exactly half of the whole run's
+    kernels.  Prints the seconds of each call, of ``save_run`` and
+    ``load_run``, and the file's bytes."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import checkpoint
+    from repro_torch.kernels import backend
+
+    tag = f'checkpoint[{label}]'
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_ckpt_')
+    path = os.path.join(tmp, 'run')
+    saved = checkpoint.save_run, checkpoint.load_run
+    save_s, load_s = [], []
+    checkpoint.save_run = _timed(torch, saved[0], save_s)
+    checkpoint.load_run = _timed(torch, saved[1], load_s)
+
+    def counted(**kw):
+        backend.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = call(**kw)
+        torch.cuda.synchronize()
+        return (out if isinstance(out, list) else [out],
+                time.perf_counter() - t,
+                {c: v for c, v in backend.LAUNCHES.items() if v})
+    try:
+        full, t_full, n_full = counted()
+        part, t_part, n_part = counted(checkpoint=path, max_segments=1)
+        nbytes = os.path.getsize(path + '.npz')
+        res, t_res, n_res = counted(checkpoint=path)
+    finally:
+        checkpoint.save_run, checkpoint.load_run = saved
+        shutil.rmtree(tmp)
+    diff = max(_max_diff(a.final_global, b.final_global)
+               for a, b in zip(res, full))
+    same = all(torch.equal(a.final_global[k], b.final_global[k])
+               for a, b in zip(res, full) for k in b.final_global)
+    evals_same = [h.evals() for h in res] == [h.evals() for h in full]
+    half = {c: v // 2 for c, v in n_full.items()}
+    print(f'{tag}: uninterrupted {t_full:.2f} s ({CKPT_ROUNDS} rounds); '
+          f'stopped after round 1 {t_part:.2f} s; resumed {t_res:.2f} s; '
+          f'file {nbytes:,} B; save_run {[round(v, 4) for v in save_s]} s, '
+          f'load_run {[round(v, 4) for v in load_s]} s; launches {n_full} '
+          f'/ {n_part} / {n_res}; eval losses '
+          f'{[[e["loss"] for _, e in h.evals()] for h in res]}; resumed - '
+          f'uninterrupted final_global max abs diff {diff:.3e} (want 0: the '
+          f'same bits), evals {"equal" if evals_same else "DIFFER"}')
+    if not (same and evals_same):
+        fails.append(f'{tag}: the resumed run differs from the '
+                     f'uninterrupted one (final_global max abs diff '
+                     f'{diff:.3e}, evals equal {evals_same})')
+    if not n_full or any(v % 2 for v in n_full.values()) or \
+            n_part != half or n_res != half:
+        fails.append(f'{tag}: launches {n_full} uninterrupted, {n_part} '
+                     f'stopped, {n_res} resumed; want one round each, '
+                     f'{half}')
+    if len(save_s) != CKPT_ROUNDS or len(load_s) != 1:
+        fails.append(f'{tag}: {len(save_s)} saves and {len(load_s)} loads, '
+                     f'want {CKPT_ROUNDS} and 1')
+
+
+def _wire_check(torch, spec, task, safa, fails) -> None:
+    """(e) One ``EnvSpec(comm='wire')`` run of one round on the int8 wire
+    (packed): the model's bytes measured on each wire set its comm times.
+    Prints the uplink and downlink megabytes on both wires (read back
+    from the envs' per-round timing) and round 1's length beside the
+    static comm model's."""
+    from repro_torch import api
+    from repro_torch.kernels import backend
+
+    wired = spec.replace(comm='wire')
+    mbs = {}
+    for wire in ('f32', 'int8'):
+        env = api.Experiment(task, wired, safa, api.ExecSpec(
+            wire=wire, numeric=False), rounds=1).env
+        timing = env.round_timing(1)
+        mbs[wire] = tuple(float(t[0, 0]) * env.client_bw_mbps / 8.0
+                          for t in (timing.t_up, timing.t_down))
+        print(f'wire[{wire}]: uplink {mbs[wire][0]:.6f} MB, downlink '
+              f'{mbs[wire][1]:.6f} MB a client a round (comm=\'wire\'; '
+              f'static model_size_mb {spec.model_size_mb})')
+    if not mbs['int8'][0] < mbs['f32'][0] / 3 or \
+            mbs['int8'][1] != mbs['f32'][1]:
+        fails.append(f'wire: int8 uplink {mbs["int8"][0]} MB not under a '
+                     f'third of f32\'s {mbs["f32"][0]}, or the downlinks '
+                     f'differ')
+    ex = dict(wire='int8', use_kernel='packed', eval_every=1)
+    backend.reset_launches()
+    hist = api.Experiment(task, wired, safa, api.ExecSpec(**ex),
+                          rounds=1).compile().run()
+    counts = {c: v for c, v in backend.LAUNCHES.items() if v}
+    static = api.Experiment(task, spec, safa, api.ExecSpec(**ex),
+                            rounds=1).precompute()
+    loss = hist.evals()[0][1]['loss']
+    print(f'wire: comm=\'wire\' int8 run, 1 round: round_len '
+          f'{hist.records[0].round_len:.4f} s (static comm '
+          f'{static.records[0].round_len:.4f} s); launches {counts}; eval '
+          f'loss {loss}')
+    if not counts or not math.isfinite(loss):
+        fails.append(f'wire: the comm=\'wire\' run launched {counts}, eval '
+                     f'loss {loss}')
+
+
+def checkpoint_llm(torch, path, trained: dict, save_s: float, fails: list
+                   ) -> None:
+    """(d) ``serve.run`` at full size from the checkpoint that
+    ``train.run`` wrote at ``path``: every restored leaf must equal the
+    trained global's bit for bit (bf16 compared as int16).  Prints the
+    file's bytes, the free space beside it, and the seconds to save and
+    to restore.  Deletes the file."""
+    import os
+    import shutil
+
+    from repro_torch import checkpoint
+    from repro_torch.launch import serve
+
+    nbytes = os.path.getsize(path)
+    free = shutil.disk_usage(os.path.dirname(path)).free
+    got, load_s = {}, []
+    restore = serve.checkpoint.restore
+
+    def keep(*args, **kwargs):
+        out = restore(*args, **kwargs)
+        got['params'] = out[0]
+        return out
+    serve.checkpoint.restore = _timed(torch, keep, load_s)
+    try:
+        t = time.perf_counter()
+        toks = serve.run(TRAIN_ARCH, full_size=True, ckpt=path,
+                         device='cuda', **SERVE_CLI)
+        wall = time.perf_counter() - t
+    finally:
+        serve.checkpoint.restore = restore
+        os.remove(path)
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    want, have = checkpoint.flatten(trained), checkpoint.flatten(
+        got['params'])
+    differ = sorted(k for k in want if k not in have or not (
+        have[k].dtype == want[k].dtype and have[k].shape == want[k].shape
+        and torch.equal(bits(have[k]), bits(want[k]))))
+    n = sum(v.numel() for v in want.values())
+    print(f'checkpoint[{TRAIN_ARCH}]: {len(want)} leaves, {n:,} parameters, '
+          f'{sorted({str(v.dtype) for v in want.values()})}; file '
+          f'{nbytes:,} B ({nbytes / 1e9:.3f} GB), free beside it '
+          f'{free / 1e9:.1f} GB; save {save_s:.2f} s, restore '
+          f'{load_s[0]:.2f} s; serve.run({SERVE_CLI}) {wall:.2f} s, ids '
+          f'{toks[0].tolist()}; restored leaves equal to the trained global '
+          f'bit for bit: {len(want) - len(differ)} of {len(want)}')
+    if differ or sorted(have) != sorted(want):
+        fails.append(f'checkpoint[{TRAIN_ARCH}]: restored leaves differ from '
+                     f'the trained global: {differ[:5]}')
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--tier-kernels', action='store_true',
                     help='run only the build and the lag tier kernel phase')
     ap.add_argument('--train', action='store_true',
                     help='run only the build and the train phase')
+    ap.add_argument('--checkpoint', action='store_true',
+                    help='run only the build and the checkpoint phase')
     ap.add_argument('--src', type=pathlib.Path, default=None,
                     help='the src/ directory whose repro_torch to load')
     opts = ap.parse_args(argv)
@@ -4262,9 +4534,13 @@ def main(argv=None) -> int:
         for f in fails:
             print(f'FAIL {f}')
         return 1 if fails else 0
-    if opts.train:
-        train_phase(torch, fails, new_readings())
-        lap('train')
+    if opts.train or opts.checkpoint:
+        if opts.train:
+            train_phase(torch, fails, new_readings())
+            lap('train')
+        if opts.checkpoint:
+            checkpoint_phase(torch, fails)
+            lap('checkpoint')
         for f in fails:
             print(f'FAIL {f}')
         return 1 if fails else 0
@@ -4318,6 +4594,8 @@ def _all_phases(torch, kind, n, runs, lap, fails) -> int:
     lap('train')
     dryrun_phase(torch, runs, readings, fails)
     lap('dryrun')
+    launches.update(checkpoint_phase(torch, fails))
+    lap('checkpoint')
     for r in recs:
         r['launches'] = launches.get(r['name'], 0)
         del r['bytes'], r['flops'], r['dense_bytes']

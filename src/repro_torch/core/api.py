@@ -29,8 +29,12 @@ the lag-tier schedule, ``'sparse_tier'``.  A dense SAFA run also takes
 ``SafaSpec(quantize_uploads=True)``, the per-leaf int8 reference of
 ``wire='int8'`` (sweeps refuse it, as the JAX package's do).
 ``check_compat`` raises the JAX package's errors for the cells it
-refuses, and ``NotImplementedError``, naming the ROADMAP queue item, for
-every cell not ported yet.
+refuses.  ``run(checkpoint=, max_segments=)`` and
+``run_sweep(members, checkpoint=, max_segments=)`` save the carry at
+every eval-segment boundary and resume from the next segment
+(``repro_torch.checkpoint``: the JAX package's file layout), bit for bit
+the uninterrupted run.  ``EnvSpec(comm='wire')`` derives the comm times
+from the task model's bytes on the active wire (runs and sweep members).
 
 ``Experiment`` takes ``device=`` (default ``'cuda'``; it raises without a
 card) and ``init_params=``: a param dict to start from, or a callable
@@ -42,11 +46,13 @@ reference's init here.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Any, Callable, Optional, Union
 
 import numpy as np
 import torch
 
+from repro_torch import checkpoint as ckpt
 from repro_torch import fedsim
 from repro_torch.convert import params_from_jax
 from repro_torch.core import agg_schemes, federation, protocol, schedules
@@ -185,20 +191,11 @@ class SweepSpec:
                     f'for a shared task)')
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f'{what} is not ported to repro_torch yet (ROADMAP queue 1, item '
-        f'{item})')
-
-
 def _check_env(env) -> None:
     """Field checks of an ``EnvSpec`` (or of a built ``Env``'s spec)."""
     env_spec = getattr(env, 'spec', env)
     if isinstance(env_spec, fedsim.EnvSpec):
         fedsim.validate_env_spec(env_spec)
-        if env_spec.comm == 'wire':
-            raise _not_ported("EnvSpec(comm='wire')",
-                              '13 (env and API extras)')
 
 
 # ---------------------------------------------------------------------------
@@ -282,8 +279,7 @@ def check_compat(protocol_spec: ProtocolSpec,
                  env=None) -> ProtocolDef:
     """Validate a (protocol, exec[, env]) spec triple; returns the
     ProtocolDef.  Values the JAX package rejects raise its errors with its
-    messages; cells it runs but the port does not yet raise
-    ``NotImplementedError``."""
+    messages."""
     pdef = PROTOCOLS.get(type(protocol_spec))
     if pdef is None:
         raise TypeError(
@@ -382,13 +378,48 @@ class _RunState:
     (global, local, cache, agg) pack buffers with layout ``spec``, which
     then replace the local, cache and agg trees.  Under
     ``'sparse_tier'`` there is no local stack, ``cache`` is the lag tier's
-    value buffer and ``packed`` (global, value buffer, agg)."""
+    value buffer and ``packed`` (global, value buffer, agg).
+    ``in_place`` names the entries whose buffers the rounds write in
+    place (``prepare_state`` built them); a resume copies into those."""
     global_w: dict
     local_w: Optional[dict]
     cache: Optional[dict] = None
     agg: Optional[dict] = None
     packed: Optional[tuple] = None
     spec: Any = None
+    in_place: tuple = ()
+
+    def tree(self) -> dict:
+        """The carry as a checkpoint tree, with the JAX package's keys:
+        ``global``, ``local``, and ``cache``, ``agg`` and the ``packed``
+        tuple where they are set."""
+        t = {'global': self.global_w, 'local': self.local_w}
+        if self.cache is not None:
+            t['cache'] = self.cache
+        if self.agg is not None:
+            t['agg'] = self.agg
+        if self.packed is not None:
+            t['packed'] = self.packed
+        return t
+
+    def set_tree(self, t: dict) -> None:
+        """Take the carry of ``t`` (a restored ``tree()``): the entries
+        in ``in_place`` are copied into their buffers, the others taken
+        as they are; a packed carry's global model is then unpacked from
+        ``packed[0]``, as the engines derive it."""
+        self.global_w, self.local_w = t['global'], t['local']
+        for name in ('cache', 'agg', 'packed'):
+            new = t.get(name)
+            if new is None:
+                continue
+            if name not in self.in_place:
+                setattr(self, name, new)
+                continue
+            for dst, src in zip(ckpt.flatten(getattr(self, name)).values(),
+                                ckpt.flatten(new).values()):
+                dst.copy_(src)
+        if self.packed is not None:
+            _unpack_global_state(self)
 
 
 def _eval_rounds(rounds: int, eval_every: int):
@@ -455,10 +486,84 @@ def _fresh_records(records: list) -> list:
     return [dataclasses.replace(r, eval=None) for r in records]
 
 
-def _realize_env(env):
-    """``EnvSpec`` -> built ``Env``; built envs pass through."""
+def _apply_saved_history(hist: History, d: dict) -> None:
+    """Replay a checkpoint's eval entries into a freshly precomputed
+    History (the records and futility are recomputed bit for bit; only
+    the evals and best_eval need restoring)."""
+    hist.best_eval = d['best_eval']
+    for rec, rd in zip(hist.records, d['records']):
+        if rd.get('eval') is not None:
+            rec.eval = rd['eval']
+
+
+def _fp_val(v):
+    """Checkpoint-fingerprint form of one spec field value: recurse into
+    nested dataclasses (trace specs), hash ndarrays (``Replay`` traces)
+    so a fingerprint never embeds megabytes of trace data."""
+    if isinstance(v, np.ndarray):
+        digest = hashlib.sha1(np.ascontiguousarray(v).tobytes()).hexdigest()
+        return f'ndarray{v.shape}:{digest}'
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        return (type(v).__name__,
+                [(f.name, _fp_val(getattr(v, f.name)))
+                 for f in dataclasses.fields(v)])
+    return v
+
+
+def _env_fp(env) -> str:
+    """Environment identity for checkpoint fingerprints: the declarative
+    spec's fields (a built ``Env`` fingerprints as its spec: same
+    spelling, same fingerprint)."""
+    spec = getattr(env, 'spec', env)
+    return repr(_fp_val(spec))
+
+
+def _task_fp(task) -> str:
+    """Task identity for checkpoint fingerprints.  Tasks that implement
+    ``fingerprint()`` (``SupervisedTask``: a hash of the client data and
+    hypers) pin the training problem; others fall back to the class name,
+    which at least catches swapping task types."""
+    if task is None:
+        return 'None'
+    fp = getattr(task, 'fingerprint', None)
+    return fp() if callable(fp) else type(task).__name__
+
+
+def _wire_mb_of(task, wire: str):
+    """Measured (uplink, downlink) megabytes of the task's model under the
+    active wire (``EnvSpec(comm='wire')``): the uplink ships client
+    updates (packed int8 buffers under ``wire='int8'``, plain f32 leaves
+    otherwise), while the server always distributes the uncompressed
+    global.  Memoised on the task (one throwaway ``init_global`` per
+    distinct wire), so sweeps measure once; the bytes follow from the
+    shapes alone."""
+    from repro_torch.kernels import ops as kops
+    cache = task.__dict__.setdefault('_wire_mb_cache', {})
+    if wire not in cache:
+        g = task.init_global(0)
+        up = kops.comm_bytes(g, wire == 'int8',
+                             layout='packed' if wire == 'int8' else 'tree')
+        down = kops.comm_bytes(g, False, layout='tree')
+        cache[wire] = (up / 1e6, down / 1e6)
+    return cache[wire]
+
+
+def _realize_env(env, *, task, ex):
+    """``EnvSpec`` -> built ``Env``; built envs pass through.  When the
+    spec asks for wire-derived comm (``comm='wire'``), measure the task
+    model's bytes under ``ex.wire`` and inject them before any schedule
+    precompute runs."""
+    if env is None:
+        return None
     if isinstance(env, fedsim.EnvSpec):
-        return env.build()
+        env = env.build()
+    if getattr(env, 'comm', 'static') == 'wire':
+        if task is None:
+            raise ValueError(
+                "EnvSpec(comm='wire') derives comm times from the "
+                'experiment model; this run has no Task to measure '
+                "(pass a Task, or use comm='static')")
+        env.set_wire_mb(*_wire_mb_of(task, ex.wire))
     return env
 
 
@@ -466,9 +571,11 @@ def _realize_env(env):
 _ENV_FIELDS = frozenset(f.name for f in dataclasses.fields(fedsim.EnvSpec))
 
 
-def _resolve_member(mem: SweepMember, pdef: ProtocolDef) -> SweepMember:
+def _resolve_member(mem: SweepMember, *, pdef: ProtocolDef, task,
+                    ex: ExecSpec) -> SweepMember:
     """Split a member's overrides into env fields and protocol fields,
-    apply the env part to its declarative env, and build the env.
+    apply the env part to its declarative env, and build the env (its
+    wire-derived comm measured on ``task`` under ``ex.wire``).
     Env-field overrides (``crash_prob``, ``traces``, ...) need an
     ``fedsim.EnvSpec`` member env; leftover keys must be protocol-spec
     fields of a ``spec_overrides`` protocol (FedAsync, SEAFL, CSAFL),
@@ -490,7 +597,7 @@ def _resolve_member(mem: SweepMember, pdef: ProtocolDef) -> SweepMember:
             f'{pdef.name!r} takes env-field overrides only '
             f'(EnvSpec fields, e.g. crash_prob/traces/draw_seed)')
     _check_env(env)
-    return dataclasses.replace(mem, env=_realize_env(env),
+    return dataclasses.replace(mem, env=_realize_env(env, task=task, ex=ex),
                                overrides=ov or None)
 
 
@@ -573,7 +680,7 @@ def _safa_prepare_state(st, weights, ex, sched):
 
     st.packed = (pack_g(st.global_w, spec), scratch(st.local_w),
                  scratch(st.cache), pack_g(agg, spec))
-    st.spec = spec
+    st.spec, st.in_place = spec, ('packed',)
     st.local_w = st.cache = None
 
 
@@ -601,7 +708,7 @@ def _safa_prepare_tier_state(st, weights, ex, sched):
     agg = {k: scale(g) for k, g in st.global_w.items()}
     if ex.use_kernel != 'packed':
         st.cache = {k: tile(g).contiguous() for k, g in st.global_w.items()}
-        st.agg = agg
+        st.agg, st.in_place = agg, ('cache',)
         return
     from repro_torch.kernels import ops as kops
     spec = _pack_layout(_member(st.global_w, 0) if fleet else st.global_w,
@@ -609,7 +716,7 @@ def _safa_prepare_tier_state(st, weights, ex, sched):
     pack_g = kops.pack_stacked if fleet else kops.pack_global
     gbuf = pack_g(st.global_w, spec)
     st.packed = (gbuf, tile(gbuf).contiguous(), pack_g(agg, spec))
-    st.spec = spec
+    st.spec, st.in_place = spec, ('packed',)
 
 
 def _unpack_global_state(st):
@@ -908,7 +1015,7 @@ class Experiment:
         _check_task_device(task, self.device)
         self.init_params = init_params
         self._pdef = check_compat(self.protocol, self.exec, env=env)
-        self.env = _realize_env(env)
+        self.env = _realize_env(env, task=task, ex=self.exec)
         self._sched = None
 
     def precompute(self):
@@ -930,6 +1037,38 @@ class Experiment:
 
     def compile(self) -> 'CompiledRunner':
         return CompiledRunner(self)
+
+    def fingerprint(self, members=None, tasks=None, task=None) -> str:
+        """Identity of the run a checkpoint belongs to: protocol and exec
+        specs, rounds, seed, env(s), and the task(s), so a carry is never
+        resumed against other training data.  ``init_params`` stays out:
+        a resumed carry replaces the initial state."""
+        parts = [
+            f'proto={self._pdef.name}',
+            f'spec={dataclasses.asdict(self.protocol)!r}',
+            f'exec={dataclasses.asdict(self.exec)!r}',
+            f'rounds={self.rounds}', f'seed={self.seed}',
+        ]
+        if members is None:
+            parts.append('env=' + _env_fp(self.env))
+            parts.append('task=' + _task_fp(self.task))
+        else:
+            parts += ['member=' + _env_fp(mem.env) + repr(
+                (mem.fraction, mem.lag_tolerance, mem.seed, mem.alpha,
+                 mem.staleness_exp, mem.overrides)) for mem in members]
+            if tasks is not None:
+                parts += ['task=' + _task_fp(t) for t in tasks]
+            else:
+                parts.append('task=' + _task_fp(task))
+        return '|'.join(parts)
+
+
+def _stops(max_segments, done: int, seg_done: int, n_segments: int
+           ) -> bool:
+    """A call given ``max_segments`` stops once it has run that many
+    segments, unless the run is over anyway."""
+    return max_segments is not None and done >= max_segments \
+        and seg_done < n_segments
 
 
 def _check_task_device(task, device) -> None:
@@ -980,11 +1119,26 @@ class CompiledRunner:
             return federation._quantized_train_fn(task.local_train)
         return task.local_train
 
-    def run(self, *, checkpoint: Optional[str] = None) -> History:
+    def _resume(self, st: _RunState, hists: list, checkpoint, fingerprint
+                ) -> int:
+        """Load ``checkpoint`` into ``st`` and ``hists`` when it exists;
+        returns the number of segments it completed (0 without one)."""
+        if checkpoint is None or not ckpt.exists(checkpoint):
+            return 0
+        tree, seg_done, saved = ckpt.load_run(checkpoint, st.tree(),
+                                              fingerprint=fingerprint)
+        st.set_tree(tree)
+        for hist, d in zip(hists, saved):
+            _apply_saved_history(hist, d)
+        return seg_done
+
+    def run(self, *, checkpoint: Optional[str] = None,
+            max_segments: Optional[int] = None) -> History:
         """Execute the experiment: one segment per eval point, the global
-        model evaluated at each."""
-        if checkpoint is not None:
-            raise _not_ported('checkpoint=', '7 (checkpoint and resume)')
+        model evaluated at each.  ``checkpoint`` (a path) saves the carry
+        at every eval-segment boundary and resumes from it when it
+        exists; ``max_segments`` stops after that many segments in this
+        call (the partial History carries the state reached so far)."""
         exp, pdef = self.exp, self._pdef
         ex = exp.exec
         engine = self._engine(sweep=False)
@@ -1004,11 +1158,15 @@ class CompiledRunner:
                                   device=exp.device)
         if pdef.prepare_state is not None:
             pdef.prepare_state(st, weights, ex, sched)
+        fingerprint = exp.fingerprint() if checkpoint is not None else None
+        start_seg = self._resume(st, [hist], checkpoint, fingerprint)
         train_fn = self._train_fn(exp.task)
         if engine == 'scan' and self._dev is None:
             self._dev = sched.to_device(exp.device)
-        start = 0
-        for stop in _eval_rounds(exp.rounds, ex.eval_every):
+        evals = _eval_rounds(exp.rounds, ex.eval_every)
+        start = evals[start_seg - 1] if start_seg else 0
+        for k in range(start_seg, len(evals)):
+            stop = evals[k]
             if engine == 'scan':
                 pdef.segment(st, self._dev.segment(start, stop), weights,
                              train_fn, ex, None)
@@ -1019,13 +1177,18 @@ class CompiledRunner:
             self._finish(st, weights)
             _record_eval(hist, hist.records[stop - 1], exp.task, st.global_w)
             start = stop
+            if checkpoint is not None:
+                ckpt.save_run(checkpoint, st.tree(), seg_done=k + 1,
+                              histories=[hist], fingerprint=fingerprint)
+            if _stops(max_segments, k - start_seg + 1, k + 1, len(evals)):
+                break
         hist.final_global = st.global_w
         return hist
 
     # -- sweeps ---------------------------------------------------------------
 
-    def run_sweep(self, members, *, checkpoint: Optional[str] = None
-                  ) -> list:
+    def run_sweep(self, members, *, checkpoint: Optional[str] = None,
+                  max_segments: Optional[int] = None) -> list:
         """Run S = len(members) simulations of this protocol as one fleet;
         returns one ``History`` per member, in order.
 
@@ -1039,7 +1202,8 @@ class CompiledRunner:
         ``engine='sequential'`` runs the same precomputed schedules member
         by member through the scan engine (a sparse member at its own
         active-set width, a lag-tier member at the fleet's width and
-        capacity)."""
+        capacity).  ``checkpoint`` and ``max_segments`` work as in
+        ``run()`` (``engine='fleet'`` only)."""
         exp, pdef = self.exp, self._pdef
         ex = exp.exec
         engine = self._engine(sweep=True)
@@ -1051,7 +1215,10 @@ class CompiledRunner:
             members, tasks = list(members), None
         if not members:
             raise ValueError('empty sweep')
-        members = [_resolve_member(mem, pdef) for mem in members]
+        members = [_resolve_member(
+            mem, pdef=pdef, ex=ex,
+            task=tasks[s] if tasks is not None else exp.task)
+            for s, mem in enumerate(members)]
         m = members[0].env.m
         if any(mem.env.m != m for mem in members):
             raise ValueError('fleet members must share the client count m')
@@ -1064,9 +1231,6 @@ class CompiledRunner:
             raise ValueError(
                 'quantize_uploads is the single-run per-leaf reference '
                 "knob; sweeps take the packed wire instead (wire='int8')")
-        if checkpoint is not None:
-            raise _not_ported('run_sweep(checkpoint=)',
-                              '7 (checkpoint and resume)')
         for t in tasks or (shared_task,):
             _check_task_device(t, exp.device)
         if ex.schedule != 'dense' and tasks is not None:
@@ -1093,6 +1257,8 @@ class CompiledRunner:
         if shared_task is None and tasks is None:
             raise ValueError('numeric sweep needs a Task (shared or '
                              'per-member) or ExecSpec(numeric=False)')
+        if checkpoint is not None and engine != 'fleet':
+            raise ValueError("sweep checkpointing requires engine='fleet'")
 
         def task_of(s):
             return tasks[s] if tasks is not None else shared_task
@@ -1145,9 +1311,13 @@ class CompiledRunner:
             dtype=torch.float32, device=exp.device)
         if pdef.prepare_state is not None:
             pdef.prepare_state(st, weights, ex, fleet)
+        fingerprint = exp.fingerprint(members, tasks=tasks, task=shared_task) \
+            if checkpoint is not None else None
+        start_seg = self._resume(st, hists, checkpoint, fingerprint)
         dev = fleet.to_device(exp.device)
-        start = 0
-        for stop in evals:
+        start = evals[start_seg - 1] if start_seg else 0
+        for k in range(start_seg, len(evals)):
+            stop = evals[k]
             pdef.segment(st, dev.fleet_segment(start, stop), weights,
                          train_fn, ex, ctx)
             self._finish(st, weights)
@@ -1155,6 +1325,11 @@ class CompiledRunner:
                 _record_eval(hist, hist.records[stop - 1], task_of(s),
                              _member(st.global_w, s))
             start = stop
+            if checkpoint is not None:
+                ckpt.save_run(checkpoint, st.tree(), seg_done=k + 1,
+                              histories=hists, fingerprint=fingerprint)
+            if _stops(max_segments, k - start_seg + 1, k + 1, len(evals)):
+                break
         for s, hist in enumerate(hists):
             hist.final_global = _member(st.global_w, s)
         return hists

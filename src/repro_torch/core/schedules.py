@@ -55,6 +55,37 @@ class History:
     def evals(self):
         return [(r.round, r.eval) for r in self.records if r.eval is not None]
 
+    def to_dict(self) -> dict:
+        """JSON-serialisable form (checkpoint metadata): numpy and torch
+        scalars in the records become Python numbers here, the records
+        themselves unchanged.  ``final_global`` is a device tree and is
+        left out: checkpoints hold the model state separately
+        (``repro_torch.checkpoint``)."""
+        return {
+            'protocol': self.protocol,
+            'futility': float(self.futility),
+            'best_eval': _plain(self.best_eval),
+            'records': [_plain(dataclasses.asdict(r)) for r in self.records],
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> 'History':
+        return cls(protocol=d['protocol'],
+                   records=[RoundRecord(**r) for r in d['records']],
+                   futility=d['futility'], best_eval=d['best_eval'])
+
+
+def _plain(v):
+    """``v`` with numpy and torch scalars as Python numbers (dicts and
+    lists recursed), so that ``json.dumps`` takes it."""
+    if isinstance(v, dict):
+        return {k: _plain(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_plain(x) for x in v]
+    if isinstance(v, (np.generic, torch.Tensor)):
+        return v.item()
+    return v
+
 
 @dataclasses.dataclass
 class SweepMember:

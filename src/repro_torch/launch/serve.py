@@ -10,8 +10,9 @@ a CPU ``torch.Generator`` seeded with ``seed``, so every device serves the
 same prompts; the params by a generator on the device, seeded the same.
 Every family serves, as the JAX CLI serves it: tokens-only prompts, so the
 VLM decodes text with no patch context and whisper against zero cross
-caches (no encoder pass fills them).  Checkpoint restore is not ported
-(item 7).
+caches (no encoder pass fills them).  ``--ckpt`` serves the global model
+that ``repro_torch.launch.train --ckpt`` saved (or the JAX CLI's, bf16
+included) instead of the seeded init.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import time
 
 import torch
 
+from repro_torch import checkpoint
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models.model import build_model
@@ -35,17 +37,18 @@ def run(arch: str, *, batch: int, prompt_len: int, gen: int,
         device='cuda'):
     """Serve ``batch`` prompts of ``prompt_len`` seeded tokens and generate
     ``gen`` tokens each; returns the generated ids [batch, gen] (int64, on
-    the device)."""
-    if ckpt:
-        raise NotImplementedError(
-            'checkpoint restore is not ported to repro_torch yet (ROADMAP '
-            'queue 1, item 7)')
+    the device).  ``ckpt`` names a checkpoint of the params to serve."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     if not full_size:
         cfg = cfg.reduced()
     model = build_model(cfg)
-    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    if ckpt:
+        params, meta = checkpoint.restore(ckpt, model.param_shapes(),
+                                          device=dev)
+        print('restored checkpoint', meta)
+    else:
+        params = model.init(torch.Generator(device=dev).manual_seed(seed))
 
     max_len = prompt_len + gen
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),

@@ -19,8 +19,9 @@ most 512 ids) draws the reference's tokens.
         --rounds 30 --clients 4 --fraction 0.5 --lag-tolerance 5
 
 Runs on the card unless ``--device cpu`` is given; without
-``--full-size`` the configuration is the reduced one.  Saving a
-checkpoint is not ported (item 7).
+``--full-size`` the configuration is the reduced one.  ``--ckpt`` saves
+the final global model there (``repro_torch.checkpoint``, the JAX CLI's
+file), which ``repro_torch.launch.serve --ckpt`` serves.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import checkpoint
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import protocol, selection
 from repro_torch.data import make_lm_tokens
@@ -48,11 +50,8 @@ def run(arch: str, *, rounds: int, n_clients: int, fraction: float,
         local_steps: int, lr: float, seed: int = 0, ckpt: str = None,
         full_size: bool = False, log_every: int = 10, device='cuda'):
     """Train ``rounds`` SAFA rounds; returns the per-round loss history
-    (a list of floats)."""
-    if ckpt:
-        raise NotImplementedError(
-            'checkpoint saving is not ported to repro_torch yet (ROADMAP '
-            'queue 1, item 7)')
+    (a list of floats).  ``ckpt`` names where to save the final global
+    model, with ``{'arch', 'rounds'}`` as its metadata."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     if not full_size:
@@ -124,6 +123,10 @@ def run(arch: str, *, rounds: int, n_clients: int, fraction: float,
             print(f'round {t:4d} loss {history[-1]:.4f} '
                   f'picked {int(sel.picked.sum())}/{n_clients} '
                   f'crashed {int(crashed.sum())}', flush=True)
+    if ckpt:
+        checkpoint.save(ckpt, state['global'],
+                        {'arch': arch, 'rounds': rounds})
+        print('checkpoint saved to', ckpt)
     return history
 
 

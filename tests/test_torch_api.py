@@ -22,6 +22,7 @@ from repro.data import make_images, make_regression, partition
 from repro.data import tasks as jtasks
 from repro.fedsim import EnvSpec as JEnvSpec
 from repro_torch import api as tapi
+from repro_torch.core import api as tcore
 from repro_torch.data import tasks as ttasks
 from repro_torch.fedsim import EnvSpec as TEnvSpec
 from repro_torch.kernels import backend
@@ -163,33 +164,42 @@ def test_own_init_trains(quickstart):
     assert all(v == 0 for v in backend.LAUNCHES.values())
 
 
-# The sparse schedules, sparse sweeps and the lag tier are ported: the ids
-# that named them now name the cells around them that stay unported (the
-# wire-derived comm model of a lag-tier run's or sweep's env, and of a
-# per-leaf int8 reference run's).
-@pytest.mark.parametrize('spec,ex,env,item', [
+# The ids date from when these cells were refused (the sparse schedules,
+# the lag tier, then the wire-derived comm model, ROADMAP item 13); they
+# now name cells that run: a lag-tier run's or sweep's env, a per-leaf int8
+# reference run's and a sparse FedAvg sweep's, each with comm='wire'.
+@pytest.mark.parametrize('spec,ex,env', [
     (tapi.SafaSpec(),
      tapi.ExecSpec(engine='sequential', schedule='sparse_tier'),
-     TEnvSpec(**QUICKSTART).replace(comm='wire'), '13'),
+     TEnvSpec(**QUICKSTART).replace(comm='wire')),
     (tapi.SafaSpec(),
      tapi.ExecSpec(engine='fleet', schedule='sparse_tier',
                    use_kernel='packed'),
-     TEnvSpec(**QUICKSTART).replace(comm='wire'), '13'),
+     TEnvSpec(**QUICKSTART).replace(comm='wire')),
     (tapi.SafaSpec(), tapi.ExecSpec(schedule='sparse_tier', wire='int8'),
-     TEnvSpec(**QUICKSTART).replace(comm='wire'), '13'),
+     TEnvSpec(**QUICKSTART).replace(comm='wire')),
     (tapi.SafaSpec(),
      tapi.ExecSpec(engine='fleet', schedule='sparse_tier', wire='int8'),
-     TEnvSpec(**QUICKSTART).replace(comm='wire'), '13'),
+     TEnvSpec(**QUICKSTART).replace(comm='wire')),
     (tapi.SafaSpec(quantize_uploads=True), tapi.ExecSpec(engine='loop'),
-     TEnvSpec(**QUICKSTART).replace(comm='wire'), '13'),
+     TEnvSpec(**QUICKSTART).replace(comm='wire')),
     (tapi.FedAvgSpec(), tapi.ExecSpec(engine='fleet', schedule='sparse'),
-     TEnvSpec(**QUICKSTART).replace(comm='wire'), '13'),
+     TEnvSpec(**QUICKSTART).replace(comm='wire')),
 ], ids=['sparse', 'sparse_delta', 'sparse_tier', 'fleet', 'quantize_uploads',
         'fedavg'])
-def test_unported_cells_raise(spec, ex, env, item):
-    with pytest.raises(NotImplementedError,
-                       match=f'ROADMAP queue 1, item {item} '):
-        tapi.check_compat(spec, ex, env=env)
+def test_unported_cells_raise(quickstart, spec, ex, env):
+    """``check_compat`` accepts each cell; the Experiment measures its
+    task's model on the cell's wire before the precompute, and refuses
+    the wire-derived env without a task, with the reference's
+    ValueError."""
+    _, tt, _ = quickstart
+    assert tapi.check_compat(spec, ex, env=env) is tapi.PROTOCOLS[type(spec)]
+    exp = tapi.Experiment(tt, env, spec, dataclasses.replace(
+        ex, numeric=False), rounds=4, device='cpu')
+    assert exp.env._wire_mb == tcore._wire_mb_of(tt, ex.wire)
+    assert len(exp.precompute().records) == 4
+    with pytest.raises(ValueError, match='no Task to measure'):
+        tapi.Experiment(None, env, spec, ex, rounds=4, device='cpu')
 
 
 def test_invalid_cells_raise_value_error():
@@ -200,14 +210,29 @@ def test_invalid_cells_raise_value_error():
             tapi.check_compat(tapi.SafaSpec(), ex)
 
 
-def test_unported_runner_options_raise(quickstart):
+def test_unported_runner_options_raise(quickstart, tmp_path):
+    """The name dates from when ``checkpoint=`` was refused (ROADMAP
+    item 7).  A run and a sweep stopped after one segment and resumed
+    from their checkpoints end bit for bit as uninterrupted ones."""
     jt, tt, init = quickstart
-    runner = _port_exp(tt, init).compile()
-    with pytest.raises(NotImplementedError, match='item 7'):
-        runner.run(checkpoint='ckpt')
-    with pytest.raises(NotImplementedError, match='item 7'):
-        runner.run_sweep([tapi.SweepMember(env=TEnvSpec(**QUICKSTART))],
-                         checkpoint='ckpt')
+    full = _port_exp(tt, init).compile().run()
+    path = str(tmp_path / 'run')
+    part = _port_exp(tt, init).compile().run(checkpoint=path, max_segments=1)
+    assert len(part.evals()) == 1
+    got = _port_exp(tt, init).compile().run(checkpoint=path)
+    assert got.evals() == full.evals()
+    for k in full.final_global:
+        assert torch.equal(got.final_global[k], full.final_global[k]), k
+
+    def sweep(**kw):
+        return _port_exp(tt, init).compile().run_sweep(
+            [tapi.SweepMember(env=TEnvSpec(**QUICKSTART))], **kw)
+    full, = sweep()
+    sweep(checkpoint=str(tmp_path / 'sweep'), max_segments=2)
+    got, = sweep(checkpoint=str(tmp_path / 'sweep'))
+    assert got.evals() == full.evals()
+    for k in full.final_global:
+        assert torch.equal(got.final_global[k], full.final_global[k]), k
 
 
 def test_experiment_defaults_to_cuda(quickstart, monkeypatch):

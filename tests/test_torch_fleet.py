@@ -575,50 +575,65 @@ def test_member_override_messages(reg):
         _runner(tt).run_sweep(built)
 
 
+def _assert_resumes(run, path):
+    """``run(checkpoint=, max_segments=)`` stopped after one segment and
+    resumed ends bit for bit as ``run()``; returns the resumed result."""
+    full = run()
+    run(checkpoint=path, max_segments=1)
+    resumed = run(checkpoint=path)
+    for a, b in zip(resumed if isinstance(resumed, list) else [resumed],
+                    full if isinstance(full, list) else [full]):
+        assert a.evals() == b.evals()
+        for k in b.final_global:
+            assert torch.equal(a.final_global[k], b.final_global[k]), k
+    return resumed
+
+
 @pytest.mark.parametrize('case', ['checkpoint', 'sparse', 'sparse_tier',
                                   'comm_wire', 'quantize_uploads'])
-def test_unported_sweep_cells_raise(reg, case):
+def test_unported_sweep_cells_raise(reg, case, tmp_path):
+    """The name dates from when these sweep cells were refused (ROADMAP
+    items 7 and 13).  They run now: a checkpointed fleet sweep resumes
+    bit for bit, and members derive their comm model from the wire.
+    What stays refused is the reference's: a sweep checkpoint on the
+    sequential engine, and a sweep of the per-leaf int8 reference."""
     _, tt, _ = reg
-    members = _members('torch', 2)
-    with pytest.raises(NotImplementedError, match='ROADMAP queue 1, item'):
-        if case == 'checkpoint':
-            _runner(tt).run_sweep(members, checkpoint='sweep.npz')
-        elif case == 'sparse':
-            # sparse sweeps and the lag tier are ported; a tier sweep's
-            # checkpoint (item 7) stays refused on both engines
-            with pytest.raises(NotImplementedError, match='item 7 '):
-                _runner(tt, schedule='sparse_tier',
-                        engine='fleet').run_sweep(members,
-                                                  checkpoint='sweep.npz')
-            _runner(tt, schedule='sparse_tier',
-                    engine='sequential').run_sweep(members,
-                                                   checkpoint='sweep.npz')
-        elif case == 'sparse_tier':
-            # the lag tier is ported; a member env deriving its comm model
-            # from the wire (item 13) stays refused
-            wired = [tapi.SweepMember(env=TEnvSpec(**BASE),
-                                      overrides={'comm': 'wire'})]
-            with pytest.raises(NotImplementedError, match='item 13 '):
-                _runner(tt, schedule='sparse_tier',
-                        use_kernel='packed').run_sweep(wired)
-            _runner(tt, schedule='sparse_tier', engine='sequential',
-                    wire='int8').run_sweep(wired)
-        elif case == 'comm_wire':
-            wired = [tapi.SweepMember(env=TEnvSpec(**BASE),
-                                      overrides={'comm': 'wire'})]
-            _runner(tt).run_sweep(wired)
-        else:
-            # the per-leaf int8 reference runs; sweeps refuse it with the
-            # reference's ValueError, even with a checkpoint, as the
-            # reference does.  Its checkpoint (item 7) and an env deriving
-            # its comm model from the wire (item 13) stay unported
-            knob = tapi.Experiment(tt, TEnvSpec(**BASE),
-                                   tapi.SafaSpec(quantize_uploads=True),
-                                   rounds=2, device='cpu')
-            with pytest.raises(ValueError, match='single-run per-leaf'):
-                knob.compile().run_sweep(members, checkpoint='sweep.npz')
-            with pytest.raises(NotImplementedError, match='item 7 '):
-                knob.compile().run(checkpoint='run.npz')
-            tapi.Experiment(tt, TEnvSpec(**BASE).replace(comm='wire'),
-                            tapi.SafaSpec(quantize_uploads=True), rounds=2,
-                            device='cpu')
+    path = str(tmp_path / 'sweep')
+    wired = [tapi.SweepMember(env=TEnvSpec(**BASE), seed=0,
+                              overrides={'comm': 'wire'}),
+             tapi.SweepMember(env=TEnvSpec(**BASE), seed=1)]
+    if case in ('checkpoint', 'sparse'):
+        ex = dict(eval_every=1) if case == 'checkpoint' \
+            else dict(eval_every=1, schedule='sparse_tier')
+        _assert_resumes(lambda **kw: _runner(tt, **ex).run_sweep(
+            _members('torch', 2), **kw), path)
+        with pytest.raises(ValueError, match="requires engine='fleet'"):
+            _runner(tt, engine='sequential', **ex).run_sweep(
+                _members('torch', 2), checkpoint=str(tmp_path / 'seq'))
+    elif case in ('sparse_tier', 'comm_wire'):
+        ex = dict(schedule='sparse_tier', use_kernel='packed') \
+            if case == 'sparse_tier' else {}
+        hists = {}
+        for engine, wire in (('fleet', 'f32'), ('sequential', 'int8'),
+                             ('fleet', 'int8')):
+            hists[engine, wire] = _runner(tt, engine=engine, wire=wire,
+                                          **ex).run_sweep(wired)
+            h_wire, h_static = hists[engine, wire]
+            assert h_wire.records[0].round_len != \
+                h_static.records[0].round_len
+        # the int8 wire moves the wired member's comm time alone
+        assert hists['sequential', 'int8'][0].records[0].round_len != \
+            hists['fleet', 'f32'][0].records[0].round_len
+        assert hists['sequential', 'int8'][1].records[0].round_len == \
+            hists['fleet', 'f32'][1].records[0].round_len
+    else:
+        knob = tapi.Experiment(tt, TEnvSpec(**BASE),
+                               tapi.SafaSpec(quantize_uploads=True),
+                               tapi.ExecSpec(eval_every=1), rounds=2,
+                               device='cpu')
+        with pytest.raises(ValueError, match='single-run per-leaf'):
+            knob.compile().run_sweep(_members('torch', 2), checkpoint=path)
+        _assert_resumes(lambda **kw: tapi.Experiment(
+            tt, TEnvSpec(**BASE).replace(comm='wire'),
+            tapi.SafaSpec(quantize_uploads=True), tapi.ExecSpec(eval_every=1),
+            rounds=2, device='cpu').compile().run(**kw), path)

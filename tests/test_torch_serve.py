@@ -153,10 +153,20 @@ def test_serve_main_cli(capsys):
     assert 'decode:  1x2 tokens' in capsys.readouterr().out
 
 
-def test_serve_refusals(monkeypatch):
-    with pytest.raises(NotImplementedError, match='item 7\\)'):
-        serve.run('h2o-danube-3-4b', batch=1, prompt_len=2, gen=1,
-                  ckpt='ckpt.npz', device='cpu')
+def test_serve_refusals(monkeypatch, tmp_path):
+    """``ckpt=`` serves a saved model (the seeded init saved and served
+    gives the tokens of the seeded init), a missing checkpoint is refused,
+    and so is a call without a card that does not ask for the CPU."""
+    from repro_torch import checkpoint
+    arch = 'h2o-danube-3-4b'
+    model = build_model(tcfgs.get_config(arch).reduced())
+    checkpoint.save(str(tmp_path / 'init'),
+                    model.init(torch.Generator().manual_seed(4)))
+    kw = dict(batch=1, prompt_len=3, gen=2, seed=4, device='cpu')
+    assert torch.equal(serve.run(arch, ckpt=str(tmp_path / 'init'), **kw),
+                       serve.run(arch, **kw))
+    with pytest.raises(FileNotFoundError):
+        serve.run(arch, ckpt=str(tmp_path / 'missing.npz'), **kw)
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.run('h2o-danube-3-4b', batch=1, prompt_len=2, gen=1)

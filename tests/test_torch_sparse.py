@@ -185,11 +185,12 @@ def test_capacity_error_matches_reference():
     assert np.all(roles[1, 5:] == 0)
 
 
-def test_sparse_tier_form_stays_unported():
+def test_sparse_tier_form_stays_unported(tmp_path):
     """The name dates from before the lag tier was ported.  The tier form
     is now the host precompute's third form (a ``TierSchedule`` whose
-    event stream is the sparse one); what stays unported around it is its
-    checkpoint (ROADMAP item 7), and an unknown form is still refused."""
+    event stream is the sparse one); its checkpoint is ported too (a
+    numeric run without a task is refused before any file is written),
+    and an unknown form is still refused."""
     tier = tfed.precompute_safa_schedule(_env('torch'), fraction=0.3,
                                          lag_tolerance=3, rounds=4,
                                          form='sparse_tier')
@@ -202,8 +203,9 @@ def test_sparse_tier_form_stays_unported():
     exp = tapi.Experiment(None, TEnvSpec(**ENV), tapi.SafaSpec(),
                           tapi.ExecSpec(schedule='sparse_tier'), rounds=4,
                           device='cpu')
-    with pytest.raises(NotImplementedError, match='item 7 '):
-        exp.compile().run(checkpoint='tier.npz')
+    with pytest.raises(ValueError, match='numeric run needs a Task'):
+        exp.compile().run(checkpoint=str(tmp_path / 'tier'))
+    assert not (tmp_path / 'tier.npz').exists()
     with pytest.raises(ValueError, match='unknown form'):
         tfed.precompute_safa_schedule(_env('torch'), fraction=0.3,
                                       lag_tolerance=3, rounds=4,

@@ -657,23 +657,40 @@ def test_per_member_task_sparse_sweep_raises_reference_error(reg, schedule):
 
 
 @pytest.mark.parametrize('engine', ['fleet', 'sequential'])
-def test_sparse_tier_sweeps_still_name_item_12(reg, engine):
+def test_sparse_tier_sweeps_still_name_item_12(reg, engine, tmp_path):
     """The name dates from when lag-tier sweeps were refused under ROADMAP
     item 12.  They are ported: a timing-only tier sweep gives the sparse
-    sweep's records, and the cells of a tier sweep that stay unported
-    (its checkpoint, item 7; a member env deriving its comm model from
-    the wire, item 13) name their items."""
+    sweep's records; a tier sweep's checkpoint resumes bit for bit on the
+    fleet engine and is refused on the sequential one, as the
+    reference's; members derive their comm model from the wire."""
     _, tt, _ = reg
-    runner = tapi.Experiment(tt, None, tapi.SafaSpec(),
-                             tapi.ExecSpec(engine=engine,
-                                           schedule='sparse_tier'),
-                             rounds=2, device='cpu').compile()
-    with pytest.raises(NotImplementedError, match='item 7 '):
-        runner.run_sweep(_members('torch'), checkpoint='sweep.npz')
+
+    def runner(**ex):
+        return tapi.Experiment(tt, None, tapi.SafaSpec(),
+                               tapi.ExecSpec(engine=engine,
+                                             schedule='sparse_tier',
+                                             eval_every=1, **ex),
+                               rounds=2, device='cpu').compile()
+    path = str(tmp_path / 'sweep')
+    if engine == 'sequential':
+        with pytest.raises(ValueError, match="requires engine='fleet'"):
+            runner().run_sweep(_members('torch'), checkpoint=path)
+    else:
+        full = runner().run_sweep(_members('torch'))
+        runner().run_sweep(_members('torch'), checkpoint=path,
+                           max_segments=1)
+        for a, b in zip(runner().run_sweep(_members('torch'),
+                                           checkpoint=path), full):
+            assert a.evals() == b.evals()
+            for k in b.final_global:
+                assert torch.equal(a.final_global[k], b.final_global[k])
     wired = [dataclasses.replace(mem, overrides={'comm': 'wire'})
              for mem in _members('torch')]
-    with pytest.raises(NotImplementedError, match='item 13 '):
-        runner.run_sweep(wired)
+    timed = runner(numeric=False, wire='int8')
+    for a, b in zip(timed.run_sweep(wired),
+                    timed.run_sweep(_members('torch'))):
+        assert [r.round_len for r in a.records] != \
+            [r.round_len for r in b.records]
     timing = [tapi.Experiment(None, None, tapi.SafaSpec(),
                               tapi.ExecSpec(engine=engine, schedule=s,
                                             numeric=False),

@@ -289,11 +289,19 @@ def test_train_run_other_families_on_the_cpu(arch):
 
 # -- (i) refusals -------------------------------------------------------------
 
-def test_train_refusals():
+def test_train_refusals(tmp_path):
+    """``ckpt=`` saves the final global model with the reference's
+    metadata, restorable onto ``param_shapes()``; without a card a call
+    that does not ask for the CPU is refused."""
+    from repro_torch import checkpoint
     kw = dict(rounds=1, n_clients=2, fraction=0.5, lag_tolerance=3,
               crash_prob=0.0, batch=2, seq=16, local_steps=1, lr=0.05)
-    with pytest.raises(NotImplementedError, match='item 7'):
-        train.run('qwen3-1.7b', ckpt='/nonexistent', device='cpu', **kw)
+    path = str(tmp_path / 'llm')
+    train.run('qwen3-1.7b', ckpt=path, device='cpu', **kw)
+    model = build_model(tcfgs.get_config('qwen3-1.7b').reduced())
+    params, meta = checkpoint.restore(path, model.param_shapes())
+    assert meta == {'arch': 'qwen3-1.7b', 'rounds': 1}
+    assert all(torch.isfinite(v).all() for v in jax.tree.leaves(params))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='torch.cuda.is_available'):
             train.run('qwen3-1.7b', **kw)

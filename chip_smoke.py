@@ -35,6 +35,12 @@ Phases, each of which must pass:
              plain versions and, member by member, bit for bit against
              the single-run kernels; the gather and scatter beside
              ``index_select``/``index_copy_`` on the [S * R, N] view.
+             The gather (11, 13) is also held bit for bit and timed
+             twice at every shape the main path gives it (m = 100 SAFA
+             and FedAvg sparse rounds, m = 1000, the tier's value buffer
+             at m = 1000 and 10,000, the S = 4 fleet), ``index_select``
+             beside each time, each launch's device time from
+             ``torch.profiler`` beside the CUDA events, with its grid.
              The lag tier's kernels 19 and 20 run on the slot maps of
              the m = 1000 quota-bounded tier schedule of two rounds
              (round 2: K = 124, every c2 aimed at the scratch row of a
@@ -307,7 +313,12 @@ runs only the build and the lag tier's kernel phase (kernels 19 and 20,
 timed on both rounds), with the package under DIR (a checkout's
 ``src/``; default this script's): two versions of the kernels compared
 in turns on one card, with the same phase timing both.  It exits 0 when
-every check passes and prints no ``ok`` line.
+every check passes and prints no ``ok`` line.  ``--rows-kernels`` runs
+the rows kernel phases (kernels 11-18; the gather timed at every shape
+the main path gives it) the same way, and ``--sparse-runs`` the sparse,
+sparse-sweep and tier phases, whose runs each print the sha256 of their
+final model: two trees whose lines agree ended every run on the same
+bits.
 
     python3 chip_smoke.py --train
 
@@ -1038,13 +1049,13 @@ def scale_spec(seed=0, m=SCALE_M):
     return spec.replace(t_lim=float(np.partition(base, k)[k]))
 
 
-def scale_schedule(rounds, seed=0, form='sparse'):
-    """SAFA's sparse (or lag-tier) schedule on ``scale_spec(seed)`` (lag
-    tolerance 10 x rounds, as the JAX package's scale benchmark sets
+def scale_schedule(rounds, seed=0, form='sparse', m=SCALE_M):
+    """SAFA's sparse (or lag-tier) schedule on ``scale_spec(seed, m)``
+    (lag tolerance 10 x rounds, as the JAX package's scale benchmark sets
     it)."""
     from repro_torch.core import federation
     return federation.precompute_safa_schedule(
-        scale_spec(seed).build(), fraction=QUOTA / SCALE_M,
+        scale_spec(seed, m).build(), fraction=QUOTA / m,
         lag_tolerance=10 * rounds, rounds=rounds, form=form)
 
 
@@ -1103,23 +1114,31 @@ def tier_bytes(h_srcs, h_dsts, h_roles, n):
                     2 * k * row + k * wire_row + vectors)}
 
 
-def q8_tier_grid(torch, s: int, n: int):
-    """How kernel 20 launches for s members of width n on this card
-    (``safa_q8_tier_rows_grid``), or None where the library has no such
-    entry (the register-tiled kernel this ring replaced)."""
+def _launch_shape(entry: str, keys, *args):
+    """The launch shape a kernel's C query ``entry(*args, out)`` reports on
+    this card, as a dict of ``keys``, or None where the library has no
+    such entry (a tree whose kernel has no query)."""
     import ctypes
 
     from repro_torch.kernels import backend
     lib, _ = backend.load_library()
-    fn = getattr(lib, 'safa_q8_tier_rows_grid', None)
+    fn = getattr(lib, entry, None)
     if fn is None:
         return None
-    out = (ctypes.c_longlong * 6)()
-    err = fn(s, n, out)
+    out = (ctypes.c_longlong * len(keys))()
+    err = fn(*args, out)
     if err != 0:
-        raise RuntimeError(f'safa_q8_tier_rows_grid: cudaError_t {err}')
-    keys = ('tile', 'stages', 'smem', 'per_sm', 'blocks', 'per_block')
+        raise RuntimeError(f'{entry}: cudaError_t {err}')
     return dict(zip(keys, out))
+
+
+def q8_tier_grid(torch, s: int, n: int):
+    """How kernel 20 launches for s members of width n on this card
+    (``safa_q8_tier_rows_grid``), or None where the library has no such
+    entry (the register-tiled kernel this ring replaced)."""
+    return _launch_shape('safa_q8_tier_rows_grid',
+                         ('tile', 'stages', 'smem', 'per_sm', 'blocks',
+                          'per_block'), s, n)
 
 
 def tier_in_flight(kernel, roles, grid):
@@ -1315,10 +1334,126 @@ def tier_kernel_phase(torch, n: int, fails: list) -> list:
     return recs
 
 
+def gather_grid(torch, s: int, k: int, n: int):
+    """How kernels 11 and 13 launch for s members of k slots of width n on
+    this card (``gather_rows_grid``), or None where the library has no
+    such entry (the register-staged gather that the ring replaced)."""
+    return _launch_shape('gather_rows_grid',
+                         ('stage', 'stages', 'smem', 'per_sm', 'blocks',
+                          'run'), s, k, n)
+
+
+def _device_ms(torch, fn, calls=20):
+    """Device milliseconds a launch of ``fn`` (one kernel a call) from one
+    ``torch.profiler`` window over ``calls`` calls, and the launches it
+    saw; (None, 0) where the profiler cannot trace the card."""
+    spans = _device_spans(torch, lambda: [fn() for _ in range(calls)])
+    if not spans:
+        return None, 0
+    return sum(us for _, us in spans) / len(spans) / 1e3, len(spans)
+
+
+def gather_paper_shapes():
+    """Slot rows (round 2) of the m = 100 sparse runs on the paper's
+    environment (crash 0.3, C = 0.3, tau = 5, as the sparse phase runs
+    them): SAFA's (K = 94) and FedAvg's (K = 30), each over R = m + 1
+    rows: [(label, R, rows)]."""
+    from repro_torch.configs import PAPER_TASKS
+    from repro_torch.core import federation
+    from repro_torch.fedsim import EnvSpec
+    cfg = PAPER_TASKS['task2_cnn']
+    spec = EnvSpec(m=cfg['m'], crash_prob=0.3,
+                   dataset_size=cfg['dataset_size'],
+                   batch_size=cfg['batch_size'], epochs=cfg['epochs'],
+                   t_lim=cfg['t_lim'], seed=0)
+    safa = federation.precompute_safa_schedule(
+        spec.build(), fraction=0.3, lag_tolerance=5, rounds=2, form='sparse')
+    fedavg = federation.precompute_sync_schedule(
+        spec.build(), fraction=0.3, rounds=2, seed=0, fedcs=False,
+        form='sparse')
+    return [(f'm = {spec.m} SAFA sparse', spec.m + 1, safa.idx[1]),
+            (f'm = {spec.m} FedAvg sparse', spec.m + 1, fedavg.idx[1])]
+
+
+def gather_tier_shapes():
+    """Base-row maps (round 2) of the lag tier's two-round schedules at
+    m = 1000 and m = 10,000 (as the tier phase runs them), each over its
+    value buffer of capacity + 1 rows: [(label, R, rows)]."""
+    out = []
+    for m in (SCALE_M, TIER_M):
+        sc = scale_schedule(2, form='sparse_tier', m=m)
+        out.append((f'm = {m} tier value buffer', sc.capacity + 1,
+                    sc.base_src[1]))
+    return out
+
+
+def gather_times(torch, label, buf, rows, h_rows, fails):
+    """Kernel 11 (13 for a [S, R, N] ``buf``) at one shape the main path
+    gives it, against the plain version and ``torch.index_select`` (on
+    the [S R, N] view for a fleet) bit for bit, twice; then timed twice by
+    CUDA events over back-to-back calls, ``index_select`` beside each in
+    turns (kernel, library, kernel, library), and each launch's device
+    time from ``torch.profiler``.  Prints one line (the launch's grid,
+    segment size and ring depth included) and returns the two kernel
+    and the two ``index_select`` times by events, in ms."""
+    import numpy as np
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rows import gather_rows, gather_rows_fleet
+    fleet = buf.ndim == 3
+    s = buf.shape[0] if fleet else 1
+    r, n = buf.shape[-2:]
+    k = rows.shape[-1]
+    wrapper = gather_rows_fleet if fleet else gather_rows
+    view = buf.reshape(s * r, n)
+    fixed = torch.where((rows < 0) | (rows >= r), r - 1, rows.long())
+    flat = (fixed.reshape(s, k)
+            + r * torch.arange(s, device=buf.device)[:, None]).reshape(-1)
+    got = wrapper(buf, rows)
+    again = wrapper(buf, rows)
+    lib_out = torch.index_select(view, 0, flat).view(got.shape)
+    torch.cuda.synchronize()
+    ok = (torch.equal(got, ref.gather_rows_ref(buf, rows))
+          and torch.equal(got, lib_out) and torch.equal(got, again))
+    if not ok:
+        fails.append(f'gather {label}: differs from its plain version, '
+                     f'from index_select or between launches')
+        print(f'FAIL gather {label}: differs from its plain version, from '
+              f'index_select or between launches')
+    del got, again, lib_out
+    ms, lib = [], []
+    for _ in range(2):
+        ms.append(_time_ms(torch, lambda: wrapper(buf, rows)))
+        lib.append(_time_ms(torch, lambda: torch.index_select(view, 0,
+                                                              flat)))
+    dev, n_dev = _device_ms(torch, lambda: wrapper(buf, rows))
+    dev_lib, n_lib = _device_ms(torch,
+                                lambda: torch.index_select(view, 0, flat))
+    h = np.asarray(h_rows).reshape(s, k)
+    nbytes = sum(rows_bytes(h[i], np.zeros(k, np.uint8), n)['gather'][0]
+                 for i in range(s))
+    bound = nbytes / PEAK_BYTES * 1e3
+    grid = gather_grid(torch, s, k, n)
+    how = ('no launch query in this library' if grid is None else
+           f'{grid["blocks"]} blocks ({grid["per_sm"]} resident an SM) x '
+           f'{grid["run"]} B, segments of {grid["stage"]} B, ring of '
+           f'{grid["stages"]} stages, {grid["smem"]} B shared')
+    dev_s = 'not measured' if dev is None else f'{dev} ms ({n_dev} spans)'
+    lib_s = 'not measured' if dev_lib is None else \
+        f'{dev_lib} ms ({n_lib} spans)'
+    share = '' if dev is None else f', device {bound / dev:.1%}'
+    print(f'gather time {label}: S {s}, R {r}, K {k}, N {n}: kernel {ms} ms '
+          f'(device {dev_s}), index_select {lib} ms (device {lib_s}); '
+          f'bound {bound} ms ({nbytes / 1e6:.1f} MB), {bound / ms[0]:.1%} '
+          f'of it by events{share}; {how}')
+    return ms, lib
+
+
 def rows_kernel_phase(torch, n: int, fails: list) -> list:
     """Kernels 11, 12, 15 and 16 at the quota-bounded shape: R = m + 1 =
     1001 buffer rows, the K = 124 rows and roles of round 2 of the m =
-    1000 schedule, N = n, against their plain versions, each twice."""
+    1000 schedule, N = n, against their plain versions, each twice; then
+    the gather at the main path's other shapes (``gather_times``)."""
     import numpy as np
 
     from repro_torch.core import protocol
@@ -1388,16 +1523,21 @@ def rows_kernel_phase(torch, n: int, fails: list) -> list:
           and torch.equal(dup[3], cache0[r - 1]),
           'gather_rows: an out-of-range row does not read the scratch row')
     check(torch.equal(got, again), 'gather_rows differs between launches')
-    ms = _time_ms(torch, lambda: gather_rows(cache0, rows))
-    plain = _time_ms(torch, lambda: ref.gather_rows_ref(cache0, rows),
-                     warm=2, timed=10)
-    lib = _time_ms(torch, lambda: torch.index_select(cache0, 0, rows))
     check(torch.equal(torch.index_select(cache0, 0, rows), got),
           'torch.index_select (the yardstick) differs')
+    del got, again, dup
+    ms, lib = gather_times(torch, f'm = {m} sparse_delta', cache0, rows,
+                           h_rows, fails)
+    plain = _time_ms(torch, lambda: ref.gather_rows_ref(cache0, rows),
+                     warm=2, timed=10)
     recs.append(_record(
         'gather_rows', 'src/repro_torch/csrc/rows.cu',
-        'src/repro/kernels/ops.py:270', 0.0, ms, plain, *need['gather'],
-        library_ms=lib))
+        'src/repro/kernels/ops.py:270', 0.0, ms[0], plain, *need['gather'],
+        library_ms=lib[0]))
+    # every other shape the main path gives the gather
+    for label, rr, h in gather_paper_shapes() + gather_tier_shapes():
+        gather_times(torch, label, normal(rr, n),
+                     torch.as_tensor(h, device=dev), h, fails)
 
     # -- scatter_rows (kernel 12), in place, last slot wins ------------------
     buf = cache0.clone()
@@ -1578,17 +1718,17 @@ def rows_fleet_kernel_phase(torch, n: int, fails: list) -> list:
                lambda i: (gather_rows(cache0[i], rows[i]),))
     per_member('gather_rows_fleet (duplicate rows)', (dup,),
                lambda i: (gather_rows(cache0[i], dup_rows[i]),))
-    ms = _time_ms(torch, lambda: gather_rows_fleet(cache0, rows))
-    plain = _time_ms(torch, lambda: ref.gather_rows_ref(cache0, rows),
-                     warm=2, timed=10)
-    lib = _time_ms(torch, lambda: torch.index_select(view, 0, flat))
     check(torch.equal(torch.index_select(view, 0, flat).view(S, k, n), got),
           'torch.index_select (the yardstick) differs')
+    del got, again, dup
+    ms, lib = gather_times(torch, f'S = {S} sparse sweep', cache0, rows,
+                           h_rows, fails)
+    plain = _time_ms(torch, lambda: ref.gather_rows_ref(cache0, rows),
+                     warm=2, timed=10)
     recs.append(_record(
         'gather_rows_fleet', 'src/repro_torch/csrc/rows.cu',
-        'src/repro/kernels/ops.py:332', 0.0, ms, plain, *need('gather'),
-        library_ms=lib))
-    del got, again, dup
+        'src/repro/kernels/ops.py:332', 0.0, ms[0], plain, *need('gather'),
+        library_ms=lib[0]))
 
     # -- scatter_rows_fleet (kernel 14), in place, last slot wins ------------
     buf = cache0.clone()
@@ -2048,6 +2188,17 @@ def _check_losses(label, losses, init, fails):
                      f'the initial {init}')
 
 
+def _fingerprint(tree: dict) -> str:
+    """The first 16 hex digits of the sha256 of a model's leaves' bytes,
+    in key order: two runs that print the same ended on the same bits."""
+    import hashlib
+    h = hashlib.sha256()
+    for key in sorted(tree):
+        h.update(key.encode())
+        h.update(tree[key].detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def _max_diff(a: dict, b: dict) -> float:
     return max((a[k] - b[k]).abs().max().item() for k in b)
 
@@ -2198,6 +2349,7 @@ def _drive_run(torch, task, label, exp, kernels, fails):
           f'rounds; per round train {[round(v, 4) for v in train_s]} s, '
           f'server step {[round(v, 4) for v in server_s]} s; launches '
           f'{counts}; peak device memory {peak / 2**30:.3f} GiB')
+    print(f'{label}: final_global sha256 {_fingerprint(hist.final_global)}')
     want = {c: n * rounds for c, n in kernels.items()}
     if counts != want:
         fails.append(f'{label}: launches {counts}, want {want}')
@@ -2451,6 +2603,8 @@ def _drive_sweep(torch, task, label, exp, members, kernels, fails):
           f'{[round(v, 4) for v in train_s]} s, server step '
           f'{[round(v, 4) for v in server_s]} s; launches {counts}; peak '
           f'device memory {peak / 2**30:.3f} GiB')
+    print(f'{label}: members\' final_global sha256 '
+          f'{[_fingerprint(h.final_global) for h in hists]}')
     want = {c: n * rounds * (1 if fleet else size)
             for c, n in kernels.items()}
     if counts != want:
@@ -4492,6 +4646,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--tier-kernels', action='store_true',
                     help='run only the build and the lag tier kernel phase')
+    ap.add_argument('--rows-kernels', action='store_true',
+                    help='run only the build and the rows kernel phases')
+    ap.add_argument('--sparse-runs', action='store_true',
+                    help='run only the build and the sparse, sparse-sweep '
+                         'and tier phases')
     ap.add_argument('--train', action='store_true',
                     help='run only the build and the train phase')
     ap.add_argument('--checkpoint', action='store_true',
@@ -4528,9 +4687,24 @@ def main(argv=None) -> int:
 
     fails = []
     n = ops.wire_spec(_cnn_init(torch.Generator().manual_seed(0))).n_padded
-    if opts.tier_kernels:
+    if opts.tier_kernels or opts.rows_kernels or opts.sparse_runs:
         print(f'repro_torch from {src.resolve()}')
-        tier_kernel_phase(torch, n, fails)
+        if opts.tier_kernels:
+            tier_kernel_phase(torch, n, fails)
+        if opts.rows_kernels:
+            rows_kernel_phase(torch, n, fails)
+            rows_fleet_kernel_phase(torch, n, fails)
+            lap('rows kernels')
+        if opts.sparse_runs:
+            spec, task = cnn_setup(torch)
+            sparse_phase(torch, spec, task, fails)
+            lap('sparse')
+            sparse_sweep_phase(torch, spec, task, fails)
+            lap('sparse sweeps')
+            del task
+            torch.cuda.empty_cache()
+            tier_phase(torch, fails)
+            lap('tier')
         for f in fails:
             print(f'FAIL {f}')
         return 1 if fails else 0

@@ -78,6 +78,7 @@ _SIGNATURES = {
     'safa_aggregate_q8_rows_f32': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _P, _P, _P, _I, _I, _L, _P),
     'gather_rows_fleet_f32': (_P, _P, _P, _I, _I, _I, _L, _P),
+    'gather_rows_grid': (_I, _I, _L, _P),
     'scatter_rows_fleet_f32': (_P, _P, _P, _I, _I, _I, _L, _P),
     'safa_aggregate_rows_fleet_f32': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _L, _P),

@@ -513,7 +513,7 @@ def test_weighted_run_and_sweep_on_the_card(dev, cell):
 # ---------------------------------------------------------------------------
 
 #: (R, K, N): R = m + 1 buffer rows with the scratch row last; K slots.
-#: N = 6144 is no multiple of the gather's 4096-float block, and m = 300
+#: N = 6144 is no multiple of the gather's 4096-float run, and m = 300
 #: with K = 300 takes more slots than one 256-slot chunk
 ROWS_SHAPES = [(14, 7, 4096), (1001, 124, 2048), (301, 300, 6144)]
 
@@ -1216,6 +1216,127 @@ def test_q8_tier_ring_refuses_misaligned_operands(dev):
             t['srcs'], t['dsts'], t['roles'], t['w'])
     torch.cuda.synchronize()
     assert torch.equal(buf, t['buf'])
+
+
+# ---------------------------------------------------------------------------
+# The gather on a bulk-copy ring (kernels 11 and 13): its edge cases
+# ---------------------------------------------------------------------------
+
+def _gather_grid(s, k, n):
+    """The gather's launch for s members of k slots of width n:
+    (blocks, bytes a block) from ``gather_rows_grid``."""
+    import ctypes
+    lib, _ = backend.load_library()
+    out = (ctypes.c_longlong * 6)()
+    assert lib.gather_rows_grid(s, k, n, out) == 0
+    return out[4], out[5]
+
+
+def _gather_rows_of(case, r, k, rng):
+    """[k] int32 slot rows of an R-row buffer as ``case`` lays them out."""
+    if case == 'one-row':
+        return np.full(k, r // 2, np.int32)
+    if case == 'out-of-range':
+        return rng.choice(np.array([-7, -1, r, r + 1, 2**31 - 1], np.int32),
+                          k)
+    return rng.integers(0, r, k).astype(np.int32)
+
+
+#: case -> (R, K, N, row layout): one short segment; every slot on one
+#: row; every slot outside [0, R) (the scratch row); more slots than the
+#: launch has blocks; the main path's width, with a ragged last segment
+GATHER_CASES = {'k1-n2048': (5, 1, 2048, 'seeded'),
+                'one-row': (40, 50, 4096, 'one-row'),
+                'out-of-range': (30, 40, 6144, 'out-of-range'),
+                'k-over-blocks': (2100, 2000, 2048, 'seeded'),
+                'n342016': (20, 9, 342_016, 'seeded')}
+
+
+@pytest.mark.parametrize('case', sorted(GATHER_CASES))
+def test_gather_ring_edge_cases_match_plain(dev, case):
+    """Kernel 11 at the ring's edge cases equals ``gather_rows_ref`` bit
+    for bit on two launches, one launch a call."""
+    r, k, n, layout = GATHER_CASES[case]
+    rng = np.random.default_rng(40)
+    buf = torch.as_tensor(rng.normal(size=(r, n)).astype(np.float32),
+                          device=dev)
+    rows = torch.as_tensor(_gather_rows_of(layout, r, k, rng), device=dev)
+    if case == 'k-over-blocks':
+        assert k > _gather_grid(1, k, n)[0]
+    want = ref.gather_rows_ref(buf, rows)
+    for i in range(2):
+        got = gather_rows(buf, rows)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert backend.LAUNCHES['gather_rows'] == i + 1
+    if layout == 'out-of-range':
+        assert all(torch.equal(g, buf[-1]) for g in got)
+
+
+#: case -> (S, R, K, N, members' real K): a fleet of one and of four with
+#: ragged K (each member padded with sentinel slots, row R - 1, to the
+#: launch's K); four members whose byte offsets pass 2**31 in buf
+#: (S R N 4 = 2.19e9) and in out (S K N 4 = 2.19e9)
+GATHER_FLEET_CASES = {'s1-ragged': (1, 30, 20, 6144, [13]),
+                      's4-ragged': (4, 101, 94, 8192, [94, 61, 30, 1]),
+                      'past-2gb': (4, 401, 400, 342_016, [400, 399, 1, 250])}
+
+
+@pytest.mark.parametrize('case', sorted(GATHER_FLEET_CASES))
+def test_gather_ring_fleet_edge_cases_match_plain(dev, case):
+    """Kernel 13 equals ``gather_rows_ref`` bit for bit on two launches
+    (one launch a call) and, member by member, the single-run kernel."""
+    s, r, k, n, reals = GATHER_FLEET_CASES[case]
+    rng = np.random.default_rng(41)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    buf = torch.randn((s, r, n), generator=gen, device=dev)
+    h = np.full((s, k), r - 1, np.int32)
+    for i, real in enumerate(reals):
+        h[i, :real] = rng.integers(0, r, real)
+    h[-1, 0] = r - 2                         # the last member's last rows
+    rows = torch.as_tensor(h, device=dev)
+    want = ref.gather_rows_ref(buf, rows)
+    for i in range(2):
+        got = gather_rows_fleet(buf, rows)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert backend.LAUNCHES['gather_rows_fleet'] == i + 1
+    del want
+    if case == 'past-2gb':
+        assert buf.numel() * 4 > 2**31 and got.numel() * 4 > 2**31
+        assert torch.equal(got[-1, 0], buf[-1, r - 2])
+        assert torch.equal(got[-1, -1], buf[-1, r - 1])
+    for i in range(s):
+        assert torch.equal(got[i], gather_rows(buf[i], rows[i])), i
+
+
+@pytest.mark.parametrize('n', [4, 12, 1020])
+def test_gather_ring_wraps_on_rows_narrower_than_a_stage(dev, n):
+    """Below the wrapper's widths (the C entry takes any n that is a
+    multiple of 4), a block's run spans more items than the ring has
+    stages, so the ring wraps: still ``gather_rows_ref`` bit for bit."""
+    rng = np.random.default_rng(42)
+    r, k = 300, 5000
+    buf = torch.as_tensor(rng.normal(size=(r, n)).astype(np.float32),
+                          device=dev)
+    rows = torch.as_tensor(rng.integers(-2, r + 2, k).astype(np.int32),
+                           device=dev)
+    out = torch.empty((k, n), device=dev)
+    backend.call('gather_rows_f32', dev, buf.data_ptr(), rows.data_ptr(),
+                  out.data_ptr(), r, k, n)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref.gather_rows_ref(buf, rows))
+
+
+def test_gather_ring_refuses_misaligned_buffer(dev):
+    """The bulk copies need 16-byte-aligned rows: a buf whose data starts
+    4 bytes past an aligned address is refused at launch."""
+    flat = torch.randn(10 * 2048 + 4, device=dev)
+    buf = flat[1:1 + 10 * 2048].view(10, 2048)
+    rows = torch.arange(4, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match='cudaError_t'):
+        gather_rows(buf, rows)
+    torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------

@@ -52,7 +52,12 @@ Phases, each of which must pass:
              within 5e-7, every member of an S-axis launch bit for bit
              its single launch, timed on both rounds against the bytes
              its slot maps and roles need (no PyTorch call computes
-             either; the records are round 2's).
+             either; the records are round 2's).  Kernel 20 and its
+             S-axis form are then launched 200 times back to back at each
+             of the tier shapes (m = 1000 rounds 1 and 2, the fleet's
+             rounds 1 and 2, m = 10,000 rounds 1 and 2), every launch's
+             buffer bit for bit the plain version's and its sums the
+             first launch's: the stress check of the ring's stage release.
              The per-leaf reference's kernels 5 and 6 (``quantize``,
              ``dequantize``) run on every row view of seeded [100, n]
              stacks at the CNN's eight leaf sizes (10 to 313,600 values),
@@ -302,6 +307,16 @@ Phases, each of which must pass:
              ``EnvSpec(comm='wire')`` run of one round; prints the
              uplink and downlink MB on both wires.
 
+16. analysis — the port's contract checker (``repro_torch.analysis``)
+             on the card, right after the kernel phases:
+             ``run_all(device='cuda')`` over the 84 admitted cells of the
+             registry (each run for two segments of two rounds at the
+             JAX package's tiny shapes, every kernel on the card, each
+             segment under ``torch.cuda.set_sync_debug_mode('error')``),
+             the schedule pass and the conventions pass; prints the count
+             of findings of each rule, and every failed finding fails the
+             script.
+
 The line before the last is a JSON object of kernel records; the last
 line is ``{"ok": true, "device": {...}}``.  Without a visible card, or
 run from a directory that holds no ``src/repro_torch``, the script prints
@@ -324,7 +339,8 @@ bits.
 
 runs only the build and the train phase (13), with the same exit
 contract; ``--checkpoint`` only the build and the checkpoint phase (15;
-its check (d) runs with the train phase).
+its check (d) runs with the train phase); ``--analysis`` only the build
+and the analysis phase (16).
 """
 import argparse
 import json
@@ -1028,35 +1044,19 @@ def _device_spans(torch, fn):
 
 
 def scale_spec(seed=0, m=SCALE_M):
-    """The quota-bounded environment of the JAX package's
-    ``benchmarks/scale.py`` (``make_scale_env``) with the Task 2 data,
-    batch and epochs: m clients (1000 unless given), crash 0,
-    communication negligible, t_lim pinned at the 2.5 x quota-th fastest
-    client of the env of ``seed``, so that SAFA's active set stays near
-    2.5 x quota whatever m."""
-    import numpy as np
-
-    from repro_torch.configs import PAPER_TASKS
-    from repro_torch.fedsim import EnvSpec
-    cfg = PAPER_TASKS['task2_cnn']
-    spec = EnvSpec(m=m, crash_prob=0.0,
-                   dataset_size=cfg['dataset_size'],
-                   batch_size=cfg['batch_size'], epochs=cfg['epochs'],
-                   t_lim=1e9, seed=seed, model_size_mb=1e-3)
-    env = spec.build()
-    base = env.t_updown + env.full_train_time()
-    k = min(m - 1, int(round(2.5 * QUOTA)))
-    return spec.replace(t_lim=float(np.partition(base, k)[k]))
+    """``repro_torch.fedsim.scale.scale_spec`` at the smoke's quota: the
+    quota-bounded environment of the JAX package's ``benchmarks/scale.py``
+    with the Task 2 data, batch and epochs, m clients (1000 unless
+    given)."""
+    from repro_torch.fedsim import scale
+    return scale.scale_spec(seed, m, quota=QUOTA)
 
 
 def scale_schedule(rounds, seed=0, form='sparse', m=SCALE_M):
     """SAFA's sparse (or lag-tier) schedule on ``scale_spec(seed, m)``
-    (lag tolerance 10 x rounds, as the JAX package's scale benchmark sets
-    it)."""
-    from repro_torch.core import federation
-    return federation.precompute_safa_schedule(
-        scale_spec(seed, m).build(), fraction=QUOTA / m,
-        lag_tolerance=10 * rounds, rounds=rounds, form=form)
+    (``repro_torch.fedsim.scale.scale_schedule``)."""
+    from repro_torch.fedsim import scale
+    return scale.scale_schedule(rounds, seed, form, m=m, quota=QUOTA)
 
 
 def rows_bytes(h_rows, h_roles, n):
@@ -1331,7 +1331,95 @@ def tier_kernel_phase(torch, n: int, fails: list) -> list:
                                     replaces, err, ms, plain_ms, *need))
             del base_args, ops, got
     _print_records(recs)
+    q8_tier_stress(torch, n, fails, sched, fleet, weights, f_weights)
     return recs
+
+
+STRESS_LAUNCHES = 200   # kernel 20 launches a shape in the stress check
+
+
+def q8_tier_stress(torch, n: int, fails: list, sched, fleet, weights,
+                   f_weights) -> None:
+    """Kernel 20 and its S-axis form launched ``STRESS_LAUNCHES`` times
+    back to back at each of the smoke's tier shapes (m = 1000 rounds 1
+    and 2, the S = 4 fleet's rounds 1 and 2, m = 10,000 rounds 1 and 2),
+    each launch on a fresh copy of the same buffer: its buffer must equal
+    the plain version's bit for bit, and its new_global and new_agg the
+    first launch's (which is held to the plain version within 5e-7).  A
+    stage released before its reads have landed, and overwritten by the
+    next bulk copy, would show as a launch that differs.  The comparisons
+    run on the card, one host read a shape."""
+    import numpy as np
+
+    from repro_torch.core import protocol
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.safa_aggregate import (
+        safa_aggregate_packed_q8_tier_rows,
+        safa_aggregate_packed_q8_tier_rows_fleet)
+    dev = torch.device('cuda')
+    big = scale_schedule(2, form='sparse_tier', m=10 * SCALE_M)
+    big_w = torch.as_tensor(scale_spec(m=10 * SCALE_M).build().weights,
+                            dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    shapes = []
+    for label, sc, w, lead in (('m = 1000', sched, weights, ()),
+                               (f'S = {S}, m = 1000', fleet, f_weights,
+                                (S,)),
+                               ('m = 10,000', big, big_w, ())):
+        for t in (0, 1):
+            idx = put(sc.idx[..., t, :])
+            shapes.append((f'{label}, round {t + 1}', lead, sc.capacity + 1,
+                           (put(sc.cache_src[..., t, :]),
+                            put(sc.cache_dst[..., t, :]),
+                            put(sc.roles[..., t, :]),
+                            protocol._slot_weights(idx, w))))
+    for label, lead, rows, m4 in shapes:
+        k = m4[0].shape[-1]
+        wrapper = safa_aggregate_packed_q8_tier_rows_fleet if lead \
+            else safa_aggregate_packed_q8_tier_rows
+
+        def normal(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+
+        buf0 = normal(*lead, rows, n)
+        q, scales = ref.quantize_packed_ref(normal(*lead, k, n))
+        base, glob, agg = (normal(*lead, k, n), normal(*lead, n),
+                           normal(*lead, n))
+        want = ref.safa_aggregate_q8_tier_rows_ref(
+            q, scales, base, buf0.clone(), glob, agg, *m4)
+        buf = torch.empty_like(buf0)
+        bad_buf = torch.zeros((), dtype=torch.int64, device=dev)
+        bad_sums = torch.zeros((), dtype=torch.int64, device=dev)
+        first = None
+        t0 = time.perf_counter()
+        for i in range(STRESS_LAUNCHES):
+            buf.copy_(buf0)
+            ng, na, _ = wrapper(q, scales, base, buf, glob, agg, *m4)
+            bad_buf += (buf != want[2]).any()
+            if first is None:
+                first = (ng, na)
+            else:
+                bad_sums += (ng != first[0]).any() | (na != first[1]).any()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        err = max((g - w_).abs().max().item()
+                  for g, w_ in zip(first, want[:2]))
+        nb, ns = int(bad_buf), int(bad_sums)
+        print(f'kernel 20 stress, {label} (K = {k}, {rows} buffer rows): '
+              f'{STRESS_LAUNCHES} launches in {secs:.2f} s, {nb} with a '
+              f'buffer off the plain version\'s, {ns} with sums off the '
+              f'first launch\'s; first launch within {err:.3e} of the '
+              f'plain sums')
+        if nb or ns or err > 5e-7:
+            fails.append(f'kernel 20 stress, {label}: {nb} launches with '
+                         f'a wrong buffer, {ns} with other sums, first '
+                         f'launch {err:.3e} from the plain version')
+        del buf0, buf, q, scales, base, want, first
+    torch.cuda.empty_cache()
 
 
 def gather_grid(torch, s: int, k: int, n: int):
@@ -4642,6 +4730,25 @@ def checkpoint_llm(torch, path, trained: dict, save_s: float, fails: list
                      f'the trained global: {differ[:5]}')
 
 
+def analysis_phase(torch, fails: list) -> None:
+    """Phase 16: ``repro_torch.analysis.run_all(device='cuda')``; every
+    failed finding is a failure of the script."""
+    from repro_torch import analysis
+    t0 = time.perf_counter()
+    rep = analysis.run_all(device='cuda')
+    torch.cuda.synchronize()
+    for rule in sorted(rep.rules()):
+        ok, na, failed = rep.counts(rule)
+        print(f'analysis {rule}: {ok} ok, {na} not applicable, '
+              f'{failed} failed')
+    cells = {f.subject for f in rep.by_rule('T001')}
+    print(f'analysis: {rep.summary()}; {len(cells)} cells on the card in '
+          f'{time.perf_counter() - t0:.1f} s')
+    for f in rep.failures:
+        fails.append(f'analysis: {f}')
+        print(f)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--tier-kernels', action='store_true',
@@ -4655,6 +4762,8 @@ def main(argv=None) -> int:
                     help='run only the build and the train phase')
     ap.add_argument('--checkpoint', action='store_true',
                     help='run only the build and the checkpoint phase')
+    ap.add_argument('--analysis', action='store_true',
+                    help='run only the build and the analysis phase')
     ap.add_argument('--src', type=pathlib.Path, default=None,
                     help='the src/ directory whose repro_torch to load')
     opts = ap.parse_args(argv)
@@ -4708,7 +4817,10 @@ def main(argv=None) -> int:
         for f in fails:
             print(f'FAIL {f}')
         return 1 if fails else 0
-    if opts.train or opts.checkpoint:
+    if opts.train or opts.checkpoint or opts.analysis:
+        if opts.analysis:
+            analysis_phase(torch, fails)
+            lap('analysis')
         if opts.train:
             train_phase(torch, fails, new_readings())
             lap('train')
@@ -4735,6 +4847,8 @@ def _all_phases(torch, kind, n, runs, lap, fails) -> int:
             + tier_kernel_phase(torch, n, fails))
     torch.cuda.empty_cache()
     lap('kernels')
+    analysis_phase(torch, fails)
+    lap('analysis')
     spec, task = cnn_setup(torch)
     launches = main_path_phase(torch, spec, task, fails)
     lap('main')

@@ -45,7 +45,8 @@ from repro_torch.core.schedules import ProtocolSpec, RoundRecord
 __all__ = [
     'CsaflSpec', 'STALENESS_FNS', 'SeaflSpec', 'WEIGHTED_SCHEMES',
     'async_kwargs', 'precompute_async_schedule',
-    'precompute_weighted_schedule', 'staleness_discount', 'weighted_kwargs',
+    'precompute_weighted_schedule', 'staleness_discount',
+    'weighted_dispatch_budget', 'weighted_kwargs',
 ]
 
 #: staleness-discount functions s(dt) of the FedAsync family (Xie et al.):
@@ -306,6 +307,16 @@ def precompute_weighted_schedule(env, *, rounds: int, scheme: str = 'seafl',
 
     return schedules.WeightedSchedule(committed=committed_s, wrow=wrow_s,
                                       records=records, futility=0.0)
+
+
+def weighted_dispatch_budget(ex) -> int:
+    """Kernel launches of one weighted-merge round (a fleet's: for all S
+    members), the registry's ``dispatch_budget`` of SEAFL and CSAFL
+    (``repro_torch.analysis`` rule T001): one merge on the packed path,
+    plus the int8 wire's round trip (quantise and dequantise) when
+    compressed."""
+    merge = 1 if ex.use_kernel == 'packed' else 0
+    return merge + (2 if ex.wire == 'int8' else 0)
 
 
 # ---------------------------------------------------------------------------

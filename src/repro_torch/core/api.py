@@ -247,6 +247,16 @@ class ProtocolDef:
     #: of the member's precompute (the staleness-adaptive family); else
     #: they are refused at sweep resolution
     spec_overrides: bool = False
+    #: ``dispatch_budget(ex)``: the kernel launches of one round of the
+    #: admitted exec cell (a fleet's: for all S members), or None where
+    #: no budget is declared (the per-leaf kernel path, whose count is the
+    #: model's leaf count); ``repro_torch.analysis`` holds every cell's
+    #: rounds to it (rule T001).  The JAX package's budgets, cell for cell
+    dispatch_budget: Optional[Callable] = None
+    #: ``alias_claims(ex)``: {kernel wrapper: the operands it must write in
+    #: place} in the cell's rounds (rule T003; None: no claim); names key
+    #: into the kernel modules' ``ALIAS_CONTRACTS``
+    alias_claims: Optional[Callable] = None
 
 
 #: spec type -> ProtocolDef: the single source of protocol dispatch
@@ -379,8 +389,11 @@ class _RunState:
     then replace the local, cache and agg trees.  Under
     ``'sparse_tier'`` there is no local stack, ``cache`` is the lag tier's
     value buffer and ``packed`` (global, value buffer, agg).
-    ``in_place`` names the entries whose buffers the rounds write in
-    place (``prepare_state`` built them); a resume copies into those."""
+    ``in_place`` names the buffers the rounds write in place
+    (``prepare_state`` built them) as (entry, index) pairs, index None
+    for a whole entry: ``('cache', None)``, ``('packed', 1)``; a resume
+    copies into every buffer of those entries and takes the others as
+    they are."""
     global_w: dict
     local_w: Optional[dict]
     cache: Optional[dict] = None
@@ -404,15 +417,16 @@ class _RunState:
 
     def set_tree(self, t: dict) -> None:
         """Take the carry of ``t`` (a restored ``tree()``): the entries
-        in ``in_place`` are copied into their buffers, the others taken
-        as they are; a packed carry's global model is then unpacked from
-        ``packed[0]``, as the engines derive it."""
+        that hold an ``in_place`` buffer are copied into their buffers,
+        the others taken as they are; a packed carry's global model is
+        then unpacked from ``packed[0]``, as the engines derive it."""
         self.global_w, self.local_w = t['global'], t['local']
+        held = {name for name, _ in self.in_place}
         for name in ('cache', 'agg', 'packed'):
             new = t.get(name)
             if new is None:
                 continue
-            if name not in self.in_place:
+            if name not in held:
                 setattr(self, name, new)
                 continue
             for dst, src in zip(ckpt.flatten(getattr(self, name)).values(),
@@ -443,9 +457,13 @@ def _init_global(task, seed: int, device, init_params: InitParams) -> dict:
     """One run's initial global: the task's own seeded init, or the
     params the caller passed (a callable gets the run's seed)."""
     if init_params is None:
-        return task.init_global(seed)
-    params = init_params(seed) if callable(init_params) else init_params
-    return params_from_jax(params, device)
+        g = task.init_global(seed)
+    else:
+        params = init_params(seed) if callable(init_params) else init_params
+        g = params_from_jax(params, device)
+    # sorted-key leaf order, the order every round returns the model in
+    # (the JAX package's): the first segment then runs the later ones' ops
+    return dict(sorted(g.items()))
 
 
 def _init_state(g: dict, m: int, uses_cache: bool, *,
@@ -680,7 +698,9 @@ def _safa_prepare_state(st, weights, ex, sched):
 
     st.packed = (pack_g(st.global_w, spec), scratch(st.local_w),
                  scratch(st.cache), pack_g(agg, spec))
-    st.spec, st.in_place = spec, ('packed',)
+    # the rounds scatter into the local and cache buffers; the global and
+    # agg buffers are the rows kernel's fresh outputs
+    st.spec, st.in_place = spec, (('packed', 1), ('packed', 2))
     st.local_w = st.cache = None
 
 
@@ -708,7 +728,7 @@ def _safa_prepare_tier_state(st, weights, ex, sched):
     agg = {k: scale(g) for k, g in st.global_w.items()}
     if ex.use_kernel != 'packed':
         st.cache = {k: tile(g).contiguous() for k, g in st.global_w.items()}
-        st.agg, st.in_place = agg, ('cache',)
+        st.agg, st.in_place = agg, (('cache', None),)
         return
     from repro_torch.kernels import ops as kops
     spec = _pack_layout(_member(st.global_w, 0) if fleet else st.global_w,
@@ -716,7 +736,7 @@ def _safa_prepare_tier_state(st, weights, ex, sched):
     pack_g = kops.pack_stacked if fleet else kops.pack_global
     gbuf = pack_g(st.global_w, spec)
     st.packed = (gbuf, tile(gbuf).contiguous(), pack_g(agg, spec))
-    st.spec, st.in_place = spec, ('packed',)
+    st.spec, st.in_place = spec, (('packed', 1),)
 
 
 def _unpack_global_state(st):
@@ -938,6 +958,53 @@ def _weighted_loop_round(st, sched, i, weights, train_fn, ex, device):
         use_kernel=ex.use_kernel, wire=ex.wire)
 
 
+def _safa_dispatch_budget(ex) -> Optional[int]:
+    """Kernel launches of one SAFA round (rule T001).  The dense and
+    sparse int8 cells are the compressed round of two launches (quantise,
+    then the fused int8 aggregation) whatever the model's depth."""
+    if ex.schedule == 'sparse_tier':
+        if not ex.use_kernel:
+            return 2 if ex.wire == 'int8' else 0
+        # gather the bases, the tier aggregation (+ quantise on the wire)
+        return 3 if ex.wire == 'int8' else 2
+    if ex.schedule == 'sparse_delta':
+        if not ex.use_kernel:
+            return 2 if ex.wire == 'int8' else 0
+        # gather, rows aggregation, two scatters (local and cache rows)
+        return 5 if ex.wire == 'int8' else 4
+    if ex.wire == 'int8':
+        return 2
+    if ex.use_kernel == 'packed':
+        return 1
+    if ex.use_kernel:
+        return None     # per leaf: one launch for each leaf of the model
+    return 0
+
+
+def _safa_alias_claims(ex) -> dict:
+    """The in-place writes a SAFA cell's rounds must make (rule T003):
+    without them the server holds a second cache or value buffer."""
+    fleet = '_fleet' if ex.engine == 'fleet' else ''
+    if ex.schedule == 'sparse_tier':
+        if not ex.use_kernel:
+            return {}
+        q8 = '_q8' if ex.wire == 'int8' else ''
+        return {f'safa_aggregate_packed{q8}_tier_rows{fleet}': ('buf',)}
+    if ex.schedule == 'sparse_delta':
+        return {f'scatter_rows{fleet}': ('buf',)} if ex.use_kernel else {}
+    if ex.wire == 'int8':
+        return {f'safa_aggregate_packed_q8{fleet}': ('cache',)}
+    if ex.use_kernel == 'packed':
+        return {f'safa_aggregate_packed{fleet}': ('cache',)}
+    return {}
+
+
+def _wire_only_dispatch_budget(ex) -> int:
+    """Protocols without an aggregation kernel launch only the int8
+    wire's round trip (quantise and dequantise)."""
+    return 2 if ex.wire == 'int8' else 0
+
+
 register(ProtocolDef(
     name='safa', spec_cls=SafaSpec,
     precompute=_safa_precompute,
@@ -948,7 +1015,9 @@ register(ProtocolDef(
     sparse_forms=('sparse', 'sparse_delta', 'sparse_tier'),
     sparse_precompute=_safa_sparse_precompute,
     tier_precompute=_safa_tier_precompute,
-    prepare_state=_safa_prepare_state))
+    prepare_state=_safa_prepare_state,
+    dispatch_budget=_safa_dispatch_budget,
+    alias_claims=_safa_alias_claims))
 
 register(ProtocolDef(
     name='fedavg', spec_cls=FedAvgSpec,
@@ -957,7 +1026,7 @@ register(ProtocolDef(
     segment=_fedavg_segment, loop_round=_fedavg_loop_round,
     supports_wire=True, sparse_forms=('sparse', 'sparse_delta'),
     sparse_precompute=_sync_precompute(fedcs=False, form='sparse'),
-    delta_stateless=True))
+    delta_stateless=True, dispatch_budget=_wire_only_dispatch_budget))
 
 register(ProtocolDef(
     name='fedcs', spec_cls=FedCSSpec,
@@ -966,21 +1035,21 @@ register(ProtocolDef(
     segment=_fedavg_segment, loop_round=_fedavg_loop_round,
     supports_wire=True, sparse_forms=('sparse', 'sparse_delta'),
     sparse_precompute=_sync_precompute(fedcs=True, form='sparse'),
-    delta_stateless=True))
+    delta_stateless=True, dispatch_budget=_wire_only_dispatch_budget))
 
 register(ProtocolDef(
     name='local', spec_cls=LocalSpec,
     precompute=_local_precompute,
     fleet_precompute=_local_fleet_precompute,
     segment=_local_segment, loop_round=_local_loop_round,
-    finish_segment=_local_finish_segment))
+    finish_segment=_local_finish_segment, dispatch_budget=lambda ex: 0))
 
 register(ProtocolDef(
     name='fedasync', spec_cls=FedAsyncSpec,
     precompute=_fedasync_precompute,
     fleet_precompute=_fedasync_fleet_precompute,
     segment=_fedasync_segment, loop_round=_fedasync_loop_round,
-    spec_overrides=True))
+    spec_overrides=True, dispatch_budget=lambda ex: 0))
 
 for _name, _cls in (('seafl', SeaflSpec), ('csafl', CsaflSpec)):
     register(ProtocolDef(
@@ -988,7 +1057,8 @@ for _name, _cls in (('seafl', SeaflSpec), ('csafl', CsaflSpec)):
         precompute=_weighted_precompute,
         fleet_precompute=_weighted_fleet_precompute,
         segment=_weighted_segment, loop_round=_weighted_loop_round,
-        supports_wire=True, supports_kernel='packed', spec_overrides=True))
+        supports_wire=True, supports_kernel='packed', spec_overrides=True,
+        dispatch_budget=agg_schemes.weighted_dispatch_budget))
 
 
 # ---------------------------------------------------------------------------

@@ -1025,7 +1025,10 @@ def _write_global(buf, global_dst, g) -> None:
         members = torch.arange(global_dst.shape[0], device=buf.device)
         buf[members, global_dst.long()] = g.to(buf.dtype)
     else:
-        buf[global_dst.long()] = g.to(buf.dtype)
+        # a [1] index, not a 0-d one: indexing by a 0-d tensor reads it
+        # back to the host
+        buf.index_copy_(0, global_dst.long().reshape(1),
+                        g.to(buf.dtype)[None])
 
 
 def safa_round_sparse_tier(global_w, buf, agg, *, idx, roles, base_src,

@@ -479,7 +479,9 @@ safa_tier_rows_kernel(float* buf, const float* __restrict__ trained,
 // committed, else its base segment (4 kTile bytes).  Each is one 1-D bulk
 // copy (cp.async.bulk, the non-tensor form of TMA) completing on the
 // stage's full mbarrier; the consumers free the stage on its empty
-// mbarrier.  Bulk copies take 16-byte sizes at 16-byte-aligned addresses:
+// mbarrier, each thread after a fence.proxy.async.shared::cta that orders
+// its reads of the stage (generic proxy) before the next bulk copy's
+// write into it (async proxy), as the PTX ISA asks.  Bulk copies take 16-byte sizes at 16-byte-aligned addresses:
 // n is a multiple of kTile (the wrapper takes multiples of 2048), so every
 // segment is aligned, and kTile / 128 scales are 32 bytes.  The consumer
 // warps own the tile's columns, 4 a thread (16-byte shared-memory reads),
@@ -734,6 +736,9 @@ safa_q8_tier_rows_kernel(const int8_t* __restrict__ q,
               t = reinterpret_cast<const float4*>(stg + kSeg)[threadIdx.x];
             }
           }
+          // the stage was read by the generic proxy and the next bulk
+          // copy into it writes by the async proxy: order the reads first
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
           __syncwarp();
           if (lane == 0) mbar_arrive(smem_u32(empty + st));
           const float4 c1 = (f & kPicked) ? t : (f & kDeprecated) ? g : c;

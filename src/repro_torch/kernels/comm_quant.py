@@ -30,6 +30,23 @@ QBLOCK = ref.QBLOCK
 #: lay a model out at the same offsets
 PACK_TILE = 2048
 
+#: In-place inventory of this module's kernel wrappers (the counterpart
+#: of the JAX package's ``ALIAS_CONTRACTS``): wrapper -> the admissible
+#: tuples of operand names it writes in place.  The quantisation kernels
+#: change width and dtype between input and output, so none writes an
+#: operand.  ``repro_torch.analysis`` holds every call of a run to this
+#: (rule T003) and every wrapper to an entry here (REP005).
+ALIAS_CONTRACTS = {
+    'quantize': ((),),
+    'dequantize': ((),),
+    'quantize_rows': ((),),
+    'dequantize_rows': ((),),
+    'quantize_packed': ((),),
+    'quantize_packed_fleet': ((),),
+    'dequantize_packed': ((),),
+    'dequantize_packed_fleet': ((),),
+}
+
 
 def _check_packed(n: int):
     if n % PACK_TILE:

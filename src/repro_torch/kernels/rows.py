@@ -17,6 +17,16 @@ import torch
 from repro_torch.kernels import backend, ref
 from repro_torch.kernels.comm_quant import _check_packed
 
+#: In-place inventory (format: ``comm_quant.ALIAS_CONTRACTS``): the
+#: scatter writes ``buf`` in place (rows it does not name never move);
+#: the gather writes a fresh output.
+ALIAS_CONTRACTS = {
+    'gather_rows': ((),),
+    'gather_rows_fleet': ((),),
+    'scatter_rows': (('buf',),),
+    'scatter_rows_fleet': (('buf',),),
+}
+
 
 def _shapes(buf, rows, fleet: bool):
     """(lead, r, k, n) of a launch: lead is (S,) for a fleet, () for one

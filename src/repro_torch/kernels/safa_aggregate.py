@@ -48,6 +48,27 @@ import torch.nn.functional as F
 from repro_torch.kernels import backend, ref
 from repro_torch.kernels.comm_quant import PACK_TILE, QBLOCK, _check_packed
 
+#: In-place inventory (format: ``comm_quant.ALIAS_CONTRACTS``): the
+#: packed routes write the new cache over ``cache``, the tier forms their
+#: new cache rows into ``buf``; the per-leaf route and the rows forms
+#: write fresh outputs (the engines scatter the rows back).
+ALIAS_CONTRACTS = {
+    'safa_aggregate': ((),),
+    'safa_aggregate_fleet': ((),),
+    'safa_aggregate_packed': (('cache',),),
+    'safa_aggregate_packed_fleet': (('cache',),),
+    'safa_aggregate_packed_q8': (('cache',),),
+    'safa_aggregate_packed_q8_fleet': (('cache',),),
+    'safa_aggregate_packed_rows': ((),),
+    'safa_aggregate_packed_rows_fleet': ((),),
+    'safa_aggregate_packed_q8_rows': ((),),
+    'safa_aggregate_packed_q8_rows_fleet': ((),),
+    'safa_aggregate_packed_tier_rows': (('buf',),),
+    'safa_aggregate_packed_tier_rows_fleet': (('buf',),),
+    'safa_aggregate_packed_q8_tier_rows': (('buf',),),
+    'safa_aggregate_packed_q8_tier_rows_fleet': (('buf',),),
+}
+
 
 def _lead(x, fleet: bool) -> tuple:
     """The member axis of a kernel operand: (S,) for a fleet, () for one

@@ -19,6 +19,12 @@ _ENTRIES = {torch.float32: 'swa_attention_f32',
             torch.bfloat16: 'swa_attention_bf16'}
 MAX_HEAD_DIM = 256
 
+#: In-place inventory (format: ``comm_quant.ALIAS_CONTRACTS``): the
+#: attention output is a fresh buffer.
+ALIAS_CONTRACTS = {
+    'swa_attention': ((),),
+}
+
 
 def swa_attention(q, k, v, *, window=None, block_q: int = 128,
                   block_k: int = 128):

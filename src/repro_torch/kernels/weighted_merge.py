@@ -19,6 +19,13 @@ from repro_torch.kernels import backend, ref
 from repro_torch.kernels.comm_quant import _check_packed
 from repro_torch.kernels.safa_aggregate import _lead
 
+#: In-place inventory (format: ``comm_quant.ALIAS_CONTRACTS``): the merge
+#: writes a fresh output.
+ALIAS_CONTRACTS = {
+    'weighted_merge_packed': ((),),
+    'weighted_merge_packed_fleet': ((),),
+}
+
 
 def _merge(key: str, entry: str, fleet: bool, trained, global_prev, wrow):
     lead = _lead(trained, fleet)

@@ -1996,3 +1996,109 @@ def test_kernel_wrappers_refuse_grad_on_the_card(dev, name):
     with pytest.raises(RuntimeError, match='not differentiable'):
         kernel_calls(dev)[name]()
     assert sum(backend.LAUNCHES.values()) == 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 20 under repetition, and the contract checker on the card
+# ---------------------------------------------------------------------------
+
+#: N of the stress check: the Task 2 CNN's int8 wire width
+STRESS_N = 342_016
+
+
+def _scale_tier(m, seed=0):
+    """Round 1 and 2's lag-tier schedule of the quota-bounded environment
+    the smoke script's tier phase runs, and its weights."""
+    from repro_torch.fedsim import scale
+    return (scale.scale_schedule(2, seed, 'sparse_tier', m=m),
+            scale.scale_spec(seed, m).build().weights)
+
+
+@pytest.mark.parametrize('shape', ['m1000', 'fleet', 'm10000'])
+@pytest.mark.parametrize('t', [0, 1])
+def test_q8_tier_kernel_repeated_equals_plain_every_launch(dev, shape, t):
+    """Kernel 20 (its S-axis form for the fleet) launched 200 times at a
+    round of the smoke script's tier shapes, each launch on a fresh copy
+    of one buffer: every launch's buffer bit for bit the plain version's,
+    its sums the first launch's bits, those within rtol 1e-5 / atol 1e-6
+    of the plain version's.  A ring stage released to the next bulk copy
+    before its reads landed shows as a launch that differs."""
+    from repro_torch.core import protocol
+    from repro_torch.core.schedules import TierFleetSchedule
+    if shape == 'fleet':
+        parts = [_scale_tier(1000, seed=i) for i in range(4)]
+        sched = TierFleetSchedule.from_members([p[0] for p in parts])
+        w = np.stack([p[1] for p in parts])
+        wrapper = safa_aggregate_packed_q8_tier_rows_fleet
+    else:
+        sched, w = _scale_tier(1000 if shape == 'm1000' else 10_000)
+        wrapper = safa_aggregate_packed_q8_tier_rows
+    lead = (4,) if shape == 'fleet' else ()
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    idx = put(sched.idx[..., t, :])
+    m4 = (put(sched.cache_src[..., t, :]), put(sched.cache_dst[..., t, :]),
+          put(sched.roles[..., t, :]),
+          protocol._slot_weights(idx, torch.as_tensor(
+              w, dtype=torch.float32, device=dev)))
+    k = idx.shape[-1]
+    gen = torch.Generator(device=dev).manual_seed(5 + t)
+
+    def normal(*s):
+        return torch.randn(s, generator=gen, device=dev)
+
+    buf0 = normal(*lead, sched.capacity + 1, STRESS_N)
+    q, scales = ref.quantize_packed_ref(normal(*lead, k, STRESS_N))
+    base, glob, agg = (normal(*lead, k, STRESS_N), normal(*lead, STRESS_N),
+                       normal(*lead, STRESS_N))
+    want = ref.safa_aggregate_q8_tier_rows_ref(q, scales, base, buf0.clone(),
+                                               glob, agg, *m4)
+    buf = torch.empty_like(buf0)
+    bad = torch.zeros(2, dtype=torch.int64, device=dev)
+    first = None
+    for _ in range(200):
+        buf.copy_(buf0)
+        ng, na, out = wrapper(q, scales, base, buf, glob, agg, *m4)
+        assert out is buf
+        bad[0] += (buf != want[2]).any()
+        if first is None:
+            first = (ng, na)
+        else:
+            bad[1] += (ng != first[0]).any() | (na != first[1]).any()
+    assert bad.tolist() == [0, 0]
+    for g, w_ in zip(first, want[:2]):
+        torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-6)
+    key = 'safa_aggregate_packed_q8_tier_rows' + ('_fleet' if lead else '')
+    assert backend.LAUNCHES[key] == 200
+
+
+#: a handful of cells: the compressed round on both engines, the rows and
+#: tier kernels, the weighted merge, and a cell without a kernel
+ANALYSIS_CELLS = ('safa[scan/dense/int8/kernel=packed]',
+                  'safa[fleet/dense/int8/kernel=packed]',
+                  'safa[scan/sparse_delta/int8/kernel=packed]',
+                  'safa[fleet/sparse_tier/int8/kernel=packed]',
+                  'seafl[scan/dense/int8/kernel=packed]',
+                  'fedavg[fleet/sparse/int8/kernel=False]',
+                  'local[scan/dense/f32/kernel=False]')
+
+
+def test_contract_checker_clean_on_the_card(dev):
+    """``repro_torch.analysis`` on the card over a handful of cells: every
+    rule ok (each segment under the sync debug mode), and each segment's
+    change of ``LAUNCHES`` equal to the budget for its rounds."""
+    from repro_torch import analysis
+    from repro_torch.analysis import launch_checks
+    cells = [c for c in analysis.iter_cells()
+             if c.label in ANALYSIS_CELLS]
+    assert len(cells) == len(ANALYSIS_CELLS)
+    rep = analysis.check_cells(cells=cells, device='cuda')
+    assert rep.ok, '\n'.join(map(str, rep.failures))
+    assert rep.rules() == {'T001', 'T002', 'T003', 'T004', 'T005', 'T006'}
+    for cell in cells:
+        run = launch_checks.run_cell(cell, 'cuda')
+        budget = cell.pdef.dispatch_budget(cell.ex)
+        assert [s.launches for s in run.segments] == \
+            [budget * launch_checks.SEG] * 2, cell.label
